@@ -1,0 +1,89 @@
+"""Weights bridge: the JAX package's ``.npz`` variable archives → a port
+``FEARNet``.
+
+The archives are flat ``{"params/<flax path>/<leaf>": array,
+"batch_stats/<flax path>/<leaf>": array}`` files, read with numpy alone. The
+port's modules carry the Flax names, so each key maps mechanically:
+
+* ``params/.../kernel`` (HWIO) → ``....weight`` (OIHW): a depthwise
+  ``(k,k,1,C)`` becomes ``(C,1,k,k)``, a 1×1 ``(1,1,Cin,Cout)`` becomes
+  ``(Cout,Cin,1,1)``;
+* ``params/.../bn/scale`` → ``....bn.weight``; every other ``bias`` stays
+  ``bias``;
+* ``batch_stats/.../mean|var`` → ``running_mean|running_var``;
+* the scalar params ``adjust``, ``bias`` (1,1,1,4), ``cls_scale`` and
+  ``template_gate`` keep their names and shapes.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+PACKAGED_FEAR_XS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "feartracker_tpu", "weights", "fear_xs.npz",
+)
+
+_LEAF = {
+    ("params", "kernel"): "weight",
+    ("params", "scale"): "weight",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def variables_from_npz(path: str) -> Dict[str, np.ndarray]:
+    """The flat ``{"params/...": ndarray, "batch_stats/...": ndarray}`` dict."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tree}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}{k}/"))
+    return out
+
+
+def torch_key(flax_key: str) -> str:
+    """'params/encoder/stem/conv/kernel' → 'encoder.stem.conv.weight'."""
+    collection, *path, leaf = flax_key.split("/")
+    return ".".join(path + [_LEAF.get((collection, leaf), leaf)])
+
+
+def load_fear_net(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
+    """Fill ``model`` from the JAX package's variables as numpy arrays, flat
+    (:func:`variables_from_npz`) or nested ``{"params", "batch_stats"}``.
+
+    Raises ``KeyError`` on any key of the model left unfilled or any array
+    left over, and ``ValueError`` on a shape mismatch.
+    """
+    flat = variables if all("/" in k for k in variables) else _flatten(variables)
+    state = model.state_dict()
+    wanted = {k for k in state if not k.endswith("num_batches_tracked")}
+    loaded: Dict[str, torch.Tensor] = {}
+    leftover = []
+    for key, arr in flat.items():
+        name = torch_key(key)
+        if name not in wanted:
+            leftover.append(key)
+            continue
+        arr = np.asarray(arr, np.float32)
+        if key.endswith("/kernel") and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        if tuple(arr.shape) != tuple(state[name].shape):
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(state[name].shape)} of {name}")
+        loaded[name] = torch.tensor(arr)  # a copy: the source may be read-only
+    missing = sorted(wanted - set(loaded))
+    if missing or leftover:
+        raise KeyError(f"weights do not match the model: missing {missing}, leftover {sorted(leftover)}")
+    state.update(loaded)
+    model.load_state_dict(state)
+    return model

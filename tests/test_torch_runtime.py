@@ -1,0 +1,129 @@
+"""The port's multi-stream tracker against the JAX ScanTracker on the CPU,
+plus the port's isolation from JAX and the chip smoke script's refusal to
+run without a card.
+
+Tolerances: 1e-3 px for the tiny tracker, as tests/test_fused_trunk.py holds
+the JAX fused tracker; for full-width FEAR-XS, boxes within 1 px (boxes are
+rounded to integers, so a float32 difference can flip one rounding) and
+confidence within 1e-4."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from feartracker_tpu.evaluate import harness as jharness
+from feartracker_tpu.models.fbnet import TINY_TRUNK as J_TINY
+from feartracker_tpu.models.fear_net import FEARNet as JFEARNet
+from feartracker_tpu.tracker.config import TrackerConfig as JTrackerConfig
+from feartracker_tpu.tracker.runtime import ScanTracker as JScanTracker
+from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net
+from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
+from feartracker_tpu_torch.models.fbnet import TINY_TRUNK
+from feartracker_tpu_torch.models.fear_net import FEARNet
+from feartracker_tpu_torch.tracker.config import TrackerConfig
+from feartracker_tpu_torch.tracker.runtime import ScanTracker
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_CFG = dict(template_size=32, instance_size=64, score_size=8, total_stride=8)
+
+
+@pytest.fixture(scope="module")
+def tiny_setup():
+    jmodel = JFEARNet(trunk_blocks=J_TINY, adjust_channels=16, towernum=1)
+    v = jmodel.init(
+        jax.random.PRNGKey(0),
+        (np.zeros((1, 32, 32, 3), np.float32), np.zeros((1, 64, 64, 3), np.float32)),
+        train=False,
+    )
+    model = FEARNet(TINY_TRUNK, adjust_channels=16, towernum=1, template_size=32)
+    load_fear_net(model, jax.tree.map(np.asarray, v))
+    rng = np.random.RandomState(3)
+    frames0 = rng.randint(0, 255, (2, 96, 128, 3), np.uint8)
+    chunk = rng.randint(0, 255, (3, 2, 96, 128, 3), np.uint8)
+    boxes = np.array([[40.0, 30, 30, 24], [60, 20, 24, 30]], np.float32)
+    return jmodel, v, model, frames0, chunk, boxes
+
+
+@pytest.mark.parametrize("crop_impl", ["mm", "gather"])
+def test_tiny_tracker_matches_jax(tiny_setup, crop_impl):
+    jmodel, v, model, frames0, chunk, boxes = tiny_setup
+    jtr = JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), crop_impl=crop_impl)
+    _, jout = jtr.track(jtr.init(frames0, boxes), chunk)
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), crop_impl=crop_impl)
+    _, out = tr.track(tr.init(frames0, boxes), chunk)
+    np.testing.assert_allclose(out["bbox"].numpy(), np.asarray(jout["bbox"]), atol=1e-3)
+    np.testing.assert_allclose(out["confidence"].numpy(), np.asarray(jout["confidence"]), atol=1e-4)
+
+
+def test_tiny_shared_frames_match_per_stream(tiny_setup):
+    _, _, model, frames0, chunk, boxes = tiny_setup
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG))
+    _, shared = tr.track(tr.init(frames0[0], boxes), chunk[:, 0])
+    _, per_stream = tr.track(tr.init(np.stack([frames0[0]] * 2), boxes),
+                             np.stack([chunk[:, 0]] * 2, axis=1))
+    for k in shared:
+        assert torch.equal(shared[k], per_stream[k]), k
+
+
+def test_fear_xs_slice_matches_jax():
+    jtr, jprov = jharness.build_scan_tracker(PACKAGED_FEAR_XS, dtype=jnp.float32)
+    f0, ch, bb = jharness.synthetic_streams(2, 3)
+    _, jout = jtr.track(jtr.init(f0, bb), ch)
+    tr, prov = build_scan_tracker(dtype=torch.float32, device="cpu")
+    f0, ch, bb = synthetic_streams(2, 3)
+    state, out = tr.track(tr.init(f0, bb), ch)
+    assert prov == jprov == "fear_xs"
+    assert tuple(out["bbox"].shape) == (3, 2, 4) and state.template_feats.shape == (2, 8, 8, 256)
+    assert np.abs(out["bbox"].numpy() - np.asarray(jout["bbox"])).max() <= 1.0
+    np.testing.assert_allclose(out["confidence"].numpy(), np.asarray(jout["confidence"]), atol=1e-4)
+    np.testing.assert_allclose(out["apce"].numpy(), np.asarray(jout["apce"]), rtol=1e-3)
+    np.testing.assert_array_equal(out["failure"].numpy(), np.asarray(jout["failure"]))
+
+
+@pytest.mark.parametrize("kw", [
+    {"dynamic_template": True}, {"update_mode": "gated"}, {"gate_params": {}},
+    {"update_interval": 2}, {"recover_context": 3.0}, {"scan_unroll": 2},
+])
+def test_unported_options_raise(tiny_setup, kw):
+    with pytest.raises(NotImplementedError):
+        ScanTracker(tiny_setup[2], TrackerConfig(**TINY_CFG), **kw)
+
+
+def test_provenance_and_load_failure(tmp_path):
+    copy = tmp_path / "mine.npz"
+    shutil.copy(PACKAGED_FEAR_XS, copy)
+    assert build_scan_tracker(str(copy), torch.float32, "cpu")[1] == "mine.npz"
+    with pytest.raises(FileNotFoundError):
+        build_scan_tracker(str(tmp_path / "missing.npz"), torch.float32, "cpu")
+
+
+def test_port_imports_no_jax_or_reference():
+    modules = []
+    for root, _, files in os.walk(os.path.join(REPO, "feartracker_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3].replace(os.sep, ".")
+                modules.append(rel.removesuffix(".__init__"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu')]\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(modules) >= 20
+
+
+def test_chip_smoke_refuses_without_cuda():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
