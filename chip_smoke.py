@@ -18,9 +18,26 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    T=8 against the same port on the CPU; then bfloat16 at S=128, T=16, with
    the kernels' launch counts over ``init`` + one ``track`` and the time per
    ``track`` call;
-6. each kernel's time beside its plain twin at the main path's shapes.
+6. each kernel's time beside its plain twin at the main path's shapes
+   (S=128; K2 at every block's 256² and 128² shape in bfloat16, each also
+   held against its plain twin there);
+7. the dual-template path: float32 at S=4, T=8 against the port on the CPU
+   in each update mode (``ema``; ``gated`` with ``fear_xs_gate.npz``;
+   ``feature`` with ``fear_xs_feature_gate.npz`` and zoom-out recovery);
+   then bfloat16 at S=128, T=16 in ``feature`` mode with
+   ``update_interval=4`` and recovery, with the launch counts over ``init``
+   + one ``track`` (a refresh frame runs K2 13 more times, at 128²) and the
+   time per ``track`` call;
+8. the ``StreamPool`` slot server at capacity 128 fed host numpy frames:
+   128 ``add``s, three serial steps (with their own launch counts), three
+   ``step_async`` calls back to back that must not wait for the card,
+   pipelined = serial, ``step_chunk`` = ``track``, blank frames
+   re-templated under ``reinit``, and a 3 s pipelined online run at 30 fps,
+   depth 2.
 
-Then one JSON line of kernels and, last, ``{"ok": true, "device": ...}``.
+Then one JSON line of kernels (``launches``: the static path's, phase 5b;
+``launches_by_path``: each path's own count) and, last,
+``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
@@ -80,6 +97,212 @@ def _block_shapes(specs, crop: int):
         h //= spec.stride
         cin = spec.out_channels
     return out
+
+
+def _max_err(a, b, key) -> float:
+    return (a[key].float().cpu() - b[key].float().cpu()).abs().max().item()
+
+
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _read(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def _phase_dual(card, n_fused, counters):
+    """Phase 7: the dual-template path (see the module docstring). Returns
+    the launch counts of the bfloat16 run over ``init`` + one ``track`` and
+    that tracker, for phase 8."""
+    import torch
+
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
+
+    # thresholds 0 so the ema and gated blends run on every refresh frame
+    feature_gate = "fear_xs_feature_gate"
+    modes = {
+        "ema": ("fear_xs", dict(update_mode="ema", update_threshold=0.0)),
+        "gated": ("fear_xs_gate", dict(update_mode="gated", update_threshold=0.0)),
+        "feature": ("fear_xs", dict(update_mode="feature", gate_params=feature_gate,
+                                    recover_context=3.0, recover_threshold=0.7, update_interval=2)),
+    }
+    f0, chunk, boxes = synthetic_streams(4, 8, seed=2)
+    for mode, (weights, kw) in modes.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            tracker, _ = build_scan_tracker(weights, torch.float32, device, dynamic_template=True, **kw)
+            state, out = tracker.track(tracker.init(f0, boxes), chunk)
+            res[device] = dict(out, dyn_feats=state.dyn_feats)
+        errs = {k: _max_err(res["cuda"], res["cpu"], k) for k in ("bbox", "confidence", "gate_obs", "dyn_feats")}
+        if not (errs["bbox"] <= 1.0 and errs["confidence"] <= 1e-3 and errs["gate_obs"] <= 1e-3):
+            raise AssertionError(f"dual {mode} f32 cuda vs cpu: {errs}")
+        print(f"[7a] dual {mode:7s} ({weights}) f32 S=4 T=8 cuda vs cpu: bbox {errs['bbox']} px (<= 1), "
+              f"confidence {errs['confidence']:.2e} (<= 1e-3), gate_obs {errs['gate_obs']:.2e} (<= 1e-3), "
+              f"dyn_feats {errs['dyn_feats']:.2e}", flush=True)
+
+    S, T, K = 128, 16, 4
+    tracker, _ = build_scan_tracker("fear_xs", torch.bfloat16, "cuda", dynamic_template=True,
+                                    update_mode="feature", gate_params=feature_gate,
+                                    update_interval=K, recover_context=3.0)
+    f0, chunk, boxes = synthetic_streams(S, T, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    _zero(counters)
+    state = tracker.init(f0, boxes)
+    state, out = tracker.track(state, chunk)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    refreshes = len(range(0, T, K))
+    want = {"K1": T, "K2": n_fused * (1 + T + refreshes)}
+    if launches != want:
+        raise AssertionError(f"dual launch counts {launches}, expected {want}")
+    for k, v in out.items():
+        if v.shape[:2] != (T, S) or (v.is_floating_point() and not torch.isfinite(v).all()):
+            raise AssertionError(f"dual output {k}: shape {tuple(v.shape)} or non-finite values")
+    if not torch.isfinite(state.dyn_feats.float()).all():
+        raise AssertionError("dual dyn_feats has non-finite values")
+    for _ in range(2):
+        state, out = tracker.track(state, chunk, start_step=T)
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for r in range(reps):
+        state, out = tracker.track(state, chunk, start_step=T * (r + 3))
+    torch.cuda.synchronize()
+    track_ms = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"[7b] dual bf16 S={S} T={T} feature, update_interval={K}, recover_context=3: launches "
+          f"{launches} over init + 1 track (K2 {n_fused} + {n_fused}*{T} + {n_fused}*{refreshes}, "
+          f"{(launches['K2'] - n_fused) / T} per frame); "
+          f"finite outputs; {track_ms:.2f} ms/track, {S * T / track_ms * 1e3:.1f} frames/s [{card}]",
+          flush=True)
+    return launches, tracker
+
+
+def _phase_pool(card, n_fused, counters, tracker):
+    """Phase 8: the StreamPool slot server at capacity 128 on host frames.
+    Returns the launch counts of its 128 ``add``s and of three serial steps,
+    each read over that run alone."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.evaluate.fps import fps_benchmark, pipelined_online_benchmark
+    from feartracker_tpu_torch.evaluate.harness import DEMO_BBOX
+    from feartracker_tpu_torch.tracker.serving import StreamPool
+
+    cap, hw = 128, (256, 480)
+    rng = np.random.RandomState(3)
+    video = rng.randint(0, 255, (12, *hw, 3), dtype=np.uint8)
+    frames = [np.broadcast_to(v, (cap, *hw, 3)) for v in video]  # host numpy, one view per frame
+
+    def fill(pool):
+        for i in range(cap):
+            pool.add(video[0], (DEMO_BBOX[0] + i % 8, DEMO_BBOX[1], DEMO_BBOX[2], DEMO_BBOX[3]))
+
+    _zero(counters)
+    pool = StreamPool(tracker, cap, hw)
+    t0 = time.perf_counter()
+    fill(pool)
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t0) * 1e3 / cap
+    launches = {"pool_add": _read(counters)}
+    if pool.num_active != cap or launches["pool_add"] != {"K1": 0, "K2": n_fused * cap}:
+        raise AssertionError(f"pool: {pool.num_active} active, launches {launches['pool_add']} after {cap} adds")
+
+    # warm the pinned host blocks, then three serial steps: their own launches
+    for t in range(4):
+        pool.step_async(frames[t]).result()
+    torch.cuda.synchronize()
+    start, count = pool.state, pool._step_count
+    _zero(counters)
+    serial = [pool.step(frames[4 + t]) for t in range(3)]
+    torch.cuda.synchronize()
+    launches["pool_step"] = _read(counters)
+    refreshes = sum((count + t) % tracker.update_interval == 0 for t in range(3))
+    want = {"K1": 3, "K2": n_fused * (3 + refreshes)}
+    if launches["pool_step"] != want:
+        raise AssertionError(f"pool: launches {launches['pool_step']} over 3 steps, expected {want}")
+
+    # three dispatches back to back: the host's cost of each, then the check
+    # with a device-side delay queued first, so that it does not hang on
+    # host speed; a sync anywhere in step_async would wait through the delay
+    # and through step 1. margin: from the third return to step 1's end
+    def three_async(delay_cycles=0):
+        pool.state, pool._step_count = start, count
+        torch.cuda.synchronize()
+        if delay_cycles:
+            torch.cuda._sleep(delay_cycles)
+        pending, ms = [], []
+        for t in range(3):
+            t0 = time.perf_counter()
+            pending.append(pool.step_async(frames[4 + t]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        first_done = pending[0].done.query()
+        pending[0].done.synchronize()
+        margin_ms = (time.perf_counter() - t0) * 1e3
+        results = [p.result() for p in pending]
+        for a, b in zip(serial, results):
+            if not (np.abs(a["bbox"] - b["bbox"]).max() <= 1e-3 and (a["failure"] == b["failure"]).all()):
+                raise AssertionError("pool: pipelined results differ from serial ones")
+        return ms, first_done, margin_ms
+
+    dispatch_ms, _, _ = three_async()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(100_000_000)
+    e1.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 100_000_000 / e0.elapsed_time(e1)
+    delay_ms = sum(dispatch_ms) + 30.0
+    checked_ms, first_done, margin_ms = three_async(int(delay_ms * cycles_per_ms))
+    # the third dispatch fills the card's launch queue (about 1000 pending
+    # launches) and waits for the delay to end; the first two must not
+    if first_done or not sum(checked_ms[:2]) < delay_ms:
+        raise AssertionError(f"pool: a hidden sync: dispatches {checked_ms} ms behind a {delay_ms:.0f} ms delay, "
+                             f"step 1 done when the third returned: {first_done}")
+    print(f"[8] pool cap {cap}: {cap} adds ({add_ms:.2f} ms each); launches {launches}; step_async x3 back "
+          f"to back: host ms per dispatch {[round(m, 2) for m in dispatch_ms]}; behind a {delay_ms:.0f} ms "
+          f"device delay {[round(m, 2) for m in checked_ms]}, and step 1 ended {margin_ms:.2f} ms after the "
+          f"third returned: no hidden sync; pipelined == serial", flush=True)
+    pool.state, pool._step_count = start, count
+    lat = fps_benchmark(lambda: pool.step(frames[7]), sync=lambda out: None, warmup=2, timed=20,
+                        device="cuda")
+    print(f"[8] serial pool.step cap {cap}: p50 {lat['p50_ms']:.2f} ms, p99 {lat['p99_ms']:.2f} ms "
+          f"[{card}]", flush=True)
+
+    # step_chunk against ScanTracker.track from the same state
+    pool.state, pool._step_count = start, count
+    chunk = np.broadcast_to(video[4:8, None], (4, cap, *hw, 3))
+    got = pool.step_chunk(chunk)
+    on_card = torch.from_numpy(video[4:8]).cuda()[:, None].expand(4, cap, *hw, 3)
+    _, want = tracker.track(start, on_card, start_step=count)
+    box_err = np.abs(got["bbox"] - want["bbox"].cpu().numpy()).max()
+    if not (box_err <= 1e-3 and (got["failure"] == want["failure"].cpu().numpy()).all()):
+        raise AssertionError(f"pool: step_chunk differs from ScanTracker.track (bbox {box_err})")
+    print(f"[8] step_chunk T=4 == ScanTracker.track: bbox max|err| {box_err}", flush=True)
+
+    # blank frames under "reinit": every failed slot gets a new template
+    reinit = StreamPool(tracker, cap, hw, failure_policy="reinit")
+    fill(reinit)
+    before = reinit.state.template_feats.float().cpu()
+    out = reinit.step(np.zeros((cap, *hw, 3), np.uint8))
+    after = reinit.state.template_feats.float().cpu()
+    changed = (after - before).flatten(1).abs().amax(1) > 0
+    failed = torch.from_numpy(out["failure"])
+    if not failed.any() or not torch.equal(changed, failed):
+        raise AssertionError(f"reinit: {int(failed.sum())} failed, {int(changed.sum())} re-templated")
+    print(f"[8] reinit: blank frames failed {int(failed.sum())}/{cap} slots, all re-templated", flush=True)
+    del reinit
+
+    stats = pipelined_online_benchmark(
+        dispatch=lambda: pool.step_async(frames[int(time.time() * 30) % len(frames)]),
+        fetch=lambda h: h.result(), duration_s=3.0, input_fps=30.0, depth=2, device="cuda")
+    print(f"[8] pipelined online cap {cap}, 30 fps, depth 2, 3 s: completed {stats['completed']:.0f}, "
+          f"dropped {stats['dropped']:.0f}, latency p50 {stats['latency_p50_ms']:.2f} ms, "
+          f"p99 {stats['latency_p99_ms']:.2f} ms, device peak {stats['hbm_high_watermark_mb']:.0f} MiB "
+          f"[{card}]", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -217,29 +440,54 @@ def main() -> int:
     k1_ms = _time_ms(lambda: postprocess_cuda(cls_m, reg_m, cfg, prev_size=prev), iters=200)
     k1_plain = _time_ms(lambda: pp.postprocess(cls_m, reg_m, cfg, prev_size=prev), iters=200)
     print(f"[6] K1 S=128: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms [{card}]", flush=True)
-    k2_ms = k2_plain = 0.0
-    for i, spec, cin, h in _block_shapes(FEAR_XS_TRUNK, 256):
-        if spec.expansion == 1:
-            continue
-        blk = tracker.folded["blocks"][i]
-        x = torch.randn(128, h, h, cin, generator=gen, device=dev).to(torch.bfloat16)
-        km = _time_ms(lambda: fused_ir_block(x, blk, spec))
-        pm = _time_ms(lambda: plain_ir_block(x, blk, spec))
-        k2_ms += km
-        k2_plain += pm
-        print(f"[6] K2 block{i:2d} x (128,{h},{h},{cin}) bf16 {spec}: kernel {km:.3f} ms, "
-              f"plain {pm:.3f} ms", flush=True)
-    print(f"[6] K2 sum over {n_fused} blocks, search crop, S=128 bf16: kernel {k2_ms:.3f} ms, "
-          f"plain {k2_plain:.3f} ms [{card}]", flush=True)
+    # K2 at S=128 bf16 at the search (256²) and template (128²) shapes: held
+    # against its plain twin with fan-in-scaled weights (phase 4's bf16
+    # tolerance), then timed with the packaged weights
+    k2_ms, k2_plain, k2_s128_err = {}, {}, 0.0
+    for crop, what in ((256, "search"), (128, "template")):
+        k2_ms[crop] = k2_plain[crop] = 0.0
+        for i, spec, cin, h in _block_shapes(FEAR_XS_TRUNK, crop):
+            if spec.expansion == 1:
+                continue
+            x = torch.randn(128, h, h, cin, generator=gen, device=dev).to(torch.bfloat16)
+            rnd = _random_block(gen, cin, spec, torch.bfloat16, dev)
+            err = (fused_ir_block(x, rnd, spec).float() - plain_ir_block(x, rnd, spec).float()).abs().max().item()
+            if not err <= tol[torch.bfloat16]:
+                raise AssertionError(f"K2 block{i} crop {crop} S=128 bf16: max|err| {err} > {tol[torch.bfloat16]}")
+            k2_s128_err = max(k2_s128_err, err)
+            blk = tracker.folded["blocks"][i]
+            real = fused_ir_block(x, blk, spec).float()
+            real_ref = plain_ir_block(x, blk, spec).float()
+            real_err, real_mag = (real - real_ref).abs().max().item(), real_ref.abs().max().item()
+            km = _time_ms(lambda: fused_ir_block(x, blk, spec))
+            pm = _time_ms(lambda: plain_ir_block(x, blk, spec))
+            k2_ms[crop] += km
+            k2_plain[crop] += pm
+            print(f"[6] K2 block{i:2d} x (128,{h},{h},{cin}) bf16 {spec}: max|err| {err:.3e} (atol 0.15); "
+                  f"packaged weights max|err| {real_err:.3e} of max|out| {real_mag:.3e}; "
+                  f"kernel {km:.3f} ms, plain {pm:.3f} ms", flush=True)
+        print(f"[6] K2 sum over {n_fused} blocks, {what} crop, S=128 bf16: kernel {k2_ms[crop]:.3f} ms, "
+              f"plain {k2_plain[crop]:.3f} ms [{card}]", flush=True)
+    print(f"[6] K2 S=128 bf16, {2 * n_fused} block shapes: max|err| {k2_s128_err:.3e} (atol 0.15)", flush=True)
+
+    # -- 7, 8: the dual-template path and the slot server -----------------
+    counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
+    dual_launches, dual_tracker = _phase_dual(card, n_fused, counters)
+    pool_launches = _phase_pool(card, n_fused, counters, dual_tracker)
+    by_path = {"static": launches, "dual": dual_launches, **pool_launches}
+
+    def count(k):
+        # launches: the static main path's; each other path's own count beside it
+        return {"launches": launches[k], "launches_by_path": {name: p[k] for name, p in by_path.items()}}
 
     kernels = [
         {"name": "K1 fused decode", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
-         "replaces": "feartracker_tpu/ops/pallas/decode.py:27", "launches": launches["K1"],
+         "replaces": "feartracker_tpu/ops/pallas/decode.py:27", **count("K1"),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
         {"name": "K2 fused inverted-residual block", "route": "cuda",
          "source": "feartracker_tpu_torch/csrc/ir_block.cu",
-         "replaces": "feartracker_tpu/ops/pallas/ir_block.py:131", "launches": launches["K2"],
-         "max_abs_err": k2_err[torch.float32], "ms": k2_ms, "plain_ms": k2_plain},
+         "replaces": "feartracker_tpu/ops/pallas/ir_block.py:131", **count("K2"),
+         "max_abs_err": k2_err[torch.float32], "ms": k2_ms[256], "plain_ms": k2_plain[256]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

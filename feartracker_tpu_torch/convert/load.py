@@ -37,9 +37,19 @@ _LEAF = {
 }
 
 
+def resolve_weights(path: str) -> str:
+    """A bare model-zoo name ("fear_xs", "fear_xs_gate") → its packaged
+    archive; any other path is returned as it is."""
+    zoo = os.path.join(os.path.dirname(PACKAGED_FEAR_XS), f"{path}.npz")
+    if os.sep not in path and os.path.exists(zoo):
+        return zoo
+    return path
+
+
 def variables_from_npz(path: str) -> Dict[str, np.ndarray]:
-    """The flat ``{"params/...": ndarray, "batch_stats/...": ndarray}`` dict."""
-    with np.load(path) as z:
+    """The flat ``{"params/...": ndarray, "batch_stats/...": ndarray}`` dict
+    of an archive path or a bare zoo name (:func:`resolve_weights`)."""
+    with np.load(resolve_weights(path)) as z:
         return {k: z[k] for k in z.files}
 
 

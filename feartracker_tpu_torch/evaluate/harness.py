@@ -10,7 +10,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net, variables_from_npz
+from feartracker_tpu_torch.convert.load import (
+    PACKAGED_FEAR_XS,
+    load_fear_net,
+    resolve_weights,
+    variables_from_npz,
+)
 from feartracker_tpu_torch.models.fear_net import build_family_model
 from feartracker_tpu_torch.tracker.runtime import ScanTracker
 
@@ -21,15 +26,23 @@ def build_scan_tracker(
     weights_path: str = PACKAGED_FEAR_XS,
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
+    model_name: str = "fear_xs",
+    towernum: int = 2,
+    **tracker_kw,
 ) -> Tuple[ScanTracker, str]:
-    """(ScanTracker, weights_provenance). Provenance is "fear_xs" when the
-    packaged ``fear_xs.npz`` loaded, else the weights file's basename. A
-    load failure raises: there is no random-weights fallback."""
-    model = build_family_model("fear_xs")
+    """(ScanTracker, weights_provenance). ``weights_path`` is an ``.npz``
+    archive or a bare zoo name ("fear_xs_gate"); ``model_name`` picks the
+    family trunk; ``tracker_kw`` go to :class:`ScanTracker` (e.g.
+    ``dynamic_template``, ``update_mode``, ``gate_params``). Provenance is
+    "fear_xs" when the packaged ``fear_xs.npz`` loaded, else the weights
+    file's basename. A load failure raises: there is no random-weights
+    fallback."""
+    weights_path = resolve_weights(weights_path)
+    model = build_family_model(model_name, towernum=towernum)
     load_fear_net(model, variables_from_npz(weights_path))
     same = os.path.exists(PACKAGED_FEAR_XS) and os.path.samefile(weights_path, PACKAGED_FEAR_XS)
     provenance = "fear_xs" if same else os.path.basename(weights_path)
-    return ScanTracker(model, dtype=dtype, device=device), provenance
+    return ScanTracker(model, dtype=dtype, device=device, **tracker_kw), provenance
 
 
 def synthetic_streams(

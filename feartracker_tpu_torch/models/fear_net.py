@@ -4,7 +4,9 @@
 Entry points, NHWC in and out:
   * ``get_features(crop)`` — trunk + neck;
   * ``connector(template_features, search_features[, update])`` — the head;
-  * ``track(search, template_features[, update])`` — both.
+  * ``track(search, template_features[, update])`` — both;
+  * ``forward((template, search))`` — the JAX ``__call__`` at eval;
+  * ``forward_dual((template, search, aux))`` — the dual-template forward.
 
 Flax infers input widths at init; torch needs them at construction, so the
 correlation width (template cells, 8·8 = 64 for FEAR-XS) comes from
@@ -13,7 +15,7 @@ correlation width (template cells, 8·8 = 64 for FEAR-XS) comes from
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -71,3 +73,20 @@ class FEARNet(nn.Module):
         update_features: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         return self.connector(template_features, self.get_features(search), update_features)
+
+    def forward(self, x: Tuple[torch.Tensor, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        template, search = x
+        return self.connector(self.get_features(template), self.get_features(search))
+
+    def forward_dual(self, x: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """(template, search, aux_template): the classification branch
+        correlates against ``(1 − g)·template + g·aux`` with the learned
+        ``g = sigmoid(template_gate)``, cast to the features' dtype after the
+        sigmoid (as in JAX)."""
+        template, search, aux = x
+        template_features = self.get_features(template)
+        search_features = self.get_features(search)
+        aux_features = self.get_features(aux)
+        gate = torch.sigmoid(self.template_gate.float()).to(template_features.dtype)
+        update = (1.0 - gate) * template_features + gate * aux_features
+        return self.connector(template_features, search_features, update)

@@ -12,6 +12,7 @@ batched contractions (:func:`crop_resize_mm`, the default).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import torch
@@ -102,10 +103,20 @@ def crop_resize_mm(
     return out + (1.0 - wmap) * pad_value[:, None, None, :]
 
 
+@lru_cache(maxsize=8)
+def _imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, std) × 255 on ``device``, copied there once: a copy from host
+    memory in the per-frame loop would make the host wait for the card.
+    Made outside inference mode, so the cached pair serves any caller."""
+    with torch.inference_mode(False):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0
+        return mean.to(device), std.to(device)
+
+
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
     """[0,255] float pixels (..., 3) → ImageNet-normalized."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device) * 255.0
+    mean, std = _imagenet_stats(x.device)
     return (x - mean) / std
 
 

@@ -87,13 +87,28 @@ def test_fear_xs_slice_matches_jax():
     np.testing.assert_array_equal(out["failure"].numpy(), np.asarray(jout["failure"]))
 
 
-@pytest.mark.parametrize("kw", [
-    {"dynamic_template": True}, {"update_mode": "gated"}, {"gate_params": {}},
-    {"update_interval": 2}, {"recover_context": 3.0}, {"scan_unroll": 2},
-])
+@pytest.mark.parametrize("kw", [{"scan_unroll": 2}])
 def test_unported_options_raise(tiny_setup, kw):
     with pytest.raises(NotImplementedError):
         ScanTracker(tiny_setup[2], TrackerConfig(**TINY_CFG), **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"update_mode": "sometimes"},
+    {"dynamic_template": True, "update_mode": "feature"},
+    {"dynamic_template": True, "update_mode": "ema", "gate_params": {}},
+    {"update_interval": 0},
+    {"recover_context": -1.0},
+    {"scan_unroll": 0},
+], ids=["bad_update_mode", "feature_without_gate", "gate_with_ema", "update_interval_0",
+        "negative_recover_context", "scan_unroll_0"])
+def test_bad_options_raise_value_error(tiny_setup, kw):
+    """The JAX ScanTracker's ValueErrors, for the same arguments."""
+    with pytest.raises(ValueError):
+        ScanTracker(tiny_setup[2], TrackerConfig(**TINY_CFG), **kw)
+    jmodel, v = tiny_setup[:2]
+    with pytest.raises(ValueError):
+        JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), **kw)
 
 
 def test_provenance_and_load_failure(tmp_path):

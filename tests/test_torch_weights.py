@@ -95,3 +95,19 @@ def test_trunk_tables_match_reference():
     for name, blocks in fbnet.TRUNKS.items():
         assert [tuple(b) for b in blocks] == [tuple(b) for b in jfbnet.TRUNKS[name]], name
     assert fear_net.FAMILY_TOWERNUM == jfear_net.FAMILY_TOWERNUM
+
+
+def test_bare_zoo_names_resolve_like_jax(tmp_path):
+    """A bare zoo name is the packaged archive (as JAX ``load_variables``
+    resolves it); anything else passes through unchanged."""
+    from feartracker_tpu.convert.load import load_variables
+    from feartracker_tpu_torch.convert.load import resolve_weights
+
+    assert resolve_weights("fear_xs_gate") == os.path.join(WEIGHTS, "fear_xs_gate.npz")
+    assert os.path.samefile(resolve_weights("fear_xs"), PACKAGED_FEAR_XS)
+    assert resolve_weights("no_such_model") == "no_such_model"
+    assert resolve_weights(str(tmp_path / "fear_xs")) == str(tmp_path / "fear_xs")
+    ours = variables_from_npz("fear_xs_gate")
+    ref = load_variables("fear_xs_gate")
+    np.testing.assert_array_equal(ours["params/template_gate"], ref["params"]["template_gate"])
+    assert ours["params/template_gate"][0] != 0.0  # the trained gate, not the zero fill
