@@ -33,10 +33,20 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    ``step_async`` calls back to back that must not wait for the card,
    pipelined = serial, ``step_chunk`` = ``track``, blank frames
    re-templated under ``reinit``, and a 3 s pipelined online run at 30 fps,
-   depth 2.
+   depth 2;
+9. the sequential tracker ``FEARTracker`` (S=1) on a 60-frame 480×256
+   clip rendered with numpy: ``get_extended_crop`` on the card equal to the
+   CPU byte for byte; K2 at all 26 FEAR-XS block shapes and K1 in both
+   ``smooth`` modes at S=1 against their plain twins, with their times;
+   float32 boxes within 1 px of the CPU port in the static, dual-EMA
+   (``update_interval=4``) and recovery configurations, with the launch
+   counts over ``initialize`` + 59 updates; ``update`` wall p50/p99, device
+   busy time and ``initialize`` time in float32 and bfloat16; then the OPE,
+   VOT and batched protocols on four 24-frame clips, card against CPU.
 
 Then one JSON line of kernels (``launches``: the static path's, phase 5b;
-``launches_by_path``: each path's own count) and, last,
+``launches_by_path``: each path's own count; ``s1``: the times at S=1)
+and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -305,6 +315,285 @@ def _phase_pool(card, n_fused, counters, tracker):
     return launches
 
 
+def _render_clip(seed: int, n_frames: int, hw=(256, 480)):
+    """(frames, boxes): a textured object moving on an ellipse and changing
+    scale over a noise background, rendered with numpy from ``seed``;
+    ``boxes`` (n, 4) xywh float64 is its true box."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    coarse = np.kron(rng.randint(0, 256, (H // 16, W // 16, 3)), np.ones((16, 16, 1), np.int64))
+    background = coarse // 2 + rng.randint(0, 128, (H, W, 3))
+    texture = np.kron(rng.randint(0, 256, (8, 8, 3)), np.ones((8, 8, 1), np.int64))  # 64×64
+    phase = rng.rand() * 2 * np.pi
+    frames, boxes = [], []
+    for t in range(n_frames):
+        a = phase + 2 * np.pi * t / 60
+        s = 1.0 + 0.35 * np.sin(2 * a)
+        w, h = int(56 * s), int(40 * s)
+        x0 = int(np.clip(round(W / 2 + 0.35 * W * np.sin(a) - w / 2), 0, W - w))
+        y0 = int(np.clip(round(H / 2 + 0.3 * H * np.cos(a) - h / 2), 0, H - h))
+        frame = np.clip(background + rng.randint(-8, 9, (H, W, 3)), 0, 255)
+        frame[y0:y0 + h, x0:x0 + w] = texture[np.arange(h) * 64 // h][:, np.arange(w) * 64 // w]
+        frames.append(frame.astype(np.uint8))
+        boxes.append([x0, y0, w, h])
+    return frames, np.asarray(boxes, np.float64)
+
+
+# phase 9d's configurations: static, dual EMA every 4th update, and zoom-out
+# recovery with a threshold the clip's confidences (0.989-1.0 on the CPU)
+# cross, so that the wider window is really taken
+SEQUENTIAL_CONFIGS = {
+    "static": {},
+    "dual_ema": dict(dynamic_template=True, update_interval=4),
+    "recover": dict(recover_context=3.0, recover_threshold=0.995),
+}
+
+
+def _fear_tracker(device, dtype, **kw):
+    from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net, variables_from_npz
+    from feartracker_tpu_torch.models.fear_net import build_family_model
+    from feartracker_tpu_torch.tracker.tracker import FEARTracker
+
+    model = load_fear_net(build_family_model("fear_xs"), variables_from_npz(PACKAGED_FEAR_XS))
+    return FEARTracker(model, dtype=dtype, device=device, **kw)
+
+
+def _track_clip(tracker, frames, box):
+    """initialize + one update per frame → (boxes (n-1, 4), confidences,
+    number of dual refreshes, number of recovery crops)."""
+    import numpy as np
+
+    tracker.initialize(frames[0], box)
+    out, refreshes, recoveries = [], 0, 0
+    for f in frames[1:]:
+        dyn = tracker._dyn_features
+        recoveries += bool(tracker.recover_context and tracker.last_confidence < tracker.recover_threshold)
+        out.append(tracker.update(f))
+        refreshes += tracker._dyn_features is not dyn
+    return (np.array([o["bbox"] for o in out], np.float64), np.array([o["confidence"] for o in out]),
+            refreshes, recoveries)
+
+
+def _protocol_suite(seqs):
+    """An in-memory GOT-10k-like dataset of decoded frames."""
+    from feartracker_tpu_torch.data.sequence import SequenceDataset
+
+    class InMemory(SequenceDataset):
+        name = "synthetic"
+
+        def __init__(self):
+            super().__init__()
+            self._sequences = [(f"clip{i}", frames, boxes) for i, (frames, boxes) in enumerate(seqs)]
+
+    return InMemory()
+
+
+def _protocols(device, seqs):
+    """The three protocols on ``seqs`` in float32 on ``device``: OPE and VOT
+    with ``FEARTracker``, letterboxed ``batched_evaluate`` with ``ScanTracker``."""
+    import torch
+
+    from feartracker_tpu_torch.evaluate.batched_eval import batched_evaluate
+    from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker
+    from feartracker_tpu_torch.evaluate.vot_eval import evaluate_vot
+
+    ds = _protocol_suite(seqs)
+    tracker = _fear_tracker(device, torch.float32)
+    scan, _ = build_scan_tracker(dtype=torch.float32, device=device)
+    h, w = seqs[0][0][0].shape[:2]
+    return {
+        "ope": evaluate_tracker(tracker, ds),
+        "vot": evaluate_vot(tracker, ds),
+        "batched": batched_evaluate(scan, ds, streams=len(seqs), frame_hw=(h, w)),
+    }
+
+
+def _kernel_trace_ms(fn, n: int, out_dir: str):
+    """Device busy ms per call of ``fn`` over ``n`` calls, from the kernel,
+    copy and memset rows of a ``torch.profiler`` trace (op rows repeat their
+    kernels' time); None when the trace holds no device rows."""
+    import torch
+
+    from feartracker_tpu_torch.evaluate.profiling import trace
+
+    with trace(out_dir):
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with open(f"{out_dir}/trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    busy = sum(e.get("dur", 0) for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return busy / 1e3 / n if busy else None
+
+
+def _phase_sequential(card, n_fused, counters, gen):
+    """Phase 9: the sequential tracker and the evaluation protocols at S=1.
+    Returns (launch counts by path, kernel times at S=1, update p50 ms by
+    dtype)."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.core import postprocess as pp
+    from feartracker_tpu_torch.data.crops import get_extended_crop
+    from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
+    from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
+    from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
+    from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
+
+    dev = torch.device("cuda")
+    # -- 9a: frames
+    frames, boxes = _render_clip(seed=9, n_frames=60)
+    H, W = frames[0].shape[:2]
+    print(f"[9a] clip: {len(frames)} frames {W}x{H}, object {boxes[:, 2].min():.0f}-{boxes[:, 2].max():.0f} px "
+          f"wide", flush=True)
+
+    # -- 9b: the crop, card against CPU, byte for byte
+    edge_boxes = [boxes[0], boxes[30], (2, 100, 40, 30), (W - 42, 100, 40, 30), (200, 1, 40, 30),
+                  (200, H - 31, 40, 30), (0, 0, 60, 50), (W - 61, H - 51, 60, 50), (10, 10, W - 20, H - 20)]
+    n_crops = 0
+    for img in (frames[0], frames[45]):
+        on_card = torch.from_numpy(img).to(dev)
+        for box in edge_boxes:
+            box = np.asarray(box, np.float64)
+            for size, offset, pad in ((128, 0.2, None), (256, 2.0, img.mean(axis=(0, 1))), (256, 3.0, None)):
+                got = get_extended_crop(on_card, box, size, offset, pad)
+                want = get_extended_crop(img, box, size, offset, pad)
+                if not (torch.equal(got[0].cpu(), want[0]) and np.array_equal(got[1], want[1])
+                        and np.array_equal(got[2], want[2])):
+                    raise AssertionError(f"crop {box} size {size} offset {offset}: card differs from CPU")
+                n_crops += 1
+    print(f"[9b] get_extended_crop card == CPU byte for byte: {n_crops} crops (template 128², search "
+          f"256² at context 2 and 3; windows past every side of the frame)", flush=True)
+
+    # -- 9c: K2 at every FEAR-XS block shape and K1, at S=1
+    tol = {torch.float32: 1e-4, torch.bfloat16: 0.15}
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    k2_times = {}
+    for crop in (256, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            per_block = []
+            for i, spec, cin, h in _block_shapes(FEAR_XS_TRUNK, crop):
+                if spec.expansion == 1:
+                    continue
+                blk = _random_block(gen, cin, spec, dt, dev)
+                x = torch.randn(1, h, h, cin, generator=gen, device=dev).to(dt)
+                e = (fused_ir_block(x, blk, spec).float() - plain_ir_block(x, blk, spec).float()).abs().max().item()
+                if not e <= tol[dt]:
+                    raise AssertionError(f"K2 S=1 block{i} crop {crop} {dt}: max|err| {e} > {tol[dt]}")
+                err[dt] = max(err[dt], e)
+                per_block.append((i, _time_ms(lambda: fused_ir_block(x, blk, spec), iters=50),
+                                  _time_ms(lambda: plain_ir_block(x, blk, spec), iters=50)))
+            ms, plain = sum(b[1] for b in per_block), sum(b[2] for b in per_block)
+            k2_times[f"{crop}_{str(dt)[6:]}"] = {"ms": ms, "plain_ms": plain}
+            print(f"[9c] K2 S=1 {crop}² {str(dt)[6:]}: {n_fused} blocks within atol {tol[dt]}; sum kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms; per block (kernel/plain ms) "
+                  f"{' '.join(f'{i}:{k:.3f}/{p:.3f}' for i, k, p in per_block)} [{card}]", flush=True)
+    reg = torch.rand(1, 16, 16, 4, generator=gen, device=dev) * 40 + 4
+    logits = torch.randn(1, 16, 16, 1, generator=gen, device=dev)
+    prev = torch.rand(1, 2, generator=gen, device=dev) * 60 + 20
+    k1_err = 0.0
+    for smooth in (False, True):
+        cfg = pp.PostprocessConfig(smooth=smooth)
+        ref = pp.postprocess(logits, reg, cfg, prev_size=prev)
+        got = postprocess_cuda(logits, reg, cfg, prev_size=prev)
+        torch.testing.assert_close(got.bbox, ref.bbox, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(got.confidence, ref.confidence, rtol=1e-5, atol=1e-6)
+        if not torch.equal(got.pred_coords, ref.pred_coords):
+            raise AssertionError(f"K1 S=1 smooth={smooth}: coords differ from the plain twin")
+        k1_err = max(k1_err, (got.bbox - ref.bbox).abs().max().item())
+    cfg = pp.PostprocessConfig()
+    k1_times = {"ms": _time_ms(lambda: postprocess_cuda(logits, reg, cfg, prev_size=prev), iters=200),
+                "plain_ms": _time_ms(lambda: pp.postprocess(logits, reg, cfg, prev_size=prev), iters=200)}
+    print(f"[9c] K1 S=1 both smooth modes: bbox max|err| {k1_err:.3e}, coords exact; kernel "
+          f"{k1_times['ms']:.4f} ms, plain {k1_times['plain_ms']:.4f} ms; K2 S=1 max|err| f32 "
+          f"{err[torch.float32]:.3e}, bf16 {err[torch.bfloat16]:.3e} [{card}]", flush=True)
+
+    # -- 9d, 9e: boxes card vs CPU in float32; launch counts over init + N updates
+    N = len(frames) - 1
+    launches = {}
+    for name, kw in SEQUENTIAL_CONFIGS.items():
+        cpu_boxes, cpu_conf, cpu_ref, _ = _track_clip(_fear_tracker("cpu", torch.float32, **kw), frames, boxes[0])
+        tracker = _fear_tracker("cuda", torch.float32, **kw)
+        torch.cuda.synchronize()
+        _zero(counters)
+        got_boxes, got_conf, refreshes, recoveries = _track_clip(tracker, frames, boxes[0])
+        torch.cuda.synchronize()
+        counts = _read(counters)
+        box_err = np.abs(got_boxes - cpu_boxes).max()
+        conf_err = np.abs(got_conf - cpu_conf).max()
+        if not (box_err <= 1.0 and conf_err <= 1e-3 and refreshes == cpu_ref):
+            raise AssertionError(f"sequential {name} f32 card vs cpu: bbox {box_err} px, confidence {conf_err}, "
+                                 f"refreshes {refreshes} vs {cpu_ref}")
+        want = {"K1": N, "K2": n_fused * (1 + N + refreshes)}
+        if counts != want:
+            raise AssertionError(f"sequential {name}: launches {counts}, expected {want}")
+        if name == "dual_ema" and not refreshes:
+            raise AssertionError("sequential dual_ema: no refresh ran")
+        if name == "recover" and not recoveries:
+            raise AssertionError("sequential recover: the wider window was never taken")
+        launches["sequential" if name == "static" else f"sequential_{name}"] = counts
+        print(f"[9d] FEARTracker {name:8s} f32, init + {N} updates, card vs cpu: bbox max|err| {box_err} px "
+              f"(<= 1), confidence {conf_err:.2e} (<= 1e-3); {refreshes} refreshes, {recoveries} recovery "
+              f"crops; [9e] launches {counts} = K1 {N}, K2 {n_fused}*(1 + {N} + {refreshes})", flush=True)
+
+    # -- 9f: timing on the card, after warmup
+    seq_ms = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tracker = _fear_tracker("cuda", dt)
+        init_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.initialize(frames[0], boxes[0])
+            torch.cuda.synchronize()
+            init_ms.append((time.perf_counter() - t0) * 1e3)
+        for f in frames[1:11]:
+            tracker.update(f)
+        wall = []
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        tracker.initialize(frames[0], boxes[0])
+        e0.record()
+        for rep in range(2):
+            for f in frames[1:]:
+                t0 = time.perf_counter()
+                tracker.update(f)  # ends with the read of box and confidence
+                wall.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        torch.cuda.synchronize()
+        span = e0.elapsed_time(e1) / len(wall)
+        it = iter(frames[1:21])
+        busy = _kernel_trace_ms(lambda: tracker.update(next(it)), 20, f"chiprun_out/trace_sequential_{str(dt)[6:]}")
+        p50, p99 = np.percentile(wall, 50), np.percentile(wall, 99)
+        seq_ms[str(dt)[6:]] = p50
+        share = "not measured" if busy is None else f"{busy:.3f} ms ({100 * busy / np.mean(wall):.1f}% of the wall)"
+        print(f"[9f] FEARTracker {str(dt)[6:]:8s} update over {len(wall)}: wall p50 {p50:.3f} ms, p99 {p99:.3f} ms, "
+              f"mean {np.mean(wall):.3f} ms ({1e3 / np.mean(wall):.1f} frames/s); CUDA-event span "
+              f"{span:.3f} ms per update; device busy {share}; initialize p50 {np.median(init_ms):.3f} ms "
+              f"[{card}]", flush=True)
+
+    # -- 9g: the three protocols on an in-memory suite, card vs CPU
+    seqs = [_render_clip(seed=20 + i, n_frames=24) for i in range(4)]
+    res = {device: _protocols(device, seqs) for device in ("cuda", "cpu")}
+    card_r, cpu_r = res["cuda"], res["cpu"]
+    ao = {k: (card_r[k]["ao"], cpu_r[k]["ao"]) for k in ("ope", "batched")}
+    vot = (card_r["vot"]["robustness_failures"], cpu_r["vot"]["robustness_failures"])
+    if not (all(abs(a - b) <= 0.01 for a, b in ao.values()) and vot[0] == vot[1]
+            and abs(card_r["vot"]["accuracy"] - cpu_r["vot"]["accuracy"]) <= 0.01):
+        raise AssertionError(f"protocols card vs cpu: AO {ao}, VOT failures {vot}")
+    if not (card_r["ope"]["num_sequences"] == card_r["batched"]["num_sequences"] == len(seqs)
+            and min(a for a, _ in ao.values()) > 0.5):
+        raise AssertionError(f"protocols on the card: {card_r['ope']['num_sequences']} sequences, AO {ao}")
+    print(f"[9g] protocols, {len(seqs)} x 24 frames, f32, card vs cpu: OPE AO {ao['ope'][0]:.4f} vs "
+          f"{ao['ope'][1]:.4f}; batched (ScanTracker, S={len(seqs)}) AO {ao['batched'][0]:.4f} vs "
+          f"{ao['batched'][1]:.4f}; VOT accuracy {card_r['vot']['accuracy']:.4f} vs "
+          f"{cpu_r['vot']['accuracy']:.4f}, failures {vot[0]:.0f} vs {vot[1]:.0f}, EAO "
+          f"{card_r['vot']['eao']:.4f}", flush=True)
+    return launches, {"K1": k1_times, "K2": k2_times}, seq_ms
+
+
 def main() -> int:
     import torch
 
@@ -474,7 +763,11 @@ def main() -> int:
     counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
     dual_launches, dual_tracker = _phase_dual(card, n_fused, counters)
     pool_launches = _phase_pool(card, n_fused, counters, dual_tracker)
-    by_path = {"static": launches, "dual": dual_launches, **pool_launches}
+    seq_launches, s1_times, seq_ms = _phase_sequential(card, n_fused, counters, gen)
+    print(f"[9] sequential vs batched: FEARTracker update p50 {seq_ms['float32']:.3f} ms f32, "
+          f"{seq_ms['bfloat16']:.3f} ms bf16 = {1e3 / seq_ms['bfloat16']:.1f} frames/s; ScanTracker S={S} "
+          f"T={T} bf16 {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)
+    by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it
@@ -483,11 +776,13 @@ def main() -> int:
     kernels = [
         {"name": "K1 fused decode", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
          "replaces": "feartracker_tpu/ops/pallas/decode.py:27", **count("K1"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+         "s1": s1_times["K1"]},
         {"name": "K2 fused inverted-residual block", "route": "cuda",
          "source": "feartracker_tpu_torch/csrc/ir_block.cu",
          "replaces": "feartracker_tpu/ops/pallas/ir_block.py:131", **count("K2"),
-         "max_abs_err": k2_err[torch.float32], "ms": k2_ms[256], "plain_ms": k2_plain[256]},
+         "max_abs_err": k2_err[torch.float32], "ms": k2_ms[256], "plain_ms": k2_plain[256],
+         "s1": s1_times["K2"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

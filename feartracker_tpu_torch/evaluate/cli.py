@@ -1,0 +1,225 @@
+"""Evaluation CLI of the port, the counterpart of
+``feartracker_tpu/evaluate/cli.py``:
+
+    python -m feartracker_tpu_torch.evaluate.cli macs
+    python -m feartracker_tpu_torch.evaluate.cli --device cuda fps --streams 64
+    python -m feartracker_tpu_torch.evaluate.cli --device cuda eval --root /data/got10k --subset val
+
+``--device`` (default ``cuda`` when a card is present, else ``cpu``) is where
+the trackers run; ``macs`` always counts on the CPU. Weights are the JAX
+package's ``.npz`` archives or bare zoo names.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS
+from feartracker_tpu_torch.data.sequence import DATASET_REGISTRY
+from feartracker_tpu_torch.models.fbnet import TRUNKS
+
+
+def _load(args):
+    """A float32 ``FEARNet`` from ``--weights_path`` (an ``.npz`` archive or a
+    bare zoo name), shaped by ``--model_name/--adjust_channels/--towernum``."""
+    from feartracker_tpu_torch.convert.load import load_fear_net, variables_from_npz
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+
+    model = FEARNet(TRUNKS[args.model_name], adjust_channels=args.adjust_channels,
+                    towernum=args.towernum)
+    return load_fear_net(model, variables_from_npz(args.weights_path))
+
+
+def cmd_macs(args) -> None:
+    from feartracker_tpu_torch.evaluate.flops import track_cost
+
+    print(json.dumps(track_cost(_load(args))))
+
+
+def _video(path: str, n: int) -> np.ndarray:
+    """``n`` RGB frames of ``path``, or seeded noise frames (256×480) when it
+    cannot be read (as the JAX CLI falls back)."""
+    try:
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        frames = []
+        while len(frames) < n:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        cap.release()
+        if len(frames) == n:
+            return np.stack(frames)
+    except ImportError:
+        pass
+    return np.random.RandomState(0).randint(0, 255, (n, 256, 480, 3), dtype=np.uint8)
+
+
+def cmd_fps(args) -> None:
+    from feartracker_tpu_torch.evaluate import fps as F
+    from feartracker_tpu_torch.tracker.runtime import ScanTracker
+
+    tracker = ScanTracker(_load(args), dtype=torch.bfloat16, device=args.device,
+                          dynamic_template=args.dynamic_template,
+                          update_interval=args.update_interval)
+    S, T = args.streams, args.chunk
+    video = torch.from_numpy(_video(args.video_path, T + 1)).to(args.device)
+    frames0 = video[0].expand(S, *video.shape[1:])
+    chunk = video[1:, None].expand(T, S, *video.shape[1:])
+    bboxes = torch.tensor([[163.0, 53.0, 45.0, 174.0]]).repeat(S, 1)
+
+    holder = {"state": tracker.init(frames0, bboxes), "t": 0}
+
+    def call():
+        holder["state"], outs = tracker.track(holder["state"], chunk, start_step=holder["t"])
+        holder["t"] += T
+        return outs
+
+    def sync(outs):
+        outs["bbox"][-1].cpu()
+
+    if args.protocol == "fps":
+        res = F.fps_benchmark(call, sync, csv_path=args.csv, device=args.device)
+        res["tracked_fps"] = res["fps"] * S * T
+        print(json.dumps(res))
+        return
+    for _ in range(args.warmup_calls):
+        sync(call())
+    kw = dict(duration_s=args.duration, csv_path=args.csv, device=args.device)
+    if args.protocol == "online":
+        res = F.online_benchmark(call, sync, input_fps=args.input_fps, **kw)
+    elif args.protocol == "online_pipelined":
+        res = F.pipelined_online_benchmark(call, sync, input_fps=args.input_fps,
+                                           depth=args.pipeline_depth, **kw)
+    else:
+        res = F.offline_benchmark(call, sync, fps=args.input_fps, **kw)
+    print(json.dumps(res))
+
+
+def cmd_eval(args) -> None:
+    """Sequence-dataset evaluation or submission for any registry dataset."""
+    from feartracker_tpu_torch.tracker.config import TrackerConfig
+
+    cls = DATASET_REGISTRY[args.dataset]
+    kwargs = {"subset": args.subset} if args.dataset in ("got10k", "trackingnet") else {}
+    dataset = cls(args.root, **kwargs)
+    cfg = TrackerConfig(smooth=args.smooth)
+    rec = {"recover_context": args.recover_context}
+    if args.batched and args.submit_dir:
+        raise SystemExit("--submit_dir requires the sequential tracker; drop --batched")
+    if args.supervised and (args.batched or args.submit_dir):
+        raise SystemExit("--supervised runs the sequential re-init protocol; drop --batched/--submit_dir")
+    if args.batched:
+        from feartracker_tpu_torch.evaluate.batched_eval import batched_evaluate
+        from feartracker_tpu_torch.tracker.runtime import ScanTracker
+
+        tracker = ScanTracker(_load(args), cfg, dtype=torch.bfloat16, device=args.device, **rec)
+        res = batched_evaluate(
+            tracker, dataset, streams=args.streams, max_frames=args.max_frames,
+            max_sequences=args.max_sequences, verbose=True,
+        )
+    else:
+        from feartracker_tpu_torch.tracker.tracker import FEARTracker
+
+        writers = {}
+        if args.submit_dir:
+            from feartracker_tpu_torch.evaluate.got10k_eval import (
+                write_got10k_submission,
+                write_trackingnet_submission,
+            )
+
+            writers = {"got10k": write_got10k_submission, "trackingnet": write_trackingnet_submission}
+            if args.dataset not in writers:
+                raise SystemExit(f"--submit_dir supports {sorted(writers)}, not {args.dataset!r}")
+        tracker = FEARTracker(_load(args), cfg, device=args.device, **rec)
+        if args.supervised:
+            from feartracker_tpu_torch.evaluate.vot_eval import evaluate_vot
+
+            res = evaluate_vot(tracker, dataset, max_frames=args.max_frames, verbose=True)
+        elif args.submit_dir:
+            out = writers[args.dataset](
+                tracker, dataset, args.submit_dir, max_frames=args.max_frames, verbose=True
+            )
+            res = {"submission_dir": out, "num_sequences": len(dataset)}
+        else:
+            from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+
+            res = evaluate_tracker(
+                tracker, dataset, max_frames=args.max_frames,
+                max_sequences=args.max_sequences, verbose=True,
+            )
+    if args.report:
+        import os
+
+        os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
+        with open(args.report, "w") as fh:
+            json.dump(res, fh, indent=1)
+    curves = ("per_sequence", "success_curve", "precision_curve", "norm_precision_curve")
+    print(json.dumps({k: v for k, v in res.items() if k not in curves}))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
+                   help="where the trackers run: 'cuda' (the kernels) or 'cpu' (their plain twins)")
+    p.add_argument("--weights_path", default=PACKAGED_FEAR_XS,
+                   help="an .npz variables archive of the JAX package, or a bare zoo name")
+    p.add_argument("--model_name", choices=sorted(TRUNKS), default="fear_xs")
+    p.add_argument("--adjust_channels", type=int, default=256)
+    p.add_argument("--towernum", type=int, default=2)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sub.add_parser("macs")
+
+    fp = sub.add_parser("fps")
+    fp.add_argument("--protocol", choices=["fps", "online", "online_pipelined", "offline"], default="fps")
+    fp.add_argument("--pipeline_depth", type=int, default=2)
+    fp.add_argument("--warmup_calls", type=int, default=1,
+                    help="un-timed calls before the online/offline protocols")
+    fp.add_argument("--streams", type=int, default=64)
+    fp.add_argument("--chunk", type=int, default=64, help="frames per call")
+    fp.add_argument("--duration", type=float, default=30.0)
+    fp.add_argument("--input_fps", type=float, default=30.0)
+    fp.add_argument("--video_path", default="",
+                    help="a video read with cv2 when it is installed; else seeded noise frames")
+    fp.add_argument("--csv", default=None)
+    fp.add_argument("--dynamic_template", action="store_true")
+    fp.add_argument("--update_interval", type=int, default=1)
+
+    # `got10k` kept as an alias of `eval --dataset got10k`
+    for cmd_name in ("got10k", "eval"):
+        gp = sub.add_parser(cmd_name)
+        if cmd_name == "eval":
+            gp.add_argument("--dataset", choices=sorted(DATASET_REGISTRY), default="got10k")
+        gp.add_argument("--root", required=True)
+        gp.add_argument("--subset", default="val")
+        gp.add_argument("--max_frames", type=int, default=None)
+        gp.add_argument("--max_sequences", type=int, default=None)
+        gp.add_argument("--smooth", action="store_true")
+        gp.add_argument("--batched", action="store_true", help="multi-stream ScanTracker (bfloat16)")
+        gp.add_argument("--supervised", action="store_true",
+                        help="VOT supervised protocol (re-init on failure): accuracy/robustness/EAO")
+        gp.add_argument("--streams", type=int, default=64)
+        gp.add_argument("--recover_context", type=float, default=0.0,
+                        help="zoom-out re-acquisition context after a low-confidence frame (0 = off)")
+        gp.add_argument("--submit_dir", default=None, help="write eval-server submission files here")
+        gp.add_argument("--report", default=None,
+                        help="also write the full result (incl. per-sequence) as JSON here")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.cmd == "got10k":
+        args.dataset = "got10k"
+    {"macs": cmd_macs, "fps": cmd_fps, "got10k": cmd_eval, "eval": cmd_eval}[args.cmd](args)
+
+
+if __name__ == "__main__":
+    main()

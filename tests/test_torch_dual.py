@@ -41,6 +41,16 @@ WEIGHTS = os.path.dirname(PACKAGED_FEAR_XS)
 FEATURE_GATE = os.path.join(WEIGHTS, "fear_xs_feature_gate.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: pytest-xdist workers share the cores, and an
+    OpenMP team per small op then waits on descheduled threads (10× slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """Tiny Flax FEARNet variables with a trained-looking ``template_gate``

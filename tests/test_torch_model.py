@@ -25,6 +25,16 @@ from feartracker_tpu_torch.utils.constants import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: pytest-xdist workers share the cores, and an
+    OpenMP team per small op then waits on descheduled threads (10× slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _perturbed_tiny_variables(seed):
     """Flax TINY FEARNet variables with non-trivial running stats, as numpy."""
     model = JFEARNet(trunk_blocks=J_TINY, adjust_channels=16, towernum=1)

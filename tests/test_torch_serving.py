@@ -26,6 +26,16 @@ CFG = TrackerConfig(**TINY_CFG)
 HW = (96, 128)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: pytest-xdist workers share the cores, and an
+    OpenMP team per small op then waits on descheduled threads (10× slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jmodel = JFEARNet(trunk_blocks=J_TINY, adjust_channels=16, towernum=1)
