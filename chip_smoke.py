@@ -7,27 +7,32 @@ Needs one CUDA card, ``nvcc`` and this checkout; imports nothing of JAX or
 of ``feartracker_tpu``. Phases, each printing its own lines:
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build both kernels from ``feartracker_tpu_torch/csrc`` (seconds, ptxas);
+2. build both kernels from ``feartracker_tpu_torch/csrc``, one ``nvcc`` per
+   source started together (seconds, ptxas registers and spills);
 3. K1 (fused decode) against its plain twin on the card, S=128, both
    ``smooth`` modes and a tie-break case;
 4. K2 (fused inverted-residual block) against its plain twin on the card,
    every FEAR-XS block with expansion > 1 at its search (256²) and template
-   (128²) shapes, S=8, in float32 and bfloat16; then every such block of
-   the FEAR-M and FEAR-L trunks at both shapes, S=2;
+   (128²) shapes, S=8, in float32 and bfloat16 (bfloat16 at every tile that
+   takes the shape, its shared memory equal to the planner's count); then
+   every such block of the FEAR-M and FEAR-L trunks at both shapes, S=2;
 5. the tracking slice with the packaged ``fear_xs.npz``: float32 at S=4,
    T=8 against the same port on the CPU; then bfloat16 at S=128, T=16, with
    the kernels' launch counts over ``init`` + one ``track`` and the time per
-   ``track`` call;
-6. each kernel's time beside its plain twin at the main path's shapes
-   (S=128; K2 at every block's 256² and 128² shape in bfloat16, each also
-   held against its plain twin there);
+   ``track`` call; 5c: one ``track`` call traced, device time by kernel
+   family and the idle share (the profiler slows the host, so the traced
+   span is longer than an untraced call);
+6. each kernel's time beside its plain twin and its bound at the main
+   path's shapes (S=128; K2 at every block's 256² and 128² shape in
+   bfloat16, each also held against its plain twin there, with the
+   planner's tile, the blocks per SM and the time at every tile that fits);
 7. the dual-template path: float32 at S=4, T=8 against the port on the CPU
    in each update mode (``ema``; ``gated`` with ``fear_xs_gate.npz``;
    ``feature`` with ``fear_xs_feature_gate.npz`` and zoom-out recovery);
    then bfloat16 at S=128, T=16 in ``feature`` mode with
    ``update_interval=4`` and recovery, with the launch counts over ``init``
-   + one ``track`` (a refresh frame runs K2 13 more times, at 128²) and the
-   time per ``track`` call;
+   + one ``track`` (a refresh frame runs K2 13 more times, at 128²), the
+   time per ``track`` call, and (7c) one traced call by kernel family;
 8. the ``StreamPool`` slot server at capacity 128 fed host numpy frames:
    128 ``add``s, three serial steps (with their own launch counts), three
    ``step_async`` calls back to back that must not wait for the card,
@@ -45,7 +50,9 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    VOT and batched protocols on four 24-frame clips, card against CPU.
 
 Then one JSON line of kernels (``launches``: the static path's, phase 5b;
-``launches_by_path``: each path's own count; ``s1``: the times at S=1)
+``launches_by_path``: each path's own count; ``bound_ms``: the least time
+the card could take, from the H100's published peaks; ``tile``: K2's
+bfloat16 tile per S=128 block shape; ``s1``: the times at S=1)
 and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -67,13 +74,35 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep``'s spin, timed on the card."""
+    import torch
+
+    if not hasattr(_spin_cycles_per_ms, "value"):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(50_000_000)
+        e1.record()
+        torch.cuda.synchronize()
+        _spin_cycles_per_ms.value = 50_000_000 / e0.elapsed_time(e1)
+    return _spin_cycles_per_ms.value
+
+
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``iters`` calls that
+    a spin kernel holds back until the host has queued them all, so that
+    the host's cost per call leaves no gap between them on the card."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3  # host and device, an upper bound on the host's share
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_spin_cycles_per_ms() * (1.5 * iters * call_ms + 1.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -83,8 +112,11 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def _random_block(gen, cin, spec, dtype, device):
-    """Folded block weights at fan-in scale (unit-scale activations)."""
+    """Folded block weights at fan-in scale (unit-scale activations), packed
+    for the kernel in bfloat16 as ``fold_fear_net`` packs them."""
     import torch
+
+    from feartracker_tpu_torch.ops.cuda.ir_block import pack_block
 
     ce, k, cout = cin * spec.expansion, spec.kernel, spec.out_channels
 
@@ -92,11 +124,14 @@ def _random_block(gen, cin, spec, dtype, device):
         w = torch.randn(*shape, generator=gen, device=device) / fan_in ** 0.5
         return w.to(dt).contiguous()
 
-    return {
+    blk = {
         "expand": None if spec.expansion == 1 else {"w": mk(cin, ce, fan_in=cin, dt=dtype), "b": mk(ce) * 0.1},
         "dw": {"w": mk(k, k, ce, fan_in=k * k), "b": mk(ce) * 0.1},
         "project": {"w": mk(ce, cout, fan_in=ce, dt=dtype), "b": mk(cout) * 0.1},
     }
+    if dtype == torch.bfloat16:
+        blk["packed"] = pack_block(blk, cin, k)
+    return blk
 
 
 def _block_shapes(specs, crop: int):
@@ -107,6 +142,60 @@ def _block_shapes(specs, crop: int):
         h //= spec.stride
         cin = spec.out_channels
     return out
+
+
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+
+
+def _k2_bound(S: int, h: int, cin: int, spec, itemsize: int = 2):
+    """(bound ms, its larger term, every term) of one fused block on x
+    (S, h, h, cin): the block's input and output and its weights each moved
+    once over the memory rate; the expand and project products over the
+    tensor cores' rate; the depthwise over the CUDA cores' float32 rate."""
+    ce, k, ho, cout = cin * spec.expansion, spec.kernel, h // spec.stride, spec.out_channels
+    nbytes = (S * (h * h * cin + ho * ho * cout) + ce * (cin + cout)) * itemsize + (k * k * ce + 2 * ce + cout) * 4
+    terms = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "products": 2 * S * (h * h * cin * ce + ho * ho * ce * cout) / BF16_FLOPS * 1e3,
+        "depthwise": 2 * S * ho * ho * ce * k * k / F32_FLOPS * 1e3,
+    }
+    by = max(terms, key=terms.get)
+    return terms[by], by, terms
+
+
+def _k1_bound(S: int, n: int = 16) -> float:
+    """ms to move K1's inputs (cls, reg, prev size) and outputs (box, score,
+    coords) once over the memory rate; its few FLOPs are far below."""
+    return 4 * S * (n * n * 5 + 2 + 4 + 1 + 2) / HBM_BYTES_PER_S * 1e3
+
+
+def _trace_breakdown(fn, out_dir: str) -> dict:
+    """Device time of one call of ``fn`` by kernel family, from the kernel,
+    copy and memset rows of a ``torch.profiler`` trace (op rows repeat their
+    kernels' time): busy, span and idle share, K2, K1, GEMMs, convolutions,
+    the rest."""
+    import torch
+
+    from feartracker_tpu_torch.evaluate.profiling import trace
+
+    with trace(out_dir):
+        fn()
+        torch.cuda.synchronize()
+    with open(f"{out_dir}/trace.json") as fh:
+        rows = [e for e in json.load(fh)["traceEvents"] if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not rows:
+        return {}
+    fam = {"K2": 0.0, "K1": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
+    for e in rows:
+        name = e.get("name", "").lower()
+        key = ("K2" if "ir_block" in name else "K1" if "decode_kernel" in name
+               else "gemm" if ("gemm" in name or "xmma" in name or "cutlass" in name) else
+               "conv" if ("conv" in name or "cudnn" in name) else "other")
+        fam[key] += e.get("dur", 0) / 1e3
+    busy = sum(e.get("dur", 0) for e in rows) / 1e3
+    span = (max(e["ts"] + e.get("dur", 0) for e in rows) - min(e["ts"] for e in rows)) / 1e3
+    return {"busy_ms": busy, "span_ms": span, "idle": 1 - busy / span, "kernels": len(rows), **fam}
 
 
 def _max_err(a, b, key) -> float:
@@ -186,6 +275,14 @@ def _phase_dual(card, n_fused, counters):
           f"{(launches['K2'] - n_fused) / T} per frame); "
           f"finite outputs; {track_ms:.2f} ms/track, {S * T / track_ms * 1e3:.1f} frames/s [{card}]",
           flush=True)
+    br = _trace_breakdown(lambda: tracker.track(state, chunk, start_step=T * 8), "chiprun_out/trace_dual_track")
+    if br:
+        print(f"[7c] one traced dual track call: device busy {br['busy_ms']:.2f} of {br['span_ms']:.2f} ms (idle "
+              f"{100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies; K2 {br['K2']:.2f} ms "
+              f"({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, GEMMs {br['gemm']:.2f}, convolutions "
+              f"{br['conv']:.2f}, other {br['other']:.2f} ms [{card}]", flush=True)
+    else:
+        print("[7c] the trace holds no device rows: breakdown not measured", flush=True)
     return launches, tracker
 
 
@@ -258,14 +355,10 @@ def _phase_pool(card, n_fused, counters, tracker):
         return ms, first_done, margin_ms
 
     dispatch_ms, _, _ = three_async()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    torch.cuda._sleep(100_000_000)
-    e1.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 100_000_000 / e0.elapsed_time(e1)
-    delay_ms = sum(dispatch_ms) + 30.0
-    checked_ms, first_done, margin_ms = three_async(int(delay_ms * cycles_per_ms))
+    # the delay outlasts three times the host's dispatches, so a slower host
+    # in the checked run still returns inside it
+    delay_ms = 3 * sum(dispatch_ms) + 50.0
+    checked_ms, first_done, margin_ms = three_async(int(delay_ms * _spin_cycles_per_ms()))
     # the third dispatch fills the card's launch queue (about 1000 pending
     # launches) and waits for the delay to end; the first two must not
     if first_done or not sum(checked_ms[:2]) < delay_ms:
@@ -606,8 +699,12 @@ def main() -> int:
     from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK, TRUNKS
     from feartracker_tpu_torch.ops.cuda import build as kbuild
     from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
-    from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
+    from feartracker_tpu_torch.ops.cuda.ir_block import (_fused_ir_block, bf16_smem_bytes, fused_ir_block,
+                                                     kernel_smem_bytes, plan_tile, tiles_that_fit)
     from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
+
+    def k2_smem(spec, cin, tile):
+        return bf16_smem_bytes(spec.kernel, spec.stride, cin, spec.out_channels, tile)
 
     dev = torch.device("cuda")
     card = _card_line()
@@ -652,24 +749,36 @@ def main() -> int:
     k2_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n_checked = 0
     # FEAR-XS at S=8; the family trunks at S=2 add ragged chunks (Ce=108),
-    # padded widths (Cin=36) and Cout up to 224 (the bfloat16 kernel's limit)
+    # padded widths (Cin=36) and Cout up to 224. bfloat16 at every tile that
+    # takes the shape, its shared memory as the wrapper's planner counts it
+    lib = kbuild.load_library()
     for name, streams in (("fear_xs", 8), ("fear_m", 2), ("fear_l", 2)):
         for crop in (256, 128):
             for i, spec, cin, h in _block_shapes(TRUNKS[name], crop):
                 if spec.expansion == 1:
                     continue
-                for dt in (torch.float32, torch.bfloat16):
+                bf16_tiles = tiles_that_fit(spec.kernel, spec.stride, cin, spec.out_channels)
+                for dt, tiles in ((torch.float32, [None]), (torch.bfloat16, bf16_tiles)):
                     blk = _random_block(gen, cin, spec, dt, dev)
                     x = torch.randn(streams, h, h, cin, generator=gen, device=dev).to(dt)
                     ref = plain_ir_block(x, blk, spec).float()
-                    got = fused_ir_block(x, blk, spec).float()
-                    torch.cuda.synchronize()
-                    err = (got - ref).abs().max().item()
-                    if not err <= tol[dt]:
-                        raise AssertionError(f"K2 {name} block{i} crop {crop} {dt}: max|err| {err} > {tol[dt]}")
-                    k2_err[dt] = max(k2_err[dt], err)
-                    n_checked += 1
-            print(f"[4] K2 {name} crop {crop}: every block with expansion > 1 ok (S={streams})", flush=True)
+                    if not tiles:
+                        raise AssertionError(f"K2 {name} block{i}: no bfloat16 tile takes Cin={cin} {spec}")
+                    for tile in tiles:
+                        if tile and lib.fear_ir_block_smem_bytes(spec.kernel, spec.stride, cin, spec.out_channels,
+                                                                 1, *tile) != k2_smem(spec, cin, tile):
+                            raise AssertionError(f"K2 {name} block{i} tile {tile}: kernel and planner count "
+                                                 f"different shared memory")
+                        got = _fused_ir_block(x, blk, spec, True, False, tile).float()
+                        torch.cuda.synchronize()
+                        err = (got - ref).abs().max().item()
+                        if not err <= tol[dt]:
+                            raise AssertionError(f"K2 {name} block{i} crop {crop} {dt} tile {tile}: max|err| "
+                                                 f"{err} > {tol[dt]}")
+                        k2_err[dt] = max(k2_err[dt], err)
+                        n_checked += 1
+            print(f"[4] K2 {name} crop {crop}: every block with expansion > 1 ok (S={streams}; bf16 at every "
+                  f"tile that fits)", flush=True)
     print(f"[4] K2 {n_checked} checks: max|err| f32 {k2_err[torch.float32]:.3e} (atol 1e-4), "
           f"bf16 {k2_err[torch.bfloat16]:.3e} (atol 0.15)", flush=True)
 
@@ -722,19 +831,31 @@ def main() -> int:
     track_ms = (time.perf_counter() - t0) * 1e3 / reps
     print(f"[5] slice bf16 S={S} T={T}: launches {launches} over init + 1 track; finite outputs; "
           f"{track_ms:.2f} ms/track, {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)
+    br = _trace_breakdown(lambda: tracker.track(state, chunk), "chiprun_out/trace_static_track")
+    if br:
+        print(f"[5c] one traced track call, S={S} T={T} bf16: device busy {br['busy_ms']:.2f} of {br['span_ms']:.2f} "
+              f"ms (idle {100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies "
+              f"({br['kernels'] / T:.0f} per "
+              f"frame); K2 {br['K2']:.2f} ms ({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, GEMMs "
+              f"{br['gemm']:.2f}, convolutions {br['conv']:.2f}, other {br['other']:.2f} ms [{card}]", flush=True)
+    else:
+        print("[5c] the trace holds no device rows: breakdown not measured", flush=True)
 
     # -- 6: kernels beside their plain twins at the main path's shapes ---------
     cfg = tracker.config.postprocess
     cls_m, reg_m = logits.contiguous(), reg.contiguous()
     k1_ms = _time_ms(lambda: postprocess_cuda(cls_m, reg_m, cfg, prev_size=prev), iters=200)
     k1_plain = _time_ms(lambda: pp.postprocess(cls_m, reg_m, cfg, prev_size=prev), iters=200)
-    print(f"[6] K1 S=128: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms [{card}]", flush=True)
+    k1_bound = _k1_bound(128)
+    print(f"[6] K1 S=128: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, bound {k1_bound:.5f} ms by bytes "
+          f"[{card}]", flush=True)
     # K2 at S=128 bf16 at the search (256²) and template (128²) shapes: held
     # against its plain twin with fan-in-scaled weights (phase 4's bf16
-    # tolerance), then timed with the packaged weights
-    k2_ms, k2_plain, k2_s128_err = {}, {}, 0.0
+    # tolerance), then timed with the packaged weights beside its bound
+    k2_ms, k2_plain, k2_terms, k2_bound, k2_s128_err, k2_tiles = {}, {}, {}, {}, 0.0, {}
     for crop, what in ((256, "search"), (128, "template")):
         k2_ms[crop] = k2_plain[crop] = 0.0
+        k2_terms[crop] = {"bytes": 0.0, "products": 0.0, "depthwise": 0.0}
         for i, spec, cin, h in _block_shapes(FEAR_XS_TRUNK, crop):
             if spec.expansion == 1:
                 continue
@@ -750,13 +871,32 @@ def main() -> int:
             real_err, real_mag = (real - real_ref).abs().max().item(), real_ref.abs().max().item()
             km = _time_ms(lambda: fused_ir_block(x, blk, spec))
             pm = _time_ms(lambda: plain_ir_block(x, blk, spec))
+            bound, by, terms = _k2_bound(128, h, cin, spec)
+            ho = h // spec.stride
+            tile = plan_tile(128, ho, ho, cin, spec.out_channels, spec, kernel_smem_bytes)
+            occ = lib.fear_ir_block_occupancy(spec.kernel, spec.stride, cin, spec.out_channels, 1, *tile)
+            # the planner's choice against every tile that fits
+            sweep = {f"{t[0]}x{t[1]}": _time_ms(lambda: _fused_ir_block(x, blk, spec, True, False, t))
+                     for t in tiles_that_fit(spec.kernel, spec.stride, cin, spec.out_channels)}
+            k2_tiles[f"{crop}_block{i}"] = f"{tile[0]}x{tile[1]}"
             k2_ms[crop] += km
             k2_plain[crop] += pm
+            for key in terms:
+                k2_terms[crop][key] += terms[key]
             print(f"[6] K2 block{i:2d} x (128,{h},{h},{cin}) bf16 {spec}: max|err| {err:.3e} (atol 0.15); "
                   f"packaged weights max|err| {real_err:.3e} of max|out| {real_mag:.3e}; "
-                  f"kernel {km:.3f} ms, plain {pm:.3f} ms", flush=True)
+                  f"kernel {km:.3f} ms, plain {pm:.3f} ms; bound {bound:.4f} ms by {by} (bytes "
+                  f"{terms['bytes']:.4f}, products {terms['products']:.4f}, depthwise {terms['depthwise']:.4f}), "
+                  f"kernel at {100 * bound / km:.1f}% of it; tile {tile[0]}x{tile[1]}, "
+                  f"{128 * -(-ho // tile[0]) * -(-ho // tile[1])} blocks, {occ} per SM; every tile (ms) "
+                  f"{', '.join(f'{t} {v:.4f}' for t, v in sweep.items())}", flush=True)
+        by = max(k2_terms[crop], key=k2_terms[crop].get)
+        k2_bound[crop] = k2_terms[crop][by]
         print(f"[6] K2 sum over {n_fused} blocks, {what} crop, S=128 bf16: kernel {k2_ms[crop]:.3f} ms, "
-              f"plain {k2_plain[crop]:.3f} ms [{card}]", flush=True)
+              f"plain {k2_plain[crop]:.3f} ms ({k2_ms[crop] / k2_plain[crop]:.3f}x), bound {k2_bound[crop]:.4f} ms "
+              f"by {by} (the larger of the summed terms "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in k2_terms[crop].items())}) "
+              f"(kernel at {100 * k2_bound[crop] / k2_ms[crop]:.1f}%) [{card}]", flush=True)
     print(f"[6] K2 S=128 bf16, {2 * n_fused} block shapes: max|err| {k2_s128_err:.3e} (atol 0.15)", flush=True)
 
     # -- 7, 8: the dual-template path and the slot server -----------------
@@ -776,12 +916,15 @@ def main() -> int:
     kernels = [
         {"name": "K1 fused decode", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
          "replaces": "feartracker_tpu/ops/pallas/decode.py:27", **count("K1"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "s1": s1_times["K1"]},
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
+         "bound_by": "bytes", "library_ms": None, "s1": s1_times["K1"]},
         {"name": "K2 fused inverted-residual block", "route": "cuda",
          "source": "feartracker_tpu_torch/csrc/ir_block.cu",
          "replaces": "feartracker_tpu/ops/pallas/ir_block.py:131", **count("K2"),
-         "max_abs_err": k2_err[torch.float32], "ms": k2_ms[256], "plain_ms": k2_plain[256],
+         "max_abs_err": k2_err[torch.bfloat16], "max_abs_err_f32": k2_err[torch.float32],
+         "ms": k2_ms[256], "plain_ms": k2_plain[256],
+         "bound_ms": k2_bound[256], "library_ms": None, "tile": k2_tiles,
+         "bound_by": "bytes" if k2_terms[256]["bytes"] == k2_bound[256] else "operations",
          "s1": s1_times["K2"]},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@
     python -m feartracker_tpu_torch.evaluate.cli --device cuda fps --streams 64
     python -m feartracker_tpu_torch.evaluate.cli --device cuda eval --root /data/got10k --subset val
 
-``--device`` (default ``cuda`` when a card is present, else ``cpu``) is where
-the trackers run; ``macs`` always counts on the CPU. Weights are the JAX
+``--device`` (default ``cuda``, with no fallback: without a card the first
+CUDA tensor raises; ``--device cpu`` runs the plain twins) is where the
+trackers run; ``macs`` always counts on the CPU. Weights are the JAX
 package's ``.npz`` archives or bare zoo names.
 """
 
@@ -166,8 +167,8 @@ def cmd_eval(args) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="where the trackers run: 'cuda' (the kernels) or 'cpu' (their plain twins)")
+    p.add_argument("--device", default="cuda",
+                   help="where the trackers run: 'cuda' (the kernels; the default) or 'cpu' (their plain twins)")
     p.add_argument("--weights_path", default=PACKAGED_FEAR_XS,
                    help="an .npz variables archive of the JAX package, or a bare zoo name")
     p.add_argument("--model_name", choices=sorted(TRUNKS), default="fear_xs")

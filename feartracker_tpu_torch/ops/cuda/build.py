@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``:
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all
+started together, and the objects link into one shared library with a plain
+C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o <build>/libfear_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu   # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libfear_kernels_<hash>.so <objs>
 
 The library is built at first use (never at import), only from the sources
 in the checkout, and cached under ``feartracker_tpu_torch/_kernels_build/``
@@ -28,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_kernels_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,7 +40,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fear_decode": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P],
     "fear_ir_block": [_P] * 8 + [_I] * 13 + [_P],
-    "fear_ir_block_smem_bytes": [_I] * 5,
+    "fear_ir_block_bf16": [_P] * 6 + [_I] * 14 + [_P],
+    "fear_ir_block_smem_bytes": [_I] * 7,
+    "fear_ir_block_occupancy": [_I] * 7,
 }
 
 
@@ -72,15 +76,24 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, (p for p in sources() if p.suffix == ".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{src.stem}.o", str(src)]
+                for src in sources() if src.suffix == ".cu"]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tmp}/lib.so", *(cmd[cmd.index("-o") + 1] for cmd in cmds)]
+        failed = [(" ".join(c), o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            outs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append((" ".join(link), outs[-1]))
+        (BUILD_DIR / "build.log").write_text(
+            "".join(" ".join(c) + "\n" + o for c, o in zip(cmds + [link], outs)))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{c}\n{o[-4000:]}" for c, o in failed))
+        os.replace(f"{tmp}/lib.so", lib)
     return lib
 
 

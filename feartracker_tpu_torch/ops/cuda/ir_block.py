@@ -1,11 +1,22 @@
 """K2: the fused inverted-residual block as a CUDA kernel (``csrc/ir_block.cu``).
 
 Replaces ``_block_kernel`` of ``feartracker_tpu/ops/pallas/ir_block.py``.
-Bound on the H100 by memory traffic when done the plain way: the expanded
-tensor (3-6x the block's width) would go to device memory and back twice.
-The kernel keeps it in shared memory, one 8x8 output tile of one stream per
-block, walking the expanded channels in chunks of 32; in bfloat16 the expand
-and project products run on the tensor cores (see the source's header).
+Done the plain way it is bound by memory traffic: the expanded tensor (3-6x
+the block's width) would go to device memory and back twice. The kernel
+keeps it in shared memory, one tile of output positions of one stream per
+CUDA block, walking the expanded channels in chunks of 32. Kept on chip, its
+bound at the main path's shapes is the depthwise on the CUDA cores (0.141 ms
+over FEAR-XS's 13 blocks at 256², S=128, against 0.081 ms of bytes and
+0.062 ms of tensor-core products; see the source's header).
+
+* float32: 8x8 tiles, every product on the CUDA cores.
+* bfloat16: tiles of 16x16, 8x16 or 8x8 outputs, picked per launch by
+  :func:`plan_tile`; expand and project on the tensor cores (``mma.sync``),
+  their epilogues in registers; the weights, repacked by :func:`pack_block`
+  into zero-padded chunk-major tensors (``fold_fear_net`` stores them in
+  each bfloat16 block's dict under ``"packed"``), staged with ``cp.async``
+  into a double-buffered ring.
+
 For CPU tensors :func:`fused_ir_block` runs the plain twin
 :func:`feartracker_tpu_torch.ops.fused_trunk.plain_ir_block`; for CUDA
 tensors it launches the kernel or raises.
@@ -13,7 +24,8 @@ tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -22,7 +34,105 @@ from feartracker_tpu_torch.ops.cuda.build import check_launch, load_library
 from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
 
 MAX_SMEM_BYTES = 232448  # opt-in dynamic shared memory per block on the H100
+NUM_SMS = 132
+# a tile is taken while its grid keeps this many SMs busy: on the 16² maps at
+# S=128 one 16x16 block per stream (128 blocks) beat 8x16 tiles (256) 1.3x
+MIN_BLOCKS = NUM_SMS * 3 // 4
+CHUNK = 32  # expanded channels per pass
+# bfloat16 tiles (rows, columns of output positions), largest first
+TILES: Tuple[Tuple[int, int], ...] = ((16, 16), (8, 16), (8, 8))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def bf16_max_cout(tile: Tuple[int, int]) -> int:
+    """Widest Cout (padded to 16) whose project accumulators a tile's warps
+    hold in registers: 2 row tiles x 4 column pairs a warp, 16 warps (8 for
+    8x8 tiles)."""
+    m = tile[0] * tile[1]
+    warps = 16 if m >= 128 else 8
+    return warps // (m // 32) * 4 * 16
+
+
+def bf16_smem_bytes(k: int, s: int, cin: int, cout: int, tile: Tuple[int, int]) -> int:
+    """Dynamic shared memory of one bfloat16 launch, counted on the host the
+    way ``bf16_layout`` in ``csrc/ir_block.cu`` lays it out: input halo,
+    expanded chunk, depthwise output, and two ring slots each of expand
+    weights, project weights, and taps + biases. The CPU's planner; a launch
+    plans from the library's own count (:func:`kernel_smem_bytes`)."""
+    th, tw = tile
+    r = lambda n: _round_up(n, 128)
+    hpp = _round_up(((th - 1) * s + k) * ((tw - 1) * s + k), 16)
+    ldx, ldc = _round_up(cin, 16) + 8, CHUNK + 8
+    return (r(hpp * ldx * 2) + r(hpp * ldc * 2) + r(th * tw * ldc * 2) + r(2 * CHUNK * ldx * 2)
+            + r(2 * _round_up(cout, 16) * ldc * 2) + r(2 * (k * k + 2) * CHUNK * 4))
+
+
+def kernel_smem_bytes(k: int, s: int, cin: int, cout: int, tile: Tuple[int, int]) -> int:
+    """Dynamic shared memory of one bfloat16 launch as the built library
+    counts it; -1 where no kernel takes the shape."""
+    return load_library().fear_ir_block_smem_bytes(k, s, cin, cout, 1, *tile)
+
+
+def tiles_that_fit(k: int, s: int, cin: int, cout: int, smem_bytes=bf16_smem_bytes):
+    """The bfloat16 tiles whose shared memory (as ``smem_bytes`` counts it)
+    and register accumulators take the shape, largest first."""
+    return [t for t in TILES if 0 <= smem_bytes(k, s, cin, cout, t) <= MAX_SMEM_BYTES
+            and _round_up(cout, 16) <= bf16_max_cout(t)]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_tile(S: int, Hout: int, Wout: int, Cin: int, Cout: int, spec: IRBlockSpec,
+              smem_bytes=bf16_smem_bytes) -> Tuple[int, int]:
+    """The bfloat16 kernel's tile for a launch: the largest tile that fits
+    the shared memory and the accumulators, is no larger than the output map
+    (8x8 always qualifies), and whose grid (S x tiles) still covers
+    :data:`MIN_BLOCKS` SMs; where none does (S=1, the sequential tracker),
+    the smallest, for the most blocks. Raises when no tile takes the shape."""
+    k, s = spec.kernel, spec.stride
+    fits = [t for t in tiles_that_fit(k, s, Cin, Cout, smem_bytes)
+            if t == TILES[-1] or (t[0] <= Hout and t[1] <= Wout)]
+    if not fits:
+        raise ValueError(f"fused_ir_block: Cin={Cin}, Cout={Cout} at k{k} s{s} bfloat16 fits no tile "
+                         f"(at most {MAX_SMEM_BYTES} bytes of shared memory and Cout <= 256)")
+    for t in fits:
+        if S * -(-Hout // t[0]) * -(-Wout // t[1]) >= MIN_BLOCKS:
+            return t
+    return fits[-1]
+
+
+@torch.no_grad()
+def pack_block(blk: Dict[str, Any], cin: int, k: int) -> Dict[str, Optional[torch.Tensor]]:
+    """A folded block's weights in the kernel's chunk-major layout, chunk c
+    holding expanded channels 32c .. 32c+31, zero past Ce, Cin and Cout:
+    ``we`` (chunks, 32, Cin16) and ``wp`` (chunks, Cout16, 32) in the
+    matmul weights' dtype (``we`` None without expand), ``aux`` (chunks,
+    k*k+2, 32) float32 holding the depthwise taps, the expand bias and the
+    depthwise bias."""
+    ce, cout = blk["dw"]["w"].shape[-1], blk["project"]["w"].shape[-1]
+    nch = -(-ce // CHUNK)
+    dev, dt = blk["dw"]["w"].device, blk["project"]["w"].dtype
+    cin16, co16 = _round_up(cin, 16), _round_up(cout, 16)
+    we = None
+    if blk["expand"] is not None:
+        we = torch.zeros(nch * CHUNK, cin16, dtype=dt, device=dev)
+        we[:ce, :cin] = blk["expand"]["w"].t()
+        we = we.view(nch, CHUNK, cin16)
+    wp = torch.zeros(co16, nch * CHUNK, dtype=dt, device=dev)
+    wp[:cout, :ce] = blk["project"]["w"].t()
+    aux = torch.zeros(k * k + 2, nch * CHUNK, dtype=torch.float32, device=dev)
+    aux[:k * k, :ce] = blk["dw"]["w"].reshape(k * k, ce)
+    if blk["expand"] is not None:
+        aux[k * k, :ce] = blk["expand"]["b"]
+    aux[k * k + 1, :ce] = blk["dw"]["b"]
+    return {
+        "we": we,
+        "wp": wp.view(co16, nch, CHUNK).transpose(0, 1).contiguous(),
+        "aux": aux.view(k * k + 2, nch, CHUNK).transpose(0, 1).contiguous(),
+    }
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -42,7 +152,23 @@ def fused_ir_block(
 ) -> torch.Tensor:
     """One folded inverted-residual block: ``x`` (S, H, W, Cin) NHWC,
     float32 or bfloat16 → (S, H/stride, W/stride, Cout) in x's dtype.
-    ``blk`` comes from ``fold_fear_net`` with ``dtype=x.dtype``."""
+    ``blk`` comes from ``fold_fear_net`` with ``dtype=x.dtype`` (bfloat16
+    blocks carry their packed weights). A bfloat16 launch takes
+    :func:`plan_tile`'s tile."""
+    return _fused_ir_block(x, blk, spec, relu_dw, relu_out, None)
+
+
+def _fused_ir_block(
+    x: torch.Tensor,
+    blk: Dict[str, Any],
+    spec: IRBlockSpec,
+    relu_dw: bool,
+    relu_out: bool,
+    tile: Optional[Tuple[int, int]],
+) -> torch.Tensor:
+    """:func:`fused_ir_block` with the bfloat16 tile given (one of
+    :data:`TILES`; None for the planner's); ``chip_smoke.py`` times and
+    checks every tile through it."""
     if x.device.type == "cpu":
         return plain_ir_block(x, blk, spec, relu_dw, relu_out)
     if x.device.type != "cuda":
@@ -71,24 +197,45 @@ def fused_ir_block(
     _check(blk["project"]["b"], "project.b", (Cout,), f32, dev)
 
     lib = load_library()
-    smem = lib.fear_ir_block_smem_bytes(k, s, Cin, Cout, _DTYPES[dt])
-    if not 0 <= smem <= MAX_SMEM_BYTES:
-        raise ValueError(f"fused_ir_block: Cin={Cin}, Cout={Cout} at k{k} s{s} {dt} does not fit "
-                         f"the kernel ({smem} bytes of shared memory, at most {MAX_SMEM_BYTES}; "
-                         f"bfloat16 takes Cout <= 224)")
     residual = s == 1 and Cin == Cout
     out = torch.empty((S, H // s, W // s, Cout), dtype=dt, device=dev)
+    flags = (int(has_expand), int(relu_dw), int(relu_out), int(residual))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fear_ir_block(
-            x.data_ptr(),
-            blk["expand"]["w"].data_ptr() if has_expand else None,
-            blk["expand"]["b"].data_ptr() if has_expand else None,
-            blk["dw"]["w"].data_ptr(), blk["dw"]["b"].data_ptr(),
-            blk["project"]["w"].data_ptr(), blk["project"]["b"].data_ptr(), out.data_ptr(),
-            S, H, W, Cin, Ce, Cout, k, s,
-            int(has_expand), int(relu_dw), int(relu_out), int(residual), _DTYPES[dt], stream,
-        )
+        if dt == torch.float32:
+            smem = lib.fear_ir_block_smem_bytes(k, s, Cin, Cout, 0, 8, 8)
+            if not 0 <= smem <= MAX_SMEM_BYTES:
+                raise ValueError(f"fused_ir_block: Cin={Cin}, Cout={Cout} at k{k} s{s} float32 does not fit "
+                                 f"the kernel ({smem} bytes of shared memory, at most {MAX_SMEM_BYTES})")
+            rc = lib.fear_ir_block(
+                x.data_ptr(),
+                blk["expand"]["w"].data_ptr() if has_expand else None,
+                blk["expand"]["b"].data_ptr() if has_expand else None,
+                blk["dw"]["w"].data_ptr(), blk["dw"]["b"].data_ptr(),
+                blk["project"]["w"].data_ptr(), blk["project"]["b"].data_ptr(), out.data_ptr(),
+                S, H, W, Cin, Ce, Cout, k, s, *flags, 0, stream,
+            )
+        else:
+            if tile is None:
+                tile = plan_tile(S, H // s, W // s, Cin, Cout, spec, kernel_smem_bytes)
+            elif tuple(tile) not in tiles_that_fit(k, s, Cin, Cout, kernel_smem_bytes):
+                raise ValueError(f"fused_ir_block: tile {tile[0]}x{tile[1]} does not take Cin={Cin}, "
+                                 f"Cout={Cout} at k{k} s{s}")
+            th, tw = tile
+            packed = blk.get("packed")
+            if packed is None:
+                raise ValueError("fused_ir_block: a bfloat16 block needs its packed weights (blk['packed'], "
+                                 "from fold_fear_net(model, torch.bfloat16) or pack_block)")
+            nch = -(-Ce // CHUNK)
+            if has_expand:
+                _check(packed["we"], "packed.we", (nch, CHUNK, _round_up(Cin, 16)), dt, dev)
+            _check(packed["wp"], "packed.wp", (nch, _round_up(Cout, 16), CHUNK), dt, dev)
+            _check(packed["aux"], "packed.aux", (nch, k * k + 2, CHUNK), f32, dev)
+            rc = lib.fear_ir_block_bf16(
+                x.data_ptr(), packed["we"].data_ptr() if has_expand else None, packed["aux"].data_ptr(),
+                packed["wp"].data_ptr(), blk["project"]["b"].data_ptr(), out.data_ptr(),
+                S, H, W, Cin, Ce, Cout, k, s, *flags, th, tw, stream,
+            )
     check_launch(rc, "fear_ir_block")
     fused_ir_block.launches += 1
     return out

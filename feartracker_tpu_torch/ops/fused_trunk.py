@@ -45,7 +45,11 @@ def fold_fear_net(model, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
                   "dw": {"w": (k,k,Ce), "b": (Ce,)},
                   "project": {"w": (Ce,Cout), "b": (Cout,)}}
       ``neck``: {"w": (C,256), "b": (256,)}
+    In bfloat16 every block with ``expansion > 1`` also holds ``packed``, its
+    weights in the kernel's layout (``ops.cuda.ir_block.pack_block``).
     """
+    from feartracker_tpu_torch.ops.cuda.ir_block import pack_block
+
     enc = model.encoder
     sw, sb = _fold_conv_bn(enc.stem)
     blocks: List[Dict[str, Any]] = []
@@ -59,6 +63,8 @@ def fold_fear_net(model, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
         blk["dw"] = {"w": dw[:, 0].permute(1, 2, 0).contiguous(), "b": db}
         pw, pb = _fold_conv_bn(blk_mod.project)
         blk["project"] = {"w": pw[:, :, 0, 0].t().contiguous().to(dtype), "b": pb}
+        if dtype == torch.bfloat16 and spec.expansion > 1:
+            blk["packed"] = pack_block(blk, blk["expand"]["w"].shape[0], spec.kernel)
         blocks.append(blk)
     nw, nb = _fold_conv_bn(model.neck.downsample)
     return {

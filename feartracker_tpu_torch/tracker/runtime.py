@@ -69,7 +69,8 @@ class ScanTracker:
         ``dtype`` on ``device`` for the head; ``model`` itself is not changed.
       config: decode constants.
       dtype: the model's compute dtype (float32 or bfloat16).
-      device: where the tracker runs; inputs are moved there.
+      device: where the tracker runs (default the card; ``"cpu"`` runs the
+        kernels' plain twins); inputs are moved there.
       crop_impl: "mm" (separable contractions, default) or "gather".
       dynamic_template: refresh a dynamic template each eligible frame: a
         candidate template is cropped at the new box, encoded, and blended
@@ -100,7 +101,7 @@ class ScanTracker:
         model: FEARNet,
         config: TrackerConfig = TrackerConfig(),
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
         crop_impl: str = "mm",
         dynamic_template: bool = False,
         update_threshold: float = 0.85,

@@ -58,7 +58,7 @@ class FEARTracker:
         model: FEARNet,
         config: TrackerConfig = TrackerConfig(),
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
         native_preprocess: bool = False,
         recover_context: float = 0.0,
         recover_threshold: Optional[float] = None,

@@ -105,3 +105,9 @@ def test_fps_offline_protocol(capsys):
     res = _run(capsys, ["fps", "--protocol", "offline", "--streams", "1", "--chunk", "1",
                         "--duration", "1", "--input_fps", "1", "--warmup_calls", "0"])
     assert res["calls"] == 1.0 and res["achieved_fps"] > 0
+
+
+def test_device_defaults_to_cuda_without_a_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.build_parser().parse_args(["macs"]).device == "cuda"
+    assert cli.build_parser().parse_args(["--device", "cpu", "macs"]).device == "cpu"

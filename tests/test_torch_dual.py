@@ -136,7 +136,7 @@ def test_tiny_dual_template_matches_jax(tiny, frame0_threshold, update_mode, upd
         kw["update_threshold"] = frame0_threshold
     jtr = JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), **kw)
     jstate, jout = jtr.track(jtr.init(frames0, boxes), chunk)
-    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), **kw)
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu", **kw)
     state, out = tr.track(tr.init(frames0, boxes), chunk)
     _assert_matches(out, state, jout, jstate)
     if update_mode != "feature":
@@ -158,13 +158,13 @@ def test_tiny_recover_context_matches_jax(tiny, frame0_threshold):
     kw = dict(recover_context=3.0, recover_threshold=thr)
     jtr = JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), **kw)
     jstate, jout = jtr.track(jtr.init(frames0, boxes), chunk)
-    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), **kw)
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu", **kw)
     state, out = tr.track(tr.init(frames0, boxes), chunk)
     _assert_matches(out, state, jout, jstate)
     low = out["confidence"][0].numpy() < thr
     assert low.any() and not low.all()
     # the widened streams, and only they, leave the static trajectory
-    base = ScanTracker(model, TrackerConfig(**TINY_CFG))
+    base = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu")
     _, bout = base.track(base.init(frames0, boxes), chunk)
     np.testing.assert_array_equal(out["bbox"][:2, ~low].numpy(), bout["bbox"][:2, ~low].numpy())
     assert not np.allclose(out["bbox"][1, low].numpy(), bout["bbox"][1, low].numpy())
@@ -174,7 +174,7 @@ def test_tiny_chunked_track_equals_one_call(tiny):
     """Chunks carried with ``start_step`` keep the ``update_interval``
     cadence: two calls give what one call gives."""
     _, _, model, frames0, chunk, boxes = tiny
-    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), dynamic_template=True,
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu", dynamic_template=True,
                      update_threshold=0.0, update_interval=3, recover_context=3.0)
     whole_state, whole = tr.track(tr.init(frames0, boxes), chunk)
     state, first = tr.track(tr.init(frames0, boxes), chunk[:2])
@@ -195,7 +195,7 @@ def test_gate_params_dict_path_or_zoo_name(tiny):
     model = tiny[2]
     ref = gate.load_gate(FEATURE_GATE)
     for given in (ref, FEATURE_GATE, "fear_xs_feature_gate"):
-        tr = ScanTracker(model, TrackerConfig(**TINY_CFG), dynamic_template=True, update_mode="feature",
+        tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu", dynamic_template=True, update_mode="feature",
                          gate_params=given)
         for k in gate.GATE_KEYS:
             assert tr._gate[k].dtype == torch.float32

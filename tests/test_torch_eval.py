@@ -262,7 +262,7 @@ def models():
 def test_sequential_ao_matches_jax(suite, models):
     ds, jds = suite
     jmodel, v, port = models
-    res = got10k_eval.evaluate_tracker(FEARTracker(port), ds)
+    res = got10k_eval.evaluate_tracker(FEARTracker(port, device="cpu"), ds)
     jres = jgot.evaluate_tracker(JFEARTracker(jmodel, v), jds)
     assert res["num_sequences"] == jres["num_sequences"] == SEQS
     assert res["ao"] >= 0.78, res["ao"]
@@ -272,7 +272,7 @@ def test_sequential_ao_matches_jax(suite, models):
 def test_batched_letterboxed_ao_matches_jax(suite, models):
     ds, jds = suite
     jmodel, v, port = models
-    res = batched_eval.batched_evaluate(ScanTracker(port), ds, streams=SEQS, frame_hw=SMALL_CANVAS)
+    res = batched_eval.batched_evaluate(ScanTracker(port, device="cpu"), ds, streams=SEQS, frame_hw=SMALL_CANVAS)
     jres = jbatched.batched_evaluate(JScanTracker(jmodel, v, dtype=jnp.float32), jds,
                                      streams=SEQS, frame_hw=SMALL_CANVAS)
     assert res["ao"] >= 0.78, res["ao"]
@@ -282,7 +282,7 @@ def test_batched_letterboxed_ao_matches_jax(suite, models):
 def test_vot_supervised_matches_jax(suite, models):
     ds, jds = suite
     jmodel, v, port = models
-    res = vot_eval.evaluate_vot(FEARTracker(port), ds, burnin=2)
+    res = vot_eval.evaluate_vot(FEARTracker(port, device="cpu"), ds, burnin=2)
     jres = jvot.evaluate_vot(JFEARTracker(jmodel, v), jds, burnin=2)
     assert res["robustness_failures"] == jres["robustness_failures"]
     assert res["total_frames"] == jres["total_frames"]

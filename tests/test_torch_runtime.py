@@ -7,6 +7,7 @@ the JAX fused tracker; for full-width FEAR-XS, boxes within 1 px (boxes are
 rounded to integers, so a float32 difference can flip one rounding) and
 confidence within 1e-4."""
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -66,7 +67,7 @@ def test_tiny_tracker_matches_jax(tiny_setup, crop_impl):
     jmodel, v, model, frames0, chunk, boxes = tiny_setup
     jtr = JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), crop_impl=crop_impl)
     _, jout = jtr.track(jtr.init(frames0, boxes), chunk)
-    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), crop_impl=crop_impl)
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu", crop_impl=crop_impl)
     _, out = tr.track(tr.init(frames0, boxes), chunk)
     np.testing.assert_allclose(out["bbox"].numpy(), np.asarray(jout["bbox"]), atol=1e-3)
     np.testing.assert_allclose(out["confidence"].numpy(), np.asarray(jout["confidence"]), atol=1e-4)
@@ -74,7 +75,7 @@ def test_tiny_tracker_matches_jax(tiny_setup, crop_impl):
 
 def test_tiny_shared_frames_match_per_stream(tiny_setup):
     _, _, model, frames0, chunk, boxes = tiny_setup
-    tr = ScanTracker(model, TrackerConfig(**TINY_CFG))
+    tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu")
     _, shared = tr.track(tr.init(frames0[0], boxes), chunk[:, 0])
     _, per_stream = tr.track(tr.init(np.stack([frames0[0]] * 2), boxes),
                              np.stack([chunk[:, 0]] * 2, axis=1))
@@ -155,3 +156,7 @@ def test_chip_smoke_refuses_without_cuda():
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_scan_tracker_defaults_to_the_card():
+    assert inspect.signature(ScanTracker).parameters["device"].default == "cuda"

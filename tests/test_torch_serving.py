@@ -53,7 +53,7 @@ def models():
 
 @pytest.fixture(scope="module")
 def tracker(models):
-    return ScanTracker(models[2], CFG)
+    return ScanTracker(models[2], CFG, device="cpu")
 
 
 def _frames(rng, n=1):
@@ -98,7 +98,7 @@ def test_pool_matches_jax_pool(models, policy):
     seq = _frames(np.random.RandomState(20), 12)
     jpool = JStreamPool(JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), **DUAL), 4, HW,
                         failure_policy=policy)
-    pool = StreamPool(ScanTracker(model, CFG, **DUAL), 4, HW, failure_policy=policy)
+    pool = StreamPool(ScanTracker(model, CFG, device="cpu", **DUAL), 4, HW, failure_policy=policy)
     jres, res = _run_schedule(jpool, seq), _run_schedule(pool, seq)
     assert len(res) == len(jres)
     failures = 0
@@ -357,7 +357,7 @@ def test_soak_dual_template_churn_isolation(models, update_interval):
     """Randomized add/remove/step events with the dual template live
     (refresh on every eligible frame): each slot's trajectory equals its
     own 1-stream mirror, so no template leaks across slot reuse."""
-    dual = ScanTracker(models[2], CFG, dynamic_template=True, update_mode="ema",
+    dual = ScanTracker(models[2], CFG, device="cpu", dynamic_template=True, update_mode="ema",
                        update_threshold=-1.0, update_rate=0.3, update_interval=update_interval)
     events = _churn_schedule(np.random.RandomState(13), capacity=3, steps=60)
     _run_churn(dual, events, capacity=3, dedicated={})
@@ -396,7 +396,7 @@ def test_step_reads_no_tensor_value_on_the_host(models, monkeypatch):
     and is dispatched through the pool."""
     from feartracker_tpu_torch.models.gate import init_gate_params
 
-    tr = ScanTracker(models[2], CFG, dynamic_template=True, update_mode="feature",
+    tr = ScanTracker(models[2], CFG, device="cpu", dynamic_template=True, update_mode="feature",
                      gate_params=init_gate_params(np.random.RandomState(0)), update_interval=2,
                      recover_context=3.0)
     pool = StreamPool(tr, capacity=2, frame_hw=HW)

@@ -10,6 +10,7 @@ CPU, float32.
   (``tests/golden/reference_trajectory_synthetic.json``) exactly.
 * The constructor's errors are JAX's."""
 
+import inspect
 import json
 import os
 import sys
@@ -77,7 +78,7 @@ def test_tiny_tracker_matches_jax(tiny, name, box):
     jmodel, v, model, frames = tiny
     cfg_kw, kw = CONFIGS[name]
     jboxes, jconf = _run(JFEARTracker(jmodel, v, JTrackerConfig(**TINY_CFG, **cfg_kw), **kw), frames, box)
-    tracker = FEARTracker(model, TrackerConfig(**TINY_CFG, **cfg_kw), **kw)
+    tracker = FEARTracker(model, TrackerConfig(**TINY_CFG, **cfg_kw), device="cpu", **kw)
     boxes, conf = _run(tracker, frames, box)
     np.testing.assert_array_equal(boxes, jboxes)
     np.testing.assert_allclose(conf, jconf, atol=1e-5)
@@ -87,7 +88,7 @@ def test_tiny_tracker_matches_jax(tiny, name, box):
 
 def test_set_variables_refolds_and_resets(tiny):
     jmodel, v, model, frames = tiny
-    tracker = FEARTracker(model, TrackerConfig(**TINY_CFG))
+    tracker = FEARTracker(model, TrackerConfig(**TINY_CFG), device="cpu")
     tracker.initialize(frames[0], np.array([40, 30, 30, 40]))
     tracker.update(frames[1])
     other = FEARNet(TINY_TRUNK, adjust_channels=16, towernum=1, template_size=32)
@@ -113,7 +114,7 @@ def test_fear_xs_reproduces_reference_trajectory():
     frames, init_bbox = synthetic_video(golden["synth_spec"])
     assert init_bbox == golden["initial_bbox"]
     model = load_fear_net(build_family_model("fear_xs"), variables_from_npz(PACKAGED_FEAR_XS))
-    tracker = FEARTracker(model)
+    tracker = FEARTracker(model, device="cpu")
     tracker.initialize(frames[0], np.array(init_bbox))
     outs = [tracker.update(frames[i]) for i in range(1, 41)]
     boxes = [list(map(int, o["bbox"])) for o in outs]
@@ -143,7 +144,7 @@ def test_update_runs_through_kernel_dispatchers(tiny, monkeypatch, dual):
     _, _, model, frames = tiny
     kw = CONFIGS["dual_ema"][1] if dual else {}
     n_fused = sum(s.expansion > 1 for s in TINY_TRUNK)
-    _run(FEARTracker(model, TrackerConfig(**TINY_CFG), **kw), frames, (40, 30, 30, 40))
+    _run(FEARTracker(model, TrackerConfig(**TINY_CFG), device="cpu", **kw), frames, (40, 30, 30, 40))
     n, refreshes = len(frames) - 1, (len(frames) - 1) // 2 if dual else 0
     assert calls == {"K1": n, "K2": n_fused * (1 + n + refreshes)}
 
@@ -163,3 +164,7 @@ def test_bad_options_raise(tiny, kw, err):
     if err is ValueError:
         with pytest.raises(ValueError):
             JFEARTracker(jmodel, v, JTrackerConfig(**TINY_CFG), **kw)
+
+
+def test_fear_tracker_defaults_to_the_card():
+    assert inspect.signature(FEARTracker).parameters["device"].default == "cuda"
