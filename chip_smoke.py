@@ -16,6 +16,8 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    (128²) shapes, S=8, in float32 and bfloat16 (bfloat16 at every tile that
    takes the shape, its shared memory equal to the planner's count); then
    every such block of the FEAR-M and FEAR-L trunks at both shapes, S=2;
+   float32 also at S=1, each shape at the planner's chunk groups G, at G=1
+   and at one chunk a group, its shared memory equal to the Python count;
 5. the tracking slice with the packaged ``fear_xs.npz``: float32 at S=4,
    T=8 against the same port on the CPU; then bfloat16 at S=128, T=16, with
    the kernels' launch counts over ``init`` + one ``track`` and the time per
@@ -41,18 +43,26 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    depth 2;
 9. the sequential tracker ``FEARTracker`` (S=1) on a 60-frame 480×256
    clip rendered with numpy: ``get_extended_crop`` on the card equal to the
-   CPU byte for byte; K2 at all 26 FEAR-XS block shapes and K1 in both
-   ``smooth`` modes at S=1 against their plain twins, with their times;
-   float32 boxes within 1 px of the CPU port in the static, dual-EMA
-   (``update_interval=4``) and recovery configurations, with the launch
-   counts over ``initialize`` + 59 updates; ``update`` wall p50/p99, device
-   busy time and ``initialize`` time in float32 and bfloat16; then the OPE,
-   VOT and batched protocols on four 24-frame clips, card against CPU.
+   CPU byte for byte; 9c: K2 at all 26 FEAR-XS block shapes and K1 in both
+   ``smooth`` modes at S=1 against their plain twins, with their times and
+   bounds (a line per float32 block: kernel and plain ms, the bound and its
+   term, the kernel's share, G, blocks per SM); 9d: float32 boxes within 1
+   px of the CPU port in the static, dual-EMA (``update_interval=4``) and
+   recovery configurations, with the launch counts over ``initialize`` +
+   59 updates, and the static one again under torch's TF32 defaults; 9f:
+   ``update`` wall p50/p99, device busy time and ``initialize`` time in
+   float32 and bfloat16; 9g: the OPE, VOT and batched protocols on four
+   24-frame clips, card against CPU, in float32; 9h: the bfloat16 path end
+   to end: ``track`` at S=4, T=8 on the card against the port in bfloat16
+   on the CPU and against the card's float32 boxes (``BF16_BOX_PX``), and
+   9g's protocols in bfloat16, card against CPU (AO within 0.02, VOT
+   failures within one).
 
 Then one JSON line of kernels (``launches``: the static path's, phase 5b;
 ``launches_by_path``: each path's own count; ``bound_ms``: the least time
 the card could take, from the H100's published peaks; ``tile``: K2's
-bfloat16 tile per S=128 block shape; ``s1``: the times at S=1)
+bfloat16 tile per S=128 block shape; ``s1``: the times and bounds at S=1,
+K2's with its practical floor of 13 launches at K1's S=1 time)
 and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -148,18 +158,26 @@ def _block_shapes(specs, crop: int):
 HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
-def _k2_bound(S: int, h: int, cin: int, spec, itemsize: int = 2):
+def _k2_bound(S: int, h: int, cin: int, spec, dtype: str = "bfloat16"):
     """(bound ms, its larger term, every term) of one fused block on x
-    (S, h, h, cin): the block's input and output and its weights each moved
-    once over the memory rate; the expand and project products over the
-    tensor cores' rate; the depthwise over the CUDA cores' float32 rate."""
+    (S, h, h, cin) in ``dtype``: the block's input and output and its
+    weights each moved once over the memory rate (activations and matmul
+    weights 2 bytes in bfloat16, 4 in float32; biases and taps 4). bfloat16:
+    the expand and project products over the tensor cores' rate and the
+    depthwise over the CUDA cores' float32 rate, two units side by side;
+    float32: every product an FMA on the CUDA cores, so the products and the
+    depthwise add up ("fmas") over the float32 rate (no TF32)."""
     ce, k, ho, cout = cin * spec.expansion, spec.kernel, h // spec.stride, spec.out_channels
+    itemsize = 4 if dtype == "float32" else 2
     nbytes = (S * (h * h * cin + ho * ho * cout) + ce * (cin + cout)) * itemsize + (k * k * ce + 2 * ce + cout) * 4
-    terms = {
-        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-        "products": 2 * S * (h * h * cin * ce + ho * ho * ce * cout) / BF16_FLOPS * 1e3,
-        "depthwise": 2 * S * ho * ho * ce * k * k / F32_FLOPS * 1e3,
-    }
+    products = 2 * S * (h * h * cin * ce + ho * ho * ce * cout)
+    depthwise = 2 * S * ho * ho * ce * k * k
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    if dtype == "float32":
+        terms["fmas"] = (products + depthwise) / F32_FLOPS * 1e3
+    else:
+        terms["products"] = products / BF16_FLOPS * 1e3
+        terms["depthwise"] = depthwise / F32_FLOPS * 1e3
     by = max(terms, key=terms.get)
     return terms[by], by, terms
 
@@ -483,19 +501,18 @@ def _protocol_suite(seqs):
     return InMemory()
 
 
-def _protocols(device, seqs):
-    """The three protocols on ``seqs`` in float32 on ``device``: OPE and VOT
-    with ``FEARTracker``, letterboxed ``batched_evaluate`` with ``ScanTracker``."""
-    import torch
-
+def _protocols(device, seqs, dtype):
+    """The three protocols on ``seqs`` in ``dtype`` on ``device``: OPE and
+    VOT with ``FEARTracker``, letterboxed ``batched_evaluate`` with
+    ``ScanTracker``."""
     from feartracker_tpu_torch.evaluate.batched_eval import batched_evaluate
     from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
     from feartracker_tpu_torch.evaluate.harness import build_scan_tracker
     from feartracker_tpu_torch.evaluate.vot_eval import evaluate_vot
 
     ds = _protocol_suite(seqs)
-    tracker = _fear_tracker(device, torch.float32)
-    scan, _ = build_scan_tracker(dtype=torch.float32, device=device)
+    tracker = _fear_tracker(device, dtype)
+    scan, _ = build_scan_tracker(dtype=dtype, device=device)
     h, w = seqs[0][0][0].shape[:2]
     return {
         "ope": evaluate_tracker(tracker, ds),
@@ -532,8 +549,9 @@ def _phase_sequential(card, n_fused, counters, gen):
     from feartracker_tpu_torch.core import postprocess as pp
     from feartracker_tpu_torch.data.crops import get_extended_crop
     from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
+    from feartracker_tpu_torch.ops.cuda.build import load_library
     from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
-    from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
+    from feartracker_tpu_torch.ops.cuda.ir_block import _fused_ir_block, fused_ir_block, plan_split
     from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
 
     dev = torch.device("cuda")
@@ -561,29 +579,54 @@ def _phase_sequential(card, n_fused, counters, gen):
     print(f"[9b] get_extended_crop card == CPU byte for byte: {n_crops} crops (template 128², search "
           f"256² at context 2 and 3; windows past every side of the frame)", flush=True)
 
-    # -- 9c: K2 at every FEAR-XS block shape and K1, at S=1
+    # -- 9c: K2 at every FEAR-XS block shape and K1, at S=1. float32 also at
+    # G=1 and at one chunk a group; a line per float32 block: kernel and
+    # plain ms, the bound and its term, the kernel's share of it, G, blocks
+    # per SM
+    lib = load_library()
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.15}
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     k2_times = {}
     for crop in (256, 128):
         for dt in (torch.float32, torch.bfloat16):
-            per_block = []
+            name = str(dt)[6:]
+            per_block, terms = [], {}
             for i, spec, cin, h in _block_shapes(FEAR_XS_TRUNK, crop):
                 if spec.expansion == 1:
                     continue
                 blk = _random_block(gen, cin, spec, dt, dev)
                 x = torch.randn(1, h, h, cin, generator=gen, device=dev).to(dt)
-                e = (fused_ir_block(x, blk, spec).float() - plain_ir_block(x, blk, spec).float()).abs().max().item()
-                if not e <= tol[dt]:
-                    raise AssertionError(f"K2 S=1 block{i} crop {crop} {dt}: max|err| {e} > {tol[dt]}")
-                err[dt] = max(err[dt], e)
-                per_block.append((i, _time_ms(lambda: fused_ir_block(x, blk, spec), iters=50),
-                                  _time_ms(lambda: plain_ir_block(x, blk, spec), iters=50)))
+                ref = plain_ir_block(x, blk, spec).float()
+                ce, ho = cin * spec.expansion, h // spec.stride
+                for groups in ((None, 1, -(-ce // 32)) if dt == torch.float32 else (None,)):
+                    got = _fused_ir_block(x, blk, spec, True, False, None, groups).float()
+                    e = (got - ref).abs().max().item()
+                    if not e <= tol[dt]:
+                        raise AssertionError(f"K2 S=1 block{i} crop {crop} {dt} groups {groups}: max|err| {e} "
+                                             f"> {tol[dt]}")
+                    err[dt] = max(err[dt], e)
+                km = _time_ms(lambda: fused_ir_block(x, blk, spec), iters=50)
+                pm = _time_ms(lambda: plain_ir_block(x, blk, spec), iters=50)
+                bound, by, bterms = _k2_bound(1, h, cin, spec, name)
+                for key, v in bterms.items():
+                    terms[key] = terms.get(key, 0.0) + v
+                per_block.append((i, km, pm))
+                if dt == torch.float32:
+                    G = plan_split(1, ho, ho, ce)
+                    occ = lib.fear_ir_block_occupancy(spec.kernel, spec.stride, cin, spec.out_channels, 0, 8, 8)
+                    print(f"[9c] K2 block{i:2d} S=1 x (1,{h},{h},{cin}) f32 {spec}: kernel {km:.4f} ms, plain "
+                          f"{pm:.4f} ms; bound {bound:.5f} ms by {by} ({', '.join(f'{t} {v:.5f}' for t, v in bterms.items())}), "
+                          f"kernel at {100 * bound / km:.1f}% of it; G {G}, {(-(-ho // 8)) ** 2 * G} blocks, {occ} per "
+                          f"SM [{card}]", flush=True)
             ms, plain = sum(b[1] for b in per_block), sum(b[2] for b in per_block)
-            k2_times[f"{crop}_{str(dt)[6:]}"] = {"ms": ms, "plain_ms": plain}
-            print(f"[9c] K2 S=1 {crop}² {str(dt)[6:]}: {n_fused} blocks within atol {tol[dt]}; sum kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms; per block (kernel/plain ms) "
-                  f"{' '.join(f'{i}:{k:.3f}/{p:.3f}' for i, k, p in per_block)} [{card}]", flush=True)
+            by = max(terms, key=terms.get)
+            k2_times[f"{crop}_{name}"] = {"ms": ms, "plain_ms": plain, "bound_ms": terms[by],
+                                          "bound_by": "bytes" if by == "bytes" else "operations"}
+            print(f"[9c] K2 S=1 {crop}² {name}: {n_fused} blocks within atol {tol[dt]}; sum kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms ({ms / plain:.3f}x); bound {terms[by]:.5f} ms by {by} "
+                  f"({', '.join(f'{t} {v:.5f}' for t, v in terms.items())}), kernel at {100 * terms[by] / ms:.1f}%; "
+                  f"per block (kernel/plain ms) {' '.join(f'{i}:{k:.3f}/{p:.3f}' for i, k, p in per_block)} "
+                  f"[{card}]", flush=True)
     reg = torch.rand(1, 16, 16, 4, generator=gen, device=dev) * 40 + 4
     logits = torch.randn(1, 16, 16, 1, generator=gen, device=dev)
     prev = torch.rand(1, 2, generator=gen, device=dev) * 60 + 20
@@ -599,10 +642,17 @@ def _phase_sequential(card, n_fused, counters, gen):
         k1_err = max(k1_err, (got.bbox - ref.bbox).abs().max().item())
     cfg = pp.PostprocessConfig()
     k1_times = {"ms": _time_ms(lambda: postprocess_cuda(logits, reg, cfg, prev_size=prev), iters=200),
-                "plain_ms": _time_ms(lambda: pp.postprocess(logits, reg, cfg, prev_size=prev), iters=200)}
+                "plain_ms": _time_ms(lambda: pp.postprocess(logits, reg, cfg, prev_size=prev), iters=200),
+                "bound_ms": _k1_bound(1), "bound_by": "bytes"}
+    # a launch costs about one small kernel's time whatever it computes: K1's
+    # S=1 time stands for it, so 13 K2 launches take at least 13 of them
+    for t in k2_times.values():
+        t["launch_floor_ms"] = n_fused * k1_times["ms"]
     print(f"[9c] K1 S=1 both smooth modes: bbox max|err| {k1_err:.3e}, coords exact; kernel "
-          f"{k1_times['ms']:.4f} ms, plain {k1_times['plain_ms']:.4f} ms; K2 S=1 max|err| f32 "
-          f"{err[torch.float32]:.3e}, bf16 {err[torch.bfloat16]:.3e} [{card}]", flush=True)
+          f"{k1_times['ms']:.4f} ms, plain {k1_times['plain_ms']:.4f} ms, bound {k1_times['bound_ms']:.6f} ms by "
+          f"bytes; K2 S=1 max|err| f32 {err[torch.float32]:.3e} (planner's G, 1 and one chunk a group), bf16 "
+          f"{err[torch.bfloat16]:.3e}; K2's practical floor at S=1: {n_fused} launches x K1's "
+          f"{k1_times['ms']:.4f} ms = {n_fused * k1_times['ms']:.4f} ms [{card}]", flush=True)
 
     # -- 9d, 9e: boxes card vs CPU in float32; launch counts over init + N updates
     N = len(frames) - 1
@@ -631,6 +681,21 @@ def _phase_sequential(card, n_fused, counters, gen):
         print(f"[9d] FEARTracker {name:8s} f32, init + {N} updates, card vs cpu: bbox max|err| {box_err} px "
               f"(<= 1), confidence {conf_err:.2e} (<= 1e-3); {refreshes} refreshes, {recoveries} recovery "
               f"crops; [9e] launches {counts} = K1 {N}, K2 {n_fused}*(1 + {N} + {refreshes})", flush=True)
+        if name == "static":
+            # the same under torch's defaults, as a user's process runs it:
+            # cuDNN convolutions (the stem, the head) may take TF32
+            flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+            try:
+                dflt_boxes, dflt_conf, _, _ = _track_clip(_fear_tracker("cuda", torch.float32), frames, boxes[0])
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            dflt_err = np.abs(dflt_boxes - cpu_boxes).max()
+            if not dflt_err <= 1.0:
+                raise AssertionError(f"sequential static f32 under torch's TF32 defaults: bbox {dflt_err} px > 1")
+            print(f"[9d] FEARTracker static   f32 under torch's defaults (cudnn.allow_tf32=True), card vs cpu: "
+                  f"bbox max|err| {dflt_err} px (<= 1), confidence {np.abs(dflt_conf - cpu_conf).max():.2e}",
+                  flush=True)
 
     # -- 9f: timing on the card, after warmup
     seq_ms = {}
@@ -669,7 +734,7 @@ def _phase_sequential(card, n_fused, counters, gen):
 
     # -- 9g: the three protocols on an in-memory suite, card vs CPU
     seqs = [_render_clip(seed=20 + i, n_frames=24) for i in range(4)]
-    res = {device: _protocols(device, seqs) for device in ("cuda", "cpu")}
+    res = {device: _protocols(device, seqs, torch.float32) for device in ("cuda", "cpu")}
     card_r, cpu_r = res["cuda"], res["cpu"]
     ao = {k: (card_r[k]["ao"], cpu_r[k]["ao"]) for k in ("ope", "batched")}
     vot = (card_r["vot"]["robustness_failures"], cpu_r["vot"]["robustness_failures"])
@@ -684,7 +749,63 @@ def _phase_sequential(card, n_fused, counters, gen):
           f"{ao['batched'][1]:.4f}; VOT accuracy {card_r['vot']['accuracy']:.4f} vs "
           f"{cpu_r['vot']['accuracy']:.4f}, failures {vot[0]:.0f} vs {vot[1]:.0f}, EAO "
           f"{card_r['vot']['eao']:.4f}", flush=True)
-    return launches, {"K1": k1_times, "K2": k2_times}, seq_ms
+    return launches, {"K1": k1_times, "K2": k2_times}, seq_ms, seqs
+
+
+# phase 9h's tolerances for bfloat16 on the card: boxes at S=4, T=8 against
+# the same port in bfloat16 on the CPU (the kernels' bf16 rounding against
+# the twins' and the CPU convolutions'; measured 3.0 px on the H100) and
+# against the card's own float32 boxes (bf16 against f32; measured 2.0 px),
+# each with 2-3x headroom; protocol AO and VOT failures against the CPU in
+# bfloat16 (measured AO within 0.004, failures equal)
+BF16_BOX_PX = {"cpu_bf16": 6.0, "card_f32": 6.0}
+BF16_AO, BF16_VOT_FAILURES = 0.02, 1
+
+
+def _phase_bf16(card, seqs):
+    """Phase 9h: the bfloat16 path end to end on the card. ``track`` at
+    S=4, T=8 on the first 9 frames of 9g's four clips (an object to track:
+    on random frames, as in 5a, bf16 and f32 boxes wander apart by 100 px
+    and more) against the port in bfloat16 on the CPU and against the
+    card's own float32 boxes; then 9g's protocols in bfloat16, card against
+    CPU."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker
+
+    T = 8
+    f0 = np.stack([frames[0] for frames, _ in seqs])
+    chunk = np.stack([np.stack([frames[t] for frames, _ in seqs]) for t in range(1, T + 1)])
+    boxes = np.stack([b[0] for _, b in seqs]).astype(np.float32)
+    got = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16), ("cuda", torch.float32)):
+        tracker, _ = build_scan_tracker(dtype=dtype, device=device)
+        _, out = tracker.track(tracker.init(f0, boxes), chunk)
+        got[device, dtype] = {k: v.float().cpu() for k, v in out.items()}
+        if not all(torch.isfinite(v).all() for v in got[device, dtype].values()):
+            raise AssertionError(f"bf16 phase: non-finite {dtype} outputs on {device}")
+    mine = got["cuda", torch.bfloat16]
+    errs = {"cpu_bf16": (mine["bbox"] - got["cpu", torch.bfloat16]["bbox"]).abs().max().item(),
+            "card_f32": (mine["bbox"] - got["cuda", torch.float32]["bbox"]).abs().max().item()}
+    conf = (mine["confidence"] - got["cpu", torch.bfloat16]["confidence"]).abs().max().item()
+    if not all(errs[k] <= BF16_BOX_PX[k] for k in errs):
+        raise AssertionError(f"bf16 track S=4 T=8: bbox max|err| {errs} px, limits {BF16_BOX_PX}")
+    print(f"[9h] slice bf16 S=4 T=8 (9g's clips) on the card: bbox max|err| {errs['cpu_bf16']:.4f} px vs the port in bf16 on the "
+          f"cpu (<= {BF16_BOX_PX['cpu_bf16']}), {errs['card_f32']:.4f} px vs the card's f32 boxes (<= "
+          f"{BF16_BOX_PX['card_f32']}); confidence vs cpu bf16 {conf:.2e}", flush=True)
+
+    res = {device: _protocols(device, seqs, torch.bfloat16) for device in ("cuda", "cpu")}
+    card_r, cpu_r = res["cuda"], res["cpu"]
+    ao = {k: (card_r[k]["ao"], cpu_r[k]["ao"]) for k in ("ope", "batched")}
+    vot = (card_r["vot"]["robustness_failures"], cpu_r["vot"]["robustness_failures"])
+    if not (all(abs(a - b) <= BF16_AO for a, b in ao.values()) and abs(vot[0] - vot[1]) <= BF16_VOT_FAILURES
+            and min(a for a, _ in ao.values()) > 0.5):
+        raise AssertionError(f"protocols bf16 card vs cpu: AO {ao}, VOT failures {vot}")
+    print(f"[9h] protocols, {len(seqs)} x 24 frames, bf16, card vs cpu: OPE AO {ao['ope'][0]:.4f} vs "
+          f"{ao['ope'][1]:.4f}; batched AO {ao['batched'][0]:.4f} vs {ao['batched'][1]:.4f} (each within "
+          f"{BF16_AO}); VOT accuracy {card_r['vot']['accuracy']:.4f} vs {cpu_r['vot']['accuracy']:.4f}, "
+          f"failures {vot[0]:.0f} vs {vot[1]:.0f} (within {BF16_VOT_FAILURES}) [{card}]", flush=True)
 
 
 def main() -> int:
@@ -696,11 +817,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from feartracker_tpu_torch.core import postprocess as pp
     from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
-    from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK, TRUNKS
+    from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK, TRUNKS, IRBlockSpec
     from feartracker_tpu_torch.ops.cuda import build as kbuild
     from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
-    from feartracker_tpu_torch.ops.cuda.ir_block import (_fused_ir_block, bf16_smem_bytes, fused_ir_block,
-                                                     kernel_smem_bytes, plan_tile, tiles_that_fit)
+    from feartracker_tpu_torch.ops.cuda.ir_block import (_fused_ir_block, bf16_smem_bytes, f32_smem_bytes,
+                                                     fused_ir_block, kernel_smem_bytes, plan_tile,
+                                                     tiles_that_fit)
     from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
 
     def k2_smem(spec, cin, tile):
@@ -750,35 +872,58 @@ def main() -> int:
     n_checked = 0
     # FEAR-XS at S=8; the family trunks at S=2 add ragged chunks (Ce=108),
     # padded widths (Cin=36) and Cout up to 224. bfloat16 at every tile that
-    # takes the shape, its shared memory as the wrapper's planner counts it
+    # takes the shape, its shared memory as the wrapper's planner counts it;
+    # float32 also at S=1, each at the planner's chunk groups, at 1 and at
+    # one chunk a group, its shared memory as the Python count has it
     lib = kbuild.load_library()
     for name, streams in (("fear_xs", 8), ("fear_m", 2), ("fear_l", 2)):
         for crop in (256, 128):
             for i, spec, cin, h in _block_shapes(TRUNKS[name], crop):
                 if spec.expansion == 1:
                     continue
-                bf16_tiles = tiles_that_fit(spec.kernel, spec.stride, cin, spec.out_channels)
-                for dt, tiles in ((torch.float32, [None]), (torch.bfloat16, bf16_tiles)):
-                    blk = _random_block(gen, cin, spec, dt, dev)
-                    x = torch.randn(streams, h, h, cin, generator=gen, device=dev).to(dt)
+                k, s, cout = spec.kernel, spec.stride, spec.out_channels
+                chunks = -(-cin * spec.expansion // 32)
+                bf16_tiles = tiles_that_fit(k, s, cin, cout)
+                if not bf16_tiles:
+                    raise AssertionError(f"K2 {name} block{i}: no bfloat16 tile takes Cin={cin} {spec}")
+                if lib.fear_ir_block_smem_bytes(k, s, cin, cout, 0, 8, 8) != f32_smem_bytes(k, s, cin, cout):
+                    raise AssertionError(f"K2 {name} block{i} f32: kernel and Python count different shared memory")
+                runs = [(torch.bfloat16, streams, tile, None) for tile in bf16_tiles]
+                runs += [(torch.float32, n, None, g) for n in (streams, 1) for g in (None, 1, chunks)]
+                blks = {dt: _random_block(gen, cin, spec, dt, dev) for dt in tol}
+                for dt, n, tile, groups in runs:
+                    blk = blks[dt]
+                    x = torch.randn(n, h, h, cin, generator=gen, device=dev).to(dt)
                     ref = plain_ir_block(x, blk, spec).float()
-                    if not tiles:
-                        raise AssertionError(f"K2 {name} block{i}: no bfloat16 tile takes Cin={cin} {spec}")
-                    for tile in tiles:
-                        if tile and lib.fear_ir_block_smem_bytes(spec.kernel, spec.stride, cin, spec.out_channels,
-                                                                 1, *tile) != k2_smem(spec, cin, tile):
-                            raise AssertionError(f"K2 {name} block{i} tile {tile}: kernel and planner count "
-                                                 f"different shared memory")
-                        got = _fused_ir_block(x, blk, spec, True, False, tile).float()
-                        torch.cuda.synchronize()
-                        err = (got - ref).abs().max().item()
-                        if not err <= tol[dt]:
-                            raise AssertionError(f"K2 {name} block{i} crop {crop} {dt} tile {tile}: max|err| "
-                                                 f"{err} > {tol[dt]}")
-                        k2_err[dt] = max(k2_err[dt], err)
-                        n_checked += 1
-            print(f"[4] K2 {name} crop {crop}: every block with expansion > 1 ok (S={streams}; bf16 at every "
-                  f"tile that fits)", flush=True)
+                    if tile and lib.fear_ir_block_smem_bytes(k, s, cin, cout, 1, *tile) != k2_smem(spec, cin, tile):
+                        raise AssertionError(f"K2 {name} block{i} tile {tile}: kernel and planner count "
+                                             f"different shared memory")
+                    got = _fused_ir_block(x, blk, spec, True, False, tile, groups).float()
+                    torch.cuda.synchronize()
+                    err = (got - ref).abs().max().item()
+                    if not err <= tol[dt]:
+                        raise AssertionError(f"K2 {name} block{i} crop {crop} {dt} S={n} tile {tile} groups "
+                                             f"{groups}: max|err| {err} > {tol[dt]}")
+                    k2_err[dt] = max(k2_err[dt], err)
+                    n_checked += 1
+            print(f"[4] K2 {name} crop {crop}: every block with expansion > 1 ok (bf16 S={streams} at every "
+                  f"tile that fits; f32 S={streams} and S=1 at the planner's chunk groups, 1 and one chunk a "
+                  f"group)", flush=True)
+    # widths that are not whole 16-byte rows (every family width is a
+    # multiple of 4): both kernels' element-by-element staging
+    for cin, spec in ((18, IRBlockSpec(3, 3, 1, 18)), (22, IRBlockSpec(2, 5, 2, 30))):
+        runs = [(torch.bfloat16, None, t) for t in tiles_that_fit(spec.kernel, spec.stride, cin, spec.out_channels)]
+        runs += [(torch.float32, g, None) for g in (None, 1, -(-cin * spec.expansion // 32))]
+        for dt, groups, tile in runs:
+            blk = _random_block(gen, cin, spec, dt, dev)
+            x = torch.randn(2, 16, 16, cin, generator=gen, device=dev).to(dt)
+            err = (_fused_ir_block(x, blk, spec, True, False, tile, groups).float()
+                   - plain_ir_block(x, blk, spec).float()).abs().max().item()
+            if not err <= tol[dt]:
+                raise AssertionError(f"K2 ragged Cin={cin} {spec} {dt} tile {tile} groups {groups}: max|err| {err}")
+            k2_err[dt] = max(k2_err[dt], err)
+            n_checked += 1
+    print("[4] K2 ragged widths (Cin 18 and 22, Ce 54 and 44, Cout 18 and 30) ok in both dtypes", flush=True)
     print(f"[4] K2 {n_checked} checks: max|err| f32 {k2_err[torch.float32]:.3e} (atol 1e-4), "
           f"bf16 {k2_err[torch.bfloat16]:.3e} (atol 0.15)", flush=True)
 
@@ -903,7 +1048,8 @@ def main() -> int:
     counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
     dual_launches, dual_tracker = _phase_dual(card, n_fused, counters)
     pool_launches = _phase_pool(card, n_fused, counters, dual_tracker)
-    seq_launches, s1_times, seq_ms = _phase_sequential(card, n_fused, counters, gen)
+    seq_launches, s1_times, seq_ms, seqs = _phase_sequential(card, n_fused, counters, gen)
+    _phase_bf16(card, seqs)
     print(f"[9] sequential vs batched: FEARTracker update p50 {seq_ms['float32']:.3f} ms f32, "
           f"{seq_ms['bfloat16']:.3f} ms bf16 = {1e3 / seq_ms['bfloat16']:.1f} frames/s; ScanTracker S={S} "
           f"T={T} bf16 {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)

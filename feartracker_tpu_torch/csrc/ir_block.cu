@@ -28,8 +28,29 @@
 // Rounding points follow the Pallas kernel: the expanded tensor and the
 // depthwise output are held in the compute dtype, sums in float32.
 //
-// The float32 kernel (the sequential tracker's f32 path and the f32 checks)
-// runs every product on the CUDA cores, one 8x8 tile per block.
+// The float32 kernel (the sequential tracker's f32 path, S=1, and the f32
+// checks) runs every product as a float32 FMA on the CUDA cores (no TF32).
+// At S=1 its bound is those FMAs (~0.48 GFLOP over FEAR-XS's 13 blocks at
+// 256², 0.007 ms at 67 TFLOP/s), and what held the first version back was
+// parallelism, not arithmetic: one 8x8 tile per block gives 64 blocks on
+// the 64² map and 4 on the 16² maps of the widest blocks (Ce 672) for 132
+// SMs, each walking every chunk in turn. So:
+//   * the grid is (tiles, S, G): the chunks are split into G contiguous
+//     groups (ops/cuda/ir_block.py:plan_split picks the smallest G whose
+//     grid reaches 99 blocks, at most one chunk a group; G = 1 wherever the
+//     tiles already fill the card, e.g. S=128);
+//   * each chunk's expand weights, taps, biases and project weights are
+//     staged once into shared memory with cp.async, the next chunk's
+//     issued as soon as the current one is done with each buffer;
+//   * the expand and the project are register-blocked: a thread keeps the
+//     sums of several positions for four channels, so every weight and
+//     activation it loads (16-byte loads) feeds 4-48 FMAs. The project sums
+//     stay in registers across the block's chunks;
+//   * with G > 1 each block writes its float32 partial (64 x Cout) to a
+//     workspace; the last block of a tile to finish (a __threadfence and an
+//     atomic ticket per tile) adds the G partials in group order 0..G-1, so
+//     the result is deterministic, applies the epilogue, stores, and resets
+//     the ticket to 0. One launch per block, no memset, no second kernel.
 //
 // The bfloat16 kernel (the batched main path):
 //   * tiles of 16x16, 8x16 or 8x8 outputs (M = 256, 128 or 64 rows, each a
@@ -79,101 +100,367 @@ __host__ __device__ constexpr int halo_side(int k, int s) { return (kTile - 1) *
 __device__ __forceinline__ float relu_if(float v, int on) { return on ? fmaxf(v, 0.0f) : v; }
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
 // ---------------------------------------------------------------- float32 --
 
+constexpr int kLdd = kChunk + 4;  // leading dimension of the depthwise output (16-byte rows, banks apart)
+constexpr int kMaxQr = 16;        // project: output positions a thread holds, 4 channels each
+// widest Cout: its channel quads times the fewest position groups (64 / kMaxQr) fill the threads
+constexpr int kF32MaxCout = kThreads / (kQ / kMaxQr) * 4;
+
+// Shared-memory regions in floats, each a whole number of 16-byte rows;
+// ops/cuda/ir_block.py:f32_smem_bytes repeats the sum.
+struct F32Layout {
+  int ldx, co4;
+  size_t xs, es, ds, we, wp, aux, flag, total;
+};
+
+__host__ __device__ inline F32Layout f32_layout(int k, int s, int Cin, int Cout) {
+  F32Layout L;
+  const size_t hp = (size_t)halo_side(k, s) * halo_side(k, s);
+  L.ldx = round_up(Cin, 4);
+  L.co4 = round_up(Cout, 4);
+  size_t off = 0;
+  L.xs = off; off += hp * L.ldx;              // [HP][ldx]       input halo
+  L.es = off; off += hp * kChunk;             // [HP][32]        expanded chunk
+  L.ds = off; off += kQ * kLdd;               // [64][36]        depthwise output
+  L.we = off; off += (size_t)L.ldx * kChunk;  // [ldx][32]       expand weights
+  L.wp = off; off += (size_t)kChunk * L.co4;  // [32][co4]       project weights
+  L.aux = off; off += (k * k + 2) * kChunk;   // [k*k+2][32]     taps, expand bias, depthwise bias
+  L.flag = off; off += 4;                     // the last-block flag
+  L.total = off;
+  return L;
+}
+
+// The project's thread map: channel quads x position groups, the groups a
+// power of two (<= 64) that keeps the map within the block's threads.
+__host__ __device__ inline int f32_pgroups(int co4) {
+  int pg = kQ;
+  while (pg * (co4 / 4) > kThreads) pg >>= 1;
+  return pg;
+}
+
+// dst[r][c] = src[r * ld + c] for r < rows_in, c < cols_in, else 0; rows x
+// cols floats (cols a multiple of 4), with cp.async of 16 bytes (v4: ld,
+// cols_in and src 16-byte aligned) or 4.
+__device__ __forceinline__ void stage_tile(float* dst, int rows, int cols, const float* src, int ld,
+                                           int rows_in, int cols_in, bool v4) {
+  if (v4) {
+    const int segs = cols / 4;
+    for (int e = threadIdx.x; e < rows * segs; e += kThreads) {
+      const int r = e / segs, c = (e - r * segs) * 4;
+      float* d = dst + r * cols + c;
+      if (r < rows_in && c < cols_in)
+        cp_async16(d, src + (size_t)r * ld + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int r = e / cols, c = e - r * cols;
+      if (r < rows_in && c < cols_in)
+        cp_async4(dst + e, src + (size_t)r * ld + c);
+      else
+        dst[e] = 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+__device__ __forceinline__ void fma4(float4& a, float v, const float4& w) {
+  a.x = fmaf(v, w.x, a.x);
+  a.y = fmaf(v, w.y, a.y);
+  a.z = fmaf(v, w.z, a.z);
+  a.w = fmaf(v, w.w, a.w);
+}
+
+// Grid (tiles, S, G): block (tile, n, g) computes chunks [g*nch/G, (g+1)*nch/G)
+// of stream n's 8x8 output tile. With G > 1, ws holds (S, tiles, G, 64, co4)
+// float32 partials and tickets (S * tiles) int32 zeros.
 template <int K, int S>
-__global__ void __launch_bounds__(kThreads) ir_block_f32_kernel(
+__global__ void __launch_bounds__(kThreads, 1) ir_block_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ we, const float* __restrict__ be,
     const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ wp,
-    const float* __restrict__ bp, float* __restrict__ out, int H, int W, int Cin, int Ce,
-    int Cout, int Hout, int Wout, int tiles_x, int has_expand, int relu_dw, int relu_out,
-    int residual) {
+    const float* __restrict__ bp, float* __restrict__ out, float* __restrict__ ws,
+    int* __restrict__ tickets, int H, int W, int Cin, int Ce, int Cout, int Hout, int Wout,
+    int tiles_x, int has_expand, int relu_dw, int relu_out, int residual) {
   constexpr int P = K / 2, HT = halo_side(K, S), HP = HT * HT;
-  extern __shared__ float smem[];
-  float* xs = smem;                 // [HP][Cin]    input halo
-  float* es = xs + HP * Cin;        // [HP][kChunk] expanded chunk
-  float* ds = es + HP * kChunk;     // [kQ][kChunk] depthwise output chunk
-  float* acc = ds + kQ * kChunk;    // [kQ][Cout]   project accumulator
+  constexpr int R = (HP + 31) / 32;  // expand: halo positions a thread holds
+  static_assert(kWarps == kTile, "depthwise: a warp per output row");
 
-  const int n = blockIdx.y;
-  const int oy0 = (blockIdx.x / tiles_x) * kTile, ox0 = (blockIdx.x % tiles_x) * kTile;
+  const F32Layout L = f32_layout(K, S, Cin, Cout);
+  const int ldx = L.ldx, co4 = L.co4;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem + L.xs;
+  float* es = smem + L.es;
+  float* ds = smem + L.ds;
+  float* we_s = smem + L.we;
+  float* wp_s = smem + L.wp;
+  float* aux_s = smem + L.aux;  // [k*k][32] taps, then be, then bd
+  int* last = reinterpret_cast<int*>(smem + L.flag);
+
+  const int tile = blockIdx.x, n = blockIdx.y, g = blockIdx.z, G = gridDim.z;
+  const int tiles = gridDim.x;
+  const int oy0 = (tile / tiles_x) * kTile, ox0 = (tile % tiles_x) * kTile;
   const int iy0 = oy0 * S - P, ix0 = ox0 * S - P;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nch = (Ce + kChunk - 1) / kChunk;
+  const int cbeg = g * nch / G, cend = (g + 1) * nch / G;
   const float* xn = x + (size_t)n * H * W * Cin;
+  const bool v4 = ((Cin | Ce | Cout) & 3) == 0 && aligned16(x) && aligned16(wd) && aligned16(bd) &&
+                  aligned16(wp) && (!has_expand || (aligned16(we) && aligned16(be)));
 
-  for (int e = tid; e < HP * Cin; e += kThreads) {
-    const int p = e / Cin, c = e - p * Cin;
+  auto inside = [&](int p) {
     const int iy = iy0 + p / HT, ix = ix0 + p % HT;
-    xs[e] = (iy >= 0 && iy < H && ix >= 0 && ix < W) ? xn[((size_t)iy * W + ix) * Cin + c] : 0.0f;
+    return iy >= 0 && iy < H && ix >= 0 && ix < W;
+  };
+  // chunk c's weights: expand (Cin rows of 32), taps + biases, project (32 rows of Cout)
+  auto stage_we = [&](int c) {
+    const int c0 = c * kChunk, cn = min(kChunk, Ce - c0);
+    if (has_expand) stage_tile(we_s, ldx, kChunk, we + c0, Ce, Cin, cn, v4);
+  };
+  auto stage_aux = [&](int c) {
+    const int c0 = c * kChunk, cn = min(kChunk, Ce - c0);
+    stage_tile(aux_s, K * K, kChunk, wd + c0, Ce, K * K, cn, v4);
+    stage_tile(aux_s + K * K * kChunk, 1, kChunk, has_expand ? be + c0 : nullptr, 0, has_expand, cn, v4);
+    stage_tile(aux_s + (K * K + 1) * kChunk, 1, kChunk, bd + c0, 0, 1, cn, v4);
+  };
+  auto stage_wp = [&](int c) {
+    const int c0 = c * kChunk, cn = min(kChunk, Ce - c0);
+    stage_tile(wp_s, kChunk, co4, wp + (size_t)c0 * Cout, Cout, cn, Cout, v4);
+  };
+
+  // the input halo (zero outside the image and past Cin) with chunk cbeg's
+  // expand weights, taps and biases: one cp.async group; its project
+  // weights: a second
+  if (v4) {
+    const int segs = ldx / 4;
+    for (int e = tid; e < HP * segs; e += kThreads) {
+      const int p = e / segs, c = (e - p * segs) * 4;
+      float* d = xs + p * ldx + c;
+      if (inside(p))
+        cp_async16(d, xn + ((size_t)(iy0 + p / HT) * W + ix0 + p % HT) * Cin + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = tid; e < HP * ldx; e += kThreads) {
+      const int p = e / ldx, c = e - p * ldx;
+      if (c < Cin && inside(p))
+        cp_async4(xs + e, xn + ((size_t)(iy0 + p / HT) * W + ix0 + p % HT) * Cin + c);
+      else
+        xs[e] = 0.0f;
+    }
   }
-  for (int e = tid; e < kQ * Cout; e += kThreads) acc[e] = 0.0f;
-  __syncthreads();
+  stage_we(cbeg);
+  stage_aux(cbeg);
+  cp_async_commit();
+  stage_wp(cbeg);
+  cp_async_commit();
 
-  for (int c0 = 0; c0 < Ce; c0 += kChunk) {
-    const int cn = min(kChunk, Ce - c0);
-    const int c = c0 + lane;
+  // the project's map: channel quad pc, output positions pq + PG*m
+  const int nq = co4 / 4, PG = f32_pgroups(co4), QR = kQ / PG;
+  const bool proj = tid < nq * PG;
+  const int pc = proj ? tid % nq : 0, pq = proj ? tid / nq : 0;
+  float4 acc[kMaxQr];
+#pragma unroll
+  for (int m = 0; m < kMaxQr; ++m) acc[m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
-    // expand: warp per halo position, lane per expanded channel
-    for (int p = warp; p < HP; p += kWarps) {
-      const int iy = iy0 + p / HT, ix = ix0 + p % HT;
-      float v = 0.0f;
-      if (lane < cn && iy >= 0 && iy < H && ix >= 0 && ix < W) {
-        const float* xp = xs + p * Cin;
-        if (has_expand) {
-          float s = 0.0f;
-          for (int i = 0; i < Cin; ++i) s = fmaf(xp[i], we[(size_t)i * Ce + c], s);
-          v = fmaxf(s + be[c], 0.0f);
-        } else {
-          v = xp[c];
+  for (int c = cbeg; c < cend; ++c) {
+    const int c0 = c * kChunk;
+    const bool more = c + 1 < cend;
+    cp_async_wait<1>();
+    __syncthreads();  // halo, expand weights, taps and biases of chunk c staged
+
+    // expand: a thread takes channels 4*eq..4*eq+3 at halo positions
+    // ep + 32*r; a 16-byte load of the input feeds 16 FMAs, one of the
+    // weights R*4. Bias, ReLU, and 0 outside the image
+    if (has_expand) {
+      const int eq = tid & 7, ep = tid >> 3;
+      float4 a[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int i = 0; i < ldx; i += 4) {
+        const float4 w0 = *reinterpret_cast<const float4*>(we_s + (i + 0) * kChunk + eq * 4);
+        const float4 w1 = *reinterpret_cast<const float4*>(we_s + (i + 1) * kChunk + eq * 4);
+        const float4 w2 = *reinterpret_cast<const float4*>(we_s + (i + 2) * kChunk + eq * 4);
+        const float4 w3 = *reinterpret_cast<const float4*>(we_s + (i + 3) * kChunk + eq * 4);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int p = min(ep + 32 * r, HP - 1);
+          const float4 v = *reinterpret_cast<const float4*>(xs + p * ldx + i);
+          fma4(a[r], v.x, w0);
+          fma4(a[r], v.y, w1);
+          fma4(a[r], v.z, w2);
+          fma4(a[r], v.w, w3);
         }
       }
-      es[p * kChunk + lane] = v;
-    }
-    __syncthreads();
-
-    // depthwise: warp per output position, lane per channel
-    for (int q = warp; q < kQ; q += kWarps) {
-      const int qy = q / kTile, qx = q % kTile;
-      float v = 0.0f;
-      if (lane < cn) {
-        float s = 0.0f;
+      const float4 b = *reinterpret_cast<const float4*>(aux_s + K * K * kChunk + eq * 4);
 #pragma unroll
-        for (int dy = 0; dy < K; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < K; ++dx)
-            s = fmaf(es[((qy * S + dy) * HT + qx * S + dx) * kChunk + lane], wd[(dy * K + dx) * Ce + c], s);
-        v = relu_if(s + bd[c], relu_dw);
+      for (int r = 0; r < R; ++r) {
+        const int p = ep + 32 * r;
+        if (p >= HP) continue;
+        const bool in = inside(p);
+        *reinterpret_cast<float4*>(es + p * kChunk + eq * 4) =
+            in ? make_float4(fmaxf(a[r].x + b.x, 0.0f), fmaxf(a[r].y + b.y, 0.0f), fmaxf(a[r].z + b.z, 0.0f),
+                             fmaxf(a[r].w + b.w, 0.0f))
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
-      ds[q * kChunk + lane] = v;
+    } else {  // no expand (Ce == Cin): the chunk's input channels
+      for (int e = tid; e < HP * kChunk; e += kThreads) {
+        const int p = e / kChunk, j = e - p * kChunk;
+        es[e] = c0 + j < Cin ? xs[p * ldx + c0 + j] : 0.0f;
+      }
     }
     __syncthreads();
+    if (more) stage_we(c + 1);
+    cp_async_commit();
 
-    // project: this chunk's partial products into the accumulator
-    for (int e = tid; e < kQ * Cout; e += kThreads) {
-      const int q = e / Cout, co = e - q * Cout;
-      const float* dq = ds + q * kChunk;
-      float s = acc[e];
-      for (int j = 0; j < cn; ++j) s = fmaf(dq[j], wp[(size_t)(c0 + j) * Cout + co], s);
-      acc[e] = s;
+    // depthwise: warp per output row, lane per channel, the row's 8 outputs
+    // in registers; each halo value loaded once feeds every output it
+    // reaches; sums in (dy, dx) order
+    {
+      const int qy = warp;
+      float s[kTile];
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) s[r] = 0.0f;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+        float w[K];
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) w[dx] = aux_s[(dy * K + dx) * kChunk + lane];
+        const float* row = es + (qy * S + dy) * HT * kChunk + lane;
+#pragma unroll
+        for (int ix = 0; ix < HT; ++ix) {
+          const float v = row[ix * kChunk];
+#pragma unroll
+          for (int r = 0; r < kTile; ++r) {
+            const int dx = ix - r * S;
+            if (dx >= 0 && dx < K) s[r] = fmaf(v, w[dx], s[r]);
+          }
+        }
+      }
+      const float b = aux_s[(K * K + 1) * kChunk + lane];
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) ds[(qy * kTile + r) * kLdd + lane] = relu_if(s[r] + b, relu_dw);
     }
     __syncthreads();
+    if (more) stage_aux(c + 1);
+    cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();  // chunk c's project weights staged
+
+    // project: acc[m] (channels 4*pc.., position pq + PG*m) += ds @ wp; a
+    // 16-byte load of the depthwise output feeds 16 FMAs, one of the
+    // weights QR*4; sums over the chunk's channels in order
+    if (proj) {
+#pragma unroll 2
+      for (int j = 0; j < kChunk; j += 4) {
+        const float4 w0 = *reinterpret_cast<const float4*>(wp_s + (j + 0) * co4 + pc * 4);
+        const float4 w1 = *reinterpret_cast<const float4*>(wp_s + (j + 1) * co4 + pc * 4);
+        const float4 w2 = *reinterpret_cast<const float4*>(wp_s + (j + 2) * co4 + pc * 4);
+        const float4 w3 = *reinterpret_cast<const float4*>(wp_s + (j + 3) * co4 + pc * 4);
+#pragma unroll
+        for (int m = 0; m < kMaxQr; ++m) {
+          if (m < QR) {
+            const float4 d = *reinterpret_cast<const float4*>(ds + (pq + PG * m) * kLdd + j);
+            fma4(acc[m], d.x, w0);
+            fma4(acc[m], d.y, w1);
+            fma4(acc[m], d.z, w2);
+            fma4(acc[m], d.w, w3);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (more) stage_wp(c + 1);
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+
+  if (G > 1) {
+    // this group's partial to the workspace; the tile's last block to
+    // arrive adds all G in group order and writes the output
+    float* wtile = ws + ((size_t)n * tiles + tile) * G * kQ * co4;
+    if (proj) {
+#pragma unroll
+      for (int m = 0; m < kMaxQr; ++m)
+        if (m < QR) *reinterpret_cast<float4*>(wtile + ((size_t)g * kQ + pq + PG * m) * co4 + pc * 4) = acc[m];
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last = atomicAdd(tickets + (size_t)n * tiles + tile, 1) == G - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    if (proj) {
+      // partial by partial, each one's QR loads independent of the sums
+      // (its own partial read back too, so the order is 0..G-1 whichever
+      // block is last)
+      auto part = [&](int gg, int m) {
+        return __ldcg(reinterpret_cast<const float4*>(wtile + ((size_t)gg * kQ + pq + PG * m) * co4 + pc * 4));
+      };
+#pragma unroll
+      for (int m = 0; m < kMaxQr; ++m)
+        if (m < QR) acc[m] = part(0, m);
+#pragma unroll 2
+      for (int gg = 1; gg < G; ++gg) {
+#pragma unroll
+        for (int m = 0; m < kMaxQr; ++m) {
+          if (m < QR) {
+            const float4 v = part(gg, m);
+            acc[m] = make_float4(acc[m].x + v.x, acc[m].y + v.y, acc[m].z + v.z, acc[m].w + v.w);
+          }
+        }
+      }
+    }
+    if (tid == 0) tickets[(size_t)n * tiles + tile] = 0;
   }
 
+  // epilogue: bias (+ ReLU), then the residual (stride 1, Cin == Cout:
+  // x(oy, ox) sits in the halo at (qy+P, qx+P))
+  if (!proj) return;
   float* on = out + (size_t)n * Hout * Wout * Cout;
-  for (int e = tid; e < kQ * Cout; e += kThreads) {
-    const int q = e / Cout, co = e - q * Cout;
-    const int qy = q / kTile, qx = q % kTile, oy = oy0 + qy, ox = ox0 + qx;
+  const bool store4 = Cout % 4 == 0 && aligned16(out);
+#pragma unroll
+  for (int m = 0; m < kMaxQr; ++m) {
+    if (m >= QR) continue;
+    const int q = pq + PG * m, qy = q / kTile, qx = q % kTile, oy = oy0 + qy, ox = ox0 + qx;
     if (oy >= Hout || ox >= Wout) continue;
-    float y = relu_if(acc[e] + bp[co], relu_out);
-    // stride 1, Cin == Cout: x(oy, ox) sits in the halo at (qy+P, qx+P)
-    if (residual) y += xs[((qy + P) * HT + qx + P) * Cin + co];
-    on[((size_t)oy * Wout + ox) * Cout + co] = y;
+    float y[4] = {acc[m].x, acc[m].y, acc[m].z, acc[m].w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int co = min(pc * 4 + t, Cout - 1);
+      y[t] = relu_if(y[t] + bp[co], relu_out);
+      if (residual) y[t] += xs[((qy + P) * HT + qx + P) * ldx + co];
+    }
+    float* o = on + ((size_t)oy * Wout + ox) * Cout + pc * 4;
+    if (store4) {
+      *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (pc * 4 + t < Cout) o[t] = y[t];
+    }
   }
 }
 
 size_t f32_smem_bytes(int k, int s, int Cin, int Cout) {
-  const int hp = halo_side(k, s) * halo_side(k, s);
-  return sizeof(float) * ((size_t)hp * (Cin + kChunk) + kQ * (kChunk + Cout));
+  return sizeof(float) * f32_layout(k, s, Cin, Cout).total;
 }
 
 // --------------------------------------------------------------- bfloat16 --
@@ -212,14 +499,6 @@ __host__ __device__ inline Bf16Layout bf16_layout(int k, int s, int th, int tw, 
   return L;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -493,6 +772,9 @@ struct Args {
   const void *x, *we, *be, *wd, *bd, *wp, *bp;
   void* out;
   int N, H, W, Cin, Ce, Cout, has_expand, relu_dw, relu_out, residual;
+  int groups = 1;  // float32: chunk groups G
+  void* ws = nullptr;
+  void* tickets = nullptr;
 };
 
 // Launches, or with `query` returns resident blocks per SM (-1 when the
@@ -500,6 +782,7 @@ struct Args {
 template <int K, int S>
 int f32_entry(const Args& a, bool query, cudaStream_t stream) {
   auto kernel = ir_block_f32_kernel<K, S>;
+  if (round_up(a.Cout, 4) > kF32MaxCout) return query ? -1 : (int)cudaErrorInvalidValue;
   const int smem = (int)f32_smem_bytes(K, S, a.Cin, a.Cout);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (query) {
@@ -510,12 +793,14 @@ int f32_entry(const Args& a, bool query, cudaStream_t stream) {
     return blocks;
   }
   if (err != cudaSuccess) return (int)err;
+  const int nch = (a.Ce + kChunk - 1) / kChunk;
+  if (a.groups < 1 || a.groups > nch || (a.groups > 1 && (!a.ws || !a.tickets))) return (int)cudaErrorInvalidValue;
   const int Hout = a.H / S, Wout = a.W / S;
   const int tiles_y = (Hout + kTile - 1) / kTile, tiles_x = (Wout + kTile - 1) / kTile;
-  kernel<<<dim3(tiles_y * tiles_x, a.N), kThreads, smem, stream>>>(
+  kernel<<<dim3(tiles_y * tiles_x, a.N, a.groups), kThreads, smem, stream>>>(
       (const float*)a.x, (const float*)a.we, (const float*)a.be, (const float*)a.wd, (const float*)a.bd,
-      (const float*)a.wp, (const float*)a.bp, (float*)a.out, a.H, a.W, a.Cin, a.Ce, a.Cout, Hout, Wout,
-      tiles_x, a.has_expand, a.relu_dw, a.relu_out, a.residual);
+      (const float*)a.wp, (const float*)a.bp, (float*)a.out, (float*)a.ws, (int*)a.tickets, a.H, a.W, a.Cin,
+      a.Ce, a.Cout, Hout, Wout, tiles_x, a.has_expand, a.relu_dw, a.relu_out, a.residual);
   return (int)cudaGetLastError();
 }
 
@@ -567,14 +852,21 @@ int entry(const Args& a, int k, int stride, int dtype, int th, int tw, bool quer
 // float32: x (N,H,W,Cin) NHWC; we (Cin,Ce) [null when !has_expand]; be (Ce,)
 // [null when !has_expand]; wd (k*k,Ce); bd (Ce,); wp (Ce,Cout); bp (Cout,);
 // out (N,H/stride,W/stride,Cout); all float32 (dtype 0; bfloat16 goes
-// through fear_ir_block_bf16). Returns the launch's cudaError_t.
+// through fear_ir_block_bf16). The expanded chunks split into `groups`
+// (1 .. ceil(Ce/32)); with groups > 1, ws is float32 scratch of
+// N * tiles * groups * 64 * round_up(Cout, 4) and tickets N * tiles int32
+// zeros (tiles = ceil(Hout/8) * ceil(Wout/8)), left zero again by the
+// launch, used by one stream at a time. Returns the launch's cudaError_t.
 extern "C" int fear_ir_block(const void* x, const void* we, const void* be, const void* wd,
                              const void* bd, const void* wp, const void* bp, void* out, int N,
                              int H, int W, int Cin, int Ce, int Cout, int k, int stride,
                              int has_expand, int relu_dw, int relu_out, int residual, int dtype,
-                             void* stream) {
+                             int groups, void* ws, void* tickets, void* stream) {
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const Args a{x, we, be, wd, bd, wp, bp, out, N, H, W, Cin, Ce, Cout, has_expand, relu_dw, relu_out, residual};
+  Args a{x, we, be, wd, bd, wp, bp, out, N, H, W, Cin, Ce, Cout, has_expand, relu_dw, relu_out, residual};
+  a.groups = groups;
+  a.ws = ws;
+  a.tickets = tickets;
   return entry(a, k, stride, 0, 0, 0, false, (cudaStream_t)stream);
 }
 
@@ -593,10 +885,11 @@ extern "C" int fear_ir_block_bf16(const void* x, const void* we, const void* aux
 }
 
 // Dynamic shared memory, in bytes, of one launch (dtype 0 float32, whose tile
-// is always 8x8; 1 bfloat16 at tile_h x tile_w); -1 when no kernel takes it.
+// is always 8x8 and whose count does not depend on the chunk groups; 1
+// bfloat16 at tile_h x tile_w); -1 when no kernel takes it.
 extern "C" int fear_ir_block_smem_bytes(int k, int stride, int Cin, int Cout, int dtype, int tile_h,
                                         int tile_w) {
-  if (dtype == 0) return (int)f32_smem_bytes(k, stride, Cin, Cout);
+  if (dtype == 0) return round_up(Cout, 4) > kF32MaxCout ? -1 : (int)f32_smem_bytes(k, stride, Cin, Cout);
   const bool tile = (tile_h == 16 && tile_w == 16) || (tile_h == 8 && (tile_w == 16 || tile_w == 8));
   if (!tile || round_up(Cout, 16) > bf16_max_cout(tile_h, tile_w)) return -1;
   return (int)bf16_layout(k, stride, tile_h, tile_w, Cin, Cout).total;

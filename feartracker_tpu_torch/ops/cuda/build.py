@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # C signatures of the exported entry points (see csrc/*.cu)
 SIGNATURES = {
     "fear_decode": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P],
-    "fear_ir_block": [_P] * 8 + [_I] * 13 + [_P],
+    "fear_ir_block": [_P] * 8 + [_I] * 14 + [_P] * 3,
     "fear_ir_block_bf16": [_P] * 6 + [_I] * 14 + [_P],
     "fear_ir_block_smem_bytes": [_I] * 7,
     "fear_ir_block_occupancy": [_I] * 7,

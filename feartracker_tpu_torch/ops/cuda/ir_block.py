@@ -9,7 +9,12 @@ bound at the main path's shapes is the depthwise on the CUDA cores (0.141 ms
 over FEAR-XS's 13 blocks at 256², S=128, against 0.081 ms of bytes and
 0.062 ms of tensor-core products; see the source's header).
 
-* float32: 8x8 tiles, every product on the CUDA cores.
+* float32: 8x8 tiles, every product a float32 FMA on the CUDA cores; the
+  expanded chunks split across :func:`plan_split`'s G CUDA blocks per tile
+  where the tiles alone do not fill the card (S=1, the sequential
+  tracker), their partial project sums added in group order by the tile's
+  last block (a workspace from the caching allocator and a ticket buffer
+  per stream, :func:`_tickets`).
 * bfloat16: tiles of 16x16, 8x16 or 8x8 outputs, picked per launch by
   :func:`plan_tile`; expand and project on the tensor cores (``mma.sync``),
   their epilogues in registers; the weights, repacked by :func:`pack_block`
@@ -39,6 +44,8 @@ NUM_SMS = 132
 # S=128 one 16x16 block per stream (128 blocks) beat 8x16 tiles (256) 1.3x
 MIN_BLOCKS = NUM_SMS * 3 // 4
 CHUNK = 32  # expanded channels per pass
+F32_TILE = 8  # float32: output positions per tile side
+F32_MAX_COUT = 256  # float32: 64 channel quads of the project's thread map
 # bfloat16 tiles (rows, columns of output positions), largest first
 TILES: Tuple[Tuple[int, int], ...] = ((16, 16), (8, 16), (8, 8))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,6 +76,47 @@ def bf16_smem_bytes(k: int, s: int, cin: int, cout: int, tile: Tuple[int, int]) 
     ldx, ldc = _round_up(cin, 16) + 8, CHUNK + 8
     return (r(hpp * ldx * 2) + r(hpp * ldc * 2) + r(th * tw * ldc * 2) + r(2 * CHUNK * ldx * 2)
             + r(2 * _round_up(cout, 16) * ldc * 2) + r(2 * (k * k + 2) * CHUNK * 4))
+
+
+def f32_smem_bytes(k: int, s: int, cin: int, cout: int) -> int:
+    """Dynamic shared memory of one float32 launch, counted the way
+    ``f32_layout`` in ``csrc/ir_block.cu`` lays it out, in floats: input
+    halo (rows padded to 4), expanded chunk, depthwise output (rows of 36),
+    one chunk of expand weights, project weights (columns padded to 4) and
+    taps + biases, and a flag; -1 past :data:`F32_MAX_COUT`. Phase 4 of
+    ``chip_smoke.py`` holds it to the library's count."""
+    if _round_up(cout, 4) > F32_MAX_COUT:
+        return -1
+    hp = ((F32_TILE - 1) * s + k) ** 2
+    ldx, co4 = _round_up(cin, 4), _round_up(cout, 4)
+    return 4 * (hp * ldx + hp * CHUNK + F32_TILE ** 2 * (CHUNK + 4) + ldx * CHUNK + CHUNK * co4
+                + (k * k + 2) * CHUNK + 4)
+
+
+def plan_split(S: int, Hout: int, Wout: int, Ce: int) -> int:
+    """G, the groups the float32 kernel splits the expanded chunks into:
+    the smallest G whose grid (tiles x S x G) reaches :data:`MIN_BLOCKS`,
+    at most one chunk a group. G = 1 where the tiles already fill the card
+    (S=128); at S=1 it reaches 2-21 on FEAR-XS's blocks."""
+    tiles = -(-Hout // F32_TILE) * -(-Wout // F32_TILE)
+    chunks = -(-Ce // CHUNK)
+    return max(1, min(chunks, -(-MIN_BLOCKS // (tiles * S))))
+
+
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The float32 kernel's per-tile tickets for launches on ``stream``: an
+    int32 buffer of at least ``n`` zeros, made once per (device, stream) and
+    grown when a launch needs more; every launch leaves it zero again.
+    Keyed by stream, so that launches on two streams never share a ticket;
+    launches on one stream run in order."""
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(n, MIN_BLOCKS), dtype=torch.int32, device=device)
+    return buf
 
 
 def kernel_smem_bytes(k: int, s: int, cin: int, cout: int, tile: Tuple[int, int]) -> int:
@@ -154,7 +202,7 @@ def fused_ir_block(
     float32 or bfloat16 → (S, H/stride, W/stride, Cout) in x's dtype.
     ``blk`` comes from ``fold_fear_net`` with ``dtype=x.dtype`` (bfloat16
     blocks carry their packed weights). A bfloat16 launch takes
-    :func:`plan_tile`'s tile."""
+    :func:`plan_tile`'s tile, a float32 launch :func:`plan_split`'s G."""
     return _fused_ir_block(x, blk, spec, relu_dw, relu_out, None)
 
 
@@ -165,10 +213,12 @@ def _fused_ir_block(
     relu_dw: bool,
     relu_out: bool,
     tile: Optional[Tuple[int, int]],
+    groups: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`fused_ir_block` with the bfloat16 tile given (one of
-    :data:`TILES`; None for the planner's); ``chip_smoke.py`` times and
-    checks every tile through it."""
+    :data:`TILES`; None for the planner's) or the float32 kernel's chunk
+    groups (1 .. ceil(Ce/32); None for the planner's); ``chip_smoke.py``
+    times and checks every tile and group count through it."""
     if x.device.type == "cpu":
         return plain_ir_block(x, blk, spec, relu_dw, relu_out)
     if x.device.type != "cuda":
@@ -203,17 +253,29 @@ def _fused_ir_block(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if dt == torch.float32:
-            smem = lib.fear_ir_block_smem_bytes(k, s, Cin, Cout, 0, 8, 8)
+            smem = lib.fear_ir_block_smem_bytes(k, s, Cin, Cout, 0, F32_TILE, F32_TILE)
             if not 0 <= smem <= MAX_SMEM_BYTES:
                 raise ValueError(f"fused_ir_block: Cin={Cin}, Cout={Cout} at k{k} s{s} float32 does not fit "
-                                 f"the kernel ({smem} bytes of shared memory, at most {MAX_SMEM_BYTES})")
+                                 f"the kernel ({smem} bytes of shared memory, at most {MAX_SMEM_BYTES}; "
+                                 f"Cout <= {F32_MAX_COUT})")
+            Hout, Wout = H // s, W // s
+            nch = -(-Ce // CHUNK)
+            G = plan_split(S, Hout, Wout, Ce) if groups is None else int(groups)
+            if not 1 <= G <= nch:
+                raise ValueError(f"fused_ir_block: {G} chunk groups for Ce={Ce} (1 .. {nch})")
+            ws = tickets = None
+            if G > 1:
+                tiles = S * -(-Hout // F32_TILE) * -(-Wout // F32_TILE)
+                ws = torch.empty(tiles * G * F32_TILE ** 2 * _round_up(Cout, 4), dtype=f32, device=dev)
+                tickets = _tickets(dev, stream, tiles)
             rc = lib.fear_ir_block(
                 x.data_ptr(),
                 blk["expand"]["w"].data_ptr() if has_expand else None,
                 blk["expand"]["b"].data_ptr() if has_expand else None,
                 blk["dw"]["w"].data_ptr(), blk["dw"]["b"].data_ptr(),
                 blk["project"]["w"].data_ptr(), blk["project"]["b"].data_ptr(), out.data_ptr(),
-                S, H, W, Cin, Ce, Cout, k, s, *flags, 0, stream,
+                S, H, W, Cin, Ce, Cout, k, s, *flags, 0, G,
+                None if ws is None else ws.data_ptr(), None if tickets is None else tickets.data_ptr(), stream,
             )
         else:
             if tile is None:

@@ -13,12 +13,17 @@ blends it into the dynamic template.
 Which implementation runs is decided by the device alone: on CUDA the two
 kernels (:mod:`feartracker_tpu_torch.ops.cuda`), on the CPU their plain
 twins. Precision follows the JAX runtime: the model runs in ``dtype``;
-crop, normalize, decode and geometry stay float32.
+crop, normalize, decode and geometry stay float32. In float32 the card runs
+full float32, as JAX does on the CPU: torch's default lets cuDNN take TF32
+for float32 convolutions (the stem, the head), which moved the sequential
+tracker's boxes by 3 px over 59 frames on the H100 (``chip_smoke.py`` phase
+9d); :func:`full_float32` turns TF32 off around each float32 call.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -48,6 +53,26 @@ from feartracker_tpu_torch.utils.constants import (
     TARGET_CLASSIFICATION_KEY,
     TARGET_REGRESSION_LABEL_KEY,
 )
+
+
+def full_float32(method):
+    """Run a tracker method whose ``self.dtype`` is float32 with TF32 off for
+    cuDNN convolutions and matmuls, restoring the caller's flags after;
+    bfloat16 trackers run under the caller's flags."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        if self.dtype != torch.float32:
+            return method(self, *args, **kwargs)
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = (cudnn.allow_tf32, matmul.allow_tf32)
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+    return wrapped
 
 
 class StreamState(NamedTuple):
@@ -209,6 +234,7 @@ class ScanTracker:
 
     # -- public API --------------------------------------------------------
 
+    @full_float32
     @torch.inference_mode()
     def init(self, frames, bboxes, mean_color=None) -> StreamState:
         """First frame of every stream + initial boxes → carried state.
@@ -233,6 +259,7 @@ class ScanTracker:
             confidence=torch.ones(frames.shape[0], dtype=torch.float32, device=self.device),
         )
 
+    @full_float32
     @torch.inference_mode()
     def step(self, state: StreamState, frames, step_index: Optional[int] = None
              ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:

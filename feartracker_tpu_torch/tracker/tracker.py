@@ -24,7 +24,7 @@ from feartracker_tpu_torch.ops.crop import normalize_imagenet
 from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
 from feartracker_tpu_torch.ops.resize import pad_color_u8
 from feartracker_tpu_torch.tracker.config import TrackerConfig
-from feartracker_tpu_torch.tracker.runtime import ScanTracker
+from feartracker_tpu_torch.tracker.runtime import ScanTracker, full_float32
 from feartracker_tpu_torch.utils.constants import (
     TARGET_CLASSIFICATION_KEY,
     TARGET_REGRESSION_LABEL_KEY,
@@ -113,6 +113,7 @@ class FEARTracker:
     def _features(self, crop: torch.Tensor) -> torch.Tensor:
         return self._net._features(normalize_imagenet(crop.float())[None])
 
+    @full_float32
     @torch.inference_mode()
     def initialize(self, image: np.ndarray, rect: np.ndarray) -> None:
         rect = clamp_bbox(np.asarray(rect), image.shape)
@@ -129,6 +130,7 @@ class FEARTracker:
         self._dyn_features = self._template_features
         self._frame_count = 0
 
+    @full_float32
     @torch.inference_mode()
     def update(self, image: np.ndarray) -> Dict[str, Any]:
         if self._template_features is None:

@@ -304,3 +304,107 @@ def test_packed_reference_equals_plain_block(cin, e, k, s, cout, relu_dw, relu_o
     want = plain_ir_block(x, blk, spec, relu_dw, relu_out)
     got = _packed_reference(x, k2.pack_block(blk, cin, k), blk["project"]["b"], spec, relu_dw, relu_out)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+
+
+# -- the float32 kernel's chunk split, its shared memory, its tickets ---------
+
+
+@pytest.mark.parametrize("streams", [1, 4, 8, 128])
+@pytest.mark.parametrize("name", ["fear_xs", "fear_m", "fear_l"])
+def test_split_planner_at_every_family_shape(name, streams):
+    for crop in (256, 128):
+        for spec, cin, ho in _family_shapes(name, crop):
+            chunks = -(-cin * spec.expansion // 32)
+            G = k2.plan_split(streams, ho, ho, cin * spec.expansion)
+            tiles = (-(-ho // 8)) ** 2
+            assert 1 <= G <= chunks
+            assert streams * tiles * G >= k2.MIN_BLOCKS or G == chunks
+            # the smallest such G
+            assert G == 1 or streams * tiles * (G - 1) < k2.MIN_BLOCKS
+            if streams == 128:
+                assert G == 1  # the tiles alone fill the card: the kernel as before the split
+
+
+def test_split_planner_at_one_stream_fear_xs():
+    # FEAR-XS's 13 blocks at 256², S=1: 64 tiles on block 1's 64² map, 16 on
+    # the 32² maps, 4 on the 16² maps; at most one chunk a group
+    got = [k2.plan_split(1, ho, ho, cin * spec.expansion) for spec, cin, ho in _family_shapes("fear_xs", 256)]
+    assert got == [2, 5, 3, 6, 6, 6, 6, 12, 12, 12, 21, 21, 11]
+
+
+@pytest.mark.parametrize("name", ["fear_xs", "fear_m", "fear_l"])
+def test_f32_smem_count_fits_every_family_shape(name):
+    for crop in (256, 128):
+        for spec, cin, _ in _family_shapes(name, crop):
+            n = k2.f32_smem_bytes(spec.kernel, spec.stride, cin, spec.out_channels)
+            assert 0 < n <= k2.MAX_SMEM_BYTES and n % 16 == 0
+
+
+def test_f32_smem_count_matches_a_worked_layout():
+    # FEAR-L blocks 15-16 (the widest): a 12x12 halo x 224 f32, the expanded
+    # chunk 144 x 32, depthwise out 64 x 36, expand weights 224 x 32, project
+    # weights 32 x 224, taps + biases 27 x 32, a 4-float flag
+    want = 4 * (144 * 224 + 144 * 32 + 64 * 36 + 224 * 32 + 32 * 224 + 27 * 32 + 4)
+    assert k2.f32_smem_bytes(5, 1, 224, 224) == want == 217488
+    assert k2.f32_smem_bytes(5, 1, 36, 38) == k2.f32_smem_bytes(5, 1, 36, 40)  # Cout padded to 4
+    assert k2.f32_smem_bytes(5, 1, 64, 260) == -1  # past the project's thread map
+
+
+def test_tickets_are_cached_per_stream_and_grow():
+    dev = torch.device("cpu")
+    a = k2._tickets(dev, 101, 8)
+    assert a.dtype == torch.int32 and a.numel() >= 8 and not a.any()
+    assert k2._tickets(dev, 101, 8) is a
+    assert k2._tickets(dev, 202, 8) is not a  # another stream, another buffer
+    big = k2._tickets(dev, 101, 10 * a.numel())
+    assert big.numel() >= 10 * a.numel() and not big.any()
+
+
+def _split_reference(x, blk, spec, groups):
+    """The float32 kernel's summation: the expanded chunks of 32 in groups
+    [g*nch//G, (g+1)*nch//G), each group's project sum over its chunks in
+    order, the G partials added in group order, then the project bias and
+    the residual. Plain float32 ops; the kernel's own order within a chunk
+    is its business."""
+    k, s = spec.kernel, spec.stride
+    cin, ce = x.shape[-1], blk["dw"]["w"].shape[-1]
+    nch = -(-ce // 32)
+    total = None
+    for g in range(groups):
+        part = 0.0
+        for c in range(g * nch // groups, (g + 1) * nch // groups):
+            sl = slice(32 * c, min(32 * (c + 1), ce))
+            e = F.relu(x @ blk["expand"]["w"][:, sl] + blk["expand"]["b"][sl])
+            taps = blk["dw"]["w"][..., sl].permute(2, 0, 1)[:, None]
+            d = F.relu(to_nhwc(F.conv2d(to_nchw(e), taps, stride=s, padding=k // 2, groups=e.shape[-1]))
+                       + blk["dw"]["b"][sl])
+            part = part + d @ blk["project"]["w"][sl]
+        total = part if total is None else total + part
+    y = total + blk["project"]["b"]
+    return y + x if s == 1 and cin == y.shape[-1] else y
+
+
+SPLIT_SHAPES = [
+    (16, 6, 3, 2, 24, 16),   # FEAR-XS block 1, 3 chunks
+    (24, 6, 5, 2, 32, 16),   # block 4: Ce 144, a ragged last chunk
+    (112, 6, 5, 1, 112, 8),  # blocks 13-14: 21 chunks, residual
+    (36, 3, 3, 1, 36, 8),    # FEAR-M: Ce 108, Cin 36
+]
+
+
+@pytest.mark.parametrize("which", ["one", "two", "chunks"])
+@pytest.mark.parametrize("cin,e,k,s,cout,H", SPLIT_SHAPES)
+def test_split_summation_equals_plain_block(cin, e, k, s, cout, H, which):
+    # fan-in-scaled weights, so the outputs are O(1) and 1e-5 is float32's
+    # rounding over a few hundred terms, not a layout fault's O(1)
+    rng = np.random.RandomState(6)
+    ce = cin * e
+    mk = lambda fan, *shape: torch.from_numpy((rng.randn(*shape) / fan ** 0.5).astype(np.float32))
+    blk = {"expand": {"w": mk(cin, cin, ce), "b": mk(10, ce)},
+           "dw": {"w": mk(k * k, k, k, ce), "b": mk(10, ce)},
+           "project": {"w": mk(ce, ce, cout), "b": mk(10, cout)}}
+    spec = IRBlockSpec(e, k, s, cout)
+    x = torch.from_numpy(rng.randn(1, H, H, cin).astype(np.float32))
+    groups = {"one": 1, "two": 2, "chunks": -(-ce // 32)}[which]
+    got = _split_reference(x, blk, spec, groups)
+    np.testing.assert_allclose(got.numpy(), plain_ir_block(x, blk, spec).numpy(), atol=1e-5)

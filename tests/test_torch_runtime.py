@@ -29,7 +29,7 @@ from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic
 from feartracker_tpu_torch.models.fbnet import TINY_TRUNK
 from feartracker_tpu_torch.models.fear_net import FEARNet
 from feartracker_tpu_torch.tracker.config import TrackerConfig
-from feartracker_tpu_torch.tracker.runtime import ScanTracker
+from feartracker_tpu_torch.tracker.runtime import ScanTracker, full_float32
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = dict(template_size=32, instance_size=64, score_size=8, total_stride=8)
@@ -160,3 +160,24 @@ def test_chip_smoke_refuses_without_cuda():
 
 def test_scan_tracker_defaults_to_the_card():
     assert inspect.signature(ScanTracker).parameters["device"].default == "cuda"
+
+
+def test_full_float32_turns_tf32_off_for_float32_trackers_only():
+    # torch lets cuDNN take TF32 for float32 convolutions by default; a
+    # float32 tracker call runs without it and gives the caller's flags back
+    class Probe:
+        def __init__(self, dtype):
+            self.dtype = dtype
+
+        @full_float32
+        def run(self):
+            return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        assert Probe(torch.float32).run() == (False, False)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+        assert Probe(torch.bfloat16).run() == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
