@@ -28,6 +28,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    path's shapes (S=128; K2 at every block's 256² and 128² shape in
    bfloat16, each also held against its plain twin there, with the
    planner's tile, the blocks per SM and the time at every tile that fits);
+   K1 beside the card's launch floor, an empty kernel on the same timer;
 7. the dual-template path: float32 at S=4, T=8 against the port on the CPU
    in each update mode (``ema``; ``gated`` with ``fear_xs_gate.npz``;
    ``feature`` with ``fear_xs_feature_gate.npz`` and zoom-out recovery);
@@ -56,10 +57,26 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    to end: ``track`` at S=4, T=8 on the card against the port in bfloat16
    on the CPU and against the card's float32 boxes (``BF16_BOX_PX``), and
    9g's protocols in bfloat16, card against CPU (AO within 0.02, VOT
-   failures within one).
+   failures within one);
+10. ``scan_unroll`` (CUDA graphs of K steps) and the remaining entry points:
+   10a the static path bf16 S=128 T=16 at K=4 and K=16 against eager, two
+   chunks (boxes, confidence, every output and the state; call 1's outputs
+   unchanged after call 2), then one more call counted from 0: its graphs'
+   replays launch K1 T and K2 13·T times, the wrappers none (a wrapper's
+   counter goes up at capture, where a kernel is recorded as a graph node
+   and nothing runs); 10b the dual path of 7b at K=4 from ``start_step`` 0
+   and 1; 10c float32 S=4 T=8 at K=4 (K2's chunk split, so its tickets,
+   inside the graph) against the eager card run and the CPU; 10d ms per
+   ``track`` eager against K=4 and K=16 in turns; 10e ``python -m
+   feartracker_tpu_torch.bench`` with a short protocol in its own process;
+   10f ``FEARTracker`` with ``native_preprocess`` on phase 9's clip (20
+   updates), card against CPU, and its update's wall p50 and traced kernels
+   beside the cv2-exact crop's.
 
-Then one JSON line of kernels (``launches``: the static path's, phase 5b;
-``launches_by_path``: each path's own count; ``bound_ms``: the least time
+Then the wall seconds of each phase, one JSON line of kernels (``launches``:
+the static path's, phase 5b; ``launches_by_path``: each path's own count
+over one run from 0, the K=16 graphs' one of 10a; K1's ``floor_ms``: the
+empty kernel of phase 6; ``bound_ms``: the least time
 the card could take, from the H100's published peaks; ``tile``: K2's
 bfloat16 tile per S=128 block shape; ``s1``: the times and bounds at S=1,
 K2's with its practical floor of 13 launches at K1's S=1 time)
@@ -74,14 +91,6 @@ import json
 import subprocess
 import sys
 import time
-
-
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _spin_cycles_per_ms() -> float:
@@ -245,7 +254,7 @@ def _phase_dual(card, n_fused, counters):
         "feature": ("fear_xs", dict(update_mode="feature", gate_params=feature_gate,
                                     recover_context=3.0, recover_threshold=0.7, update_interval=2)),
     }
-    f0, chunk, boxes = synthetic_streams(4, 8, seed=2)
+    f0, chunk, boxes = synthetic_streams(4, 8, seed=2, device="cpu")
     for mode, (weights, kw) in modes.items():
         res = {}
         for device in ("cuda", "cpu"):
@@ -401,7 +410,14 @@ def _phase_pool(card, n_fused, counters, tracker):
     box_err = np.abs(got["bbox"] - want["bbox"].cpu().numpy()).max()
     if not (box_err <= 1e-3 and (got["failure"] == want["failure"].cpu().numpy()).all()):
         raise AssertionError(f"pool: step_chunk differs from ScanTracker.track (bbox {box_err})")
-    print(f"[8] step_chunk T=4 == ScanTracker.track: bbox max|err| {box_err}", flush=True)
+    # the same chunk as a tensor already on the card is used where it lies
+    pool.state, pool._step_count = start, count
+    got_card = pool.step_chunk(on_card)
+    card_err = np.abs(got_card["bbox"] - got["bbox"]).max()
+    if not card_err <= 1e-3:
+        raise AssertionError(f"pool: step_chunk on card frames differs from host frames (bbox {card_err})")
+    print(f"[8] step_chunk T=4 == ScanTracker.track: bbox max|err| {box_err}; frames on the card == host "
+          f"frames: {card_err}", flush=True)
 
     # blank frames under "reinit": every failed slot gets a new template
     reinit = StreamPool(tracker, cap, hw, failure_policy="reinit")
@@ -808,6 +824,222 @@ def _phase_bf16(card, seqs):
           f"failures {vot[0]:.0f} vs {vot[1]:.0f} (within {BF16_VOT_FAILURES}) [{card}]", flush=True)
 
 
+# phase 10's tolerances, graphed against eager on the card: the same kernels
+# on the same inputs, so equal bits are expected
+GRAPH_BOX_PX, GRAPH_CONF = 1e-3, 1e-5
+
+
+def _diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over the float tensors both dicts hold; inf where an
+    integer or boolean tensor differs."""
+    import torch
+
+    err = 0.0
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if x.is_floating_point():
+            err = max(err, (x.float() - y.float()).abs().max().item())
+        elif not torch.equal(x, y):
+            return float("inf")
+    return err
+
+
+def _two_chunks(tracker, f0, boxes, chunk, start: int):
+    """``init`` and two ``track`` calls, the second from the first's state;
+    call 1's outputs must not change under call 2 (no graph memory leaks
+    out). → (final state as a dict, call 1's outputs, call 2's outputs)."""
+    import torch
+
+    T = chunk.shape[0]
+    state, out1 = tracker.track(tracker.init(f0, boxes), chunk, start_step=start)
+    kept = {k: v.clone() for k, v in out1.items()}
+    state, out2 = tracker.track(state, chunk, start_step=start + T)
+    torch.cuda.synchronize()
+    if _diff(kept, out1) != 0.0:
+        raise AssertionError("a graphed track call changed the outputs of the call before it")
+    return state._asdict(), out1, out2
+
+
+def _graph_vs_eager(ref, got, what: str) -> dict:
+    """Boxes, confidence, every other output and the state, graphed against
+    eager; raises past ``GRAPH_BOX_PX`` / ``GRAPH_CONF``."""
+    errs = {"bbox": max(_diff({"b": r["bbox"]}, {"b": g["bbox"]}) for r, g in zip(ref[1:], got[1:])),
+            "confidence": max(_diff({"c": r["confidence"]}, {"c": g["confidence"]}) for r, g in zip(ref[1:], got[1:])),
+            "outputs": max(_diff(r, g) for r, g in zip(ref[1:], got[1:])),
+            "state": _diff(ref[0], got[0])}
+    if not (errs["bbox"] <= GRAPH_BOX_PX and errs["confidence"] <= GRAPH_CONF and errs["outputs"] <= GRAPH_BOX_PX
+            and errs["state"] <= GRAPH_BOX_PX):
+        raise AssertionError(f"{what}: graphed vs eager {errs}")
+    return errs
+
+
+def _phase_graphs(card, n_fused, counters, eager_static, eager_dual, lap):
+    """Phase 10: ``scan_unroll`` (CUDA graphs of K steps), the bench and
+    ``native_preprocess``. ``eager_static`` and ``eager_dual`` are phases
+    5b's and 7b's trackers, the eager twins of 10a and 10b. Returns the
+    launches of one ``track`` call of the K=16 tracker whose graph was
+    captured before it: the kernels its replay ran (the wrappers' counters
+    go up at capture, where a kernel is recorded and nothing runs, and stay
+    at 0 through a replay)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
+    from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
+    from feartracker_tpu_torch.ops.cuda.ir_block import plan_split, stream_tickets
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # -- 10a: the static path, bf16 S=128 T=16, graphed against eager
+    S, T = 128, 16
+    f0, chunk, boxes = synthetic_streams(S, T, seed=1, device="cuda")
+    trackers = {1: eager_static}
+    ref = _two_chunks(trackers[1], f0, boxes, chunk, 0)
+    graph_launches = {}
+    for K in (4, 16):
+        trackers[K] = build_scan_tracker(dtype=bf16, device="cuda", scan_unroll=K)[0]
+        t0 = time.perf_counter()
+        got = _two_chunks(trackers[K], f0, boxes, chunk, 0)
+        first_s = time.perf_counter() - t0
+        errs = _graph_vs_eager(ref, got, f"static bf16 K={K}")
+        # one call of the captured graphs, counted from 0: replays only
+        state = trackers[K].init(f0, boxes)
+        torch.cuda.synchronize()
+        _zero(counters)
+        replayed = trackers[K].replayed_launches
+        replayed.update({k: 0 for k in replayed})
+        trackers[K].track(state, chunk)
+        torch.cuda.synchronize()
+        eager_launches, graph_launches[K] = _read(counters), dict(replayed)
+        want = {"K1": T, "K2": n_fused * T}
+        if eager_launches != {"K1": 0, "K2": 0} or graph_launches[K] != want:
+            raise AssertionError(f"static K={K}, one track call: replayed launches {graph_launches[K]}, expected "
+                                 f"{want}; eager launches {eager_launches}, expected none")
+        units = trackers[K]._unrolled
+        print(f"[10a] static bf16 S={S} T={T} scan_unroll={K}: {len(units)} graph(s) of {K} steps ("
+              f"{next(iter(units.values())).kernels} kernel nodes each, recorded at capture), two chunks graphed vs "
+              f"eager: bbox max|err| {errs['bbox']} px (<= {GRAPH_BOX_PX}), confidence {errs['confidence']:.2e} "
+              f"(<= {GRAPH_CONF}), other outputs {errs['outputs']:.2e}, state {errs['state']:.2e}; call 1's outputs "
+              f"unchanged after call 2; one more call, counted from 0: replayed launches {graph_launches[K]}, eager "
+              f"{eager_launches}; first two calls incl. warm-up and capture {first_s:.2f} s", flush=True)
+    lap("10a")
+
+    # -- 10b: the dual path of 7b at K=4, cadence phases 0 and 1
+    dual = dict(dynamic_template=True, update_mode="feature", gate_params="fear_xs_feature_gate",
+                update_interval=4, recover_context=3.0)
+    eager = eager_dual
+    graphed = build_scan_tracker(dtype=bf16, device="cuda", scan_unroll=4, **dual)[0]
+    for start in (0, 1):
+        errs = _graph_vs_eager(_two_chunks(eager, f0, boxes, chunk, start),
+                               _two_chunks(graphed, f0, boxes, chunk, start), f"dual K=4 start {start}")
+        print(f"[10b] dual bf16 S={S} T={T} feature, update_interval=4, recover_context=3, scan_unroll=4, "
+              f"start_step={start}: graphed vs eager bbox {errs['bbox']} px, confidence {errs['confidence']:.2e}, "
+              f"gate_obs and other outputs {errs['outputs']:.2e}, state (dyn_feats incl.) {errs['state']:.2e}",
+              flush=True)
+    print(f"[10b] dual graphs by cadence phase: {sorted(k[-1] for k in graphed._unrolled)}, "
+          f"K2 per graph {[u.kernels['K2'] for u in graphed._unrolled.values()]}", flush=True)
+    del eager, graphed
+    lap("10b")
+
+    # -- 10c: float32 S=4 T=8 at K=4, K2's tickets used inside the graph
+    splits = [plan_split(4, h // s.stride, h // s.stride, cin * s.expansion)
+              for _, s, cin, h in _block_shapes(FEAR_XS_TRUNK, 256) if s.expansion > 1]
+    if max(splits) < 2:
+        raise AssertionError(f"10c: no f32 block splits its chunks at S=4 ({splits}): the tickets go unused")
+    sf0, schunk, sboxes = synthetic_streams(4, 8, seed=0, device="cpu")
+    runs = {}
+    for name, device, K in (("eager", "cuda", 1), ("graph", "cuda", 4), ("cpu", "cpu", 1)):
+        tracker = build_scan_tracker(dtype=f32, device=device, scan_unroll=K)[0]
+        runs[name] = _two_chunks(tracker, sf0, sboxes, schunk, 0)
+        if name == "graph":
+            # each unit holds the very buffer its captured launches use
+            tickets = stream_tickets(torch.device("cuda", torch.cuda.current_device()),
+                                     tracker._graph_stream().cuda_stream)
+            if not all(u.tickets is not None and u.tickets is tickets for u in tracker._unrolled.values()):
+                raise AssertionError("10c: a float32 graph does not hold its stream's ticket buffer")
+    errs = _graph_vs_eager(runs["eager"], runs["graph"], "f32 S=4 K=4")
+    cpu_box = max((g["bbox"].cpu() - c["bbox"]).abs().max().item() for g, c in zip(runs["graph"][1:], runs["cpu"][1:]))
+    cpu_conf = max((g["confidence"].cpu() - c["confidence"]).abs().max().item()
+                   for g, c in zip(runs["graph"][1:], runs["cpu"][1:]))
+    if not (cpu_box <= 1.0 and cpu_conf <= 1e-3):
+        raise AssertionError(f"10c: f32 graphed vs cpu: bbox {cpu_box} px, confidence {cpu_conf}")
+    print(f"[10c] f32 S=4 T=8 scan_unroll=4 (K2 chunk groups per block {splits}: the tickets in the graph): "
+          f"graphed vs eager card bbox {errs['bbox']} px, confidence {errs['confidence']:.2e}, state "
+          f"{errs['state']:.2e}; vs the cpu bbox {cpu_box} px (<= 1), confidence {cpu_conf:.2e} (<= 1e-3)",
+          flush=True)
+    lap("10c")
+
+    # -- 10d: ms per track, eager against graphed, in turns
+    order = [1, 4, 16, 16, 4, 1]
+    ms = {K: [] for K in trackers}
+    state = {K: trackers[K].init(f0, boxes) for K in trackers}
+    for K in trackers:
+        state[K], _ = trackers[K].track(state[K], chunk)
+    reps = 3
+    for K in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state[K], _ = trackers[K].track(state[K], chunk)
+        torch.cuda.synchronize()
+        ms[K].append((time.perf_counter() - t0) * 1e3 / reps)
+    print(f"[10d] ms per track bf16 S={S} T={T}, {reps} calls a turn, turns eager, 4, 16, 16, 4, eager: eager "
+          f"{ms[1][0]:.2f} / {ms[1][1]:.2f}, scan_unroll=4 {ms[4][0]:.2f} / {ms[4][1]:.2f}, scan_unroll=16 "
+          f"{ms[16][0]:.2f} / {ms[16][1]:.2f} ms ({S * T / min(ms[16]) * 1e3:.1f} frames/s at K=16, "
+          f"{S * T / min(ms[1]) * 1e3:.1f} eager) [{card}]", flush=True)
+    del trackers, state
+    lap("10d")
+
+    # -- 10e: the port's bench, short, in its own process
+    env = {**os.environ, "BENCH_WARMUP": "2", "BENCH_TIMED": "3", "BENCH_REPEATS": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "feartracker_tpu_torch.bench"], capture_output=True, text=True,
+                          env=env, timeout=300)
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: rc {proc.returncode}, stdout {proc.stdout[-1000:]!r}, stderr "
+                             f"{proc.stderr[-2000:]!r}")
+    rec = json.loads(lines[0])
+    if rec["weights"] != "fear_xs" or not rec["value"] > 0:
+        raise AssertionError(f"bench: {rec}")
+    print(f"[10e] python -m feartracker_tpu_torch.bench (BENCH_WARMUP=2 BENCH_TIMED=3 BENCH_REPEATS=1, "
+          f"{time.perf_counter() - t0:.1f} s): {proc.stdout.splitlines()[0]} | {lines[0]}", flush=True)
+    lap("10e")
+
+    # -- 10f: native_preprocess on phase 9's clip, card against CPU
+    frames, true_boxes = _render_clip(seed=9, n_frames=21)  # phase 9's clip, its first 21 frames
+    native = {device: _fear_tracker(device, f32, native_preprocess=True) for device in ("cuda", "cpu")}
+    got = {device: _track_clip(tracker, frames, true_boxes[0]) for device, tracker in native.items()}
+    box_err = np.abs(got["cuda"][0] - got["cpu"][0]).max()
+    conf_err = np.abs(got["cuda"][1] - got["cpu"][1]).max()
+    if not (box_err <= 1.0 and conf_err <= 1e-3):
+        raise AssertionError(f"native_preprocess card vs cpu: bbox {box_err} px, confidence {conf_err}")
+    print(f"[10f] FEARTracker native_preprocess f32, init + {len(frames) - 1} updates, card vs cpu: bbox max|err| "
+          f"{box_err} px (<= 1), confidence {conf_err:.2e} (<= 1e-3)", flush=True)
+    # the two crop paths side by side: update wall p50 over the clip after a
+    # warm-up, and the device rows of one traced update
+    cost = {}
+    for name, tracker in (("cv2", _fear_tracker("cuda", f32)), ("native", native["cuda"])):
+        tracker.initialize(frames[0], true_boxes[0])
+        for f in frames[1:6]:
+            tracker.update(f)
+        wall = []
+        for f in frames[1:]:
+            t0 = time.perf_counter()
+            tracker.update(f)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        with tempfile.TemporaryDirectory() as tmp:
+            br = _trace_breakdown(lambda: tracker.update(frames[1]), tmp)
+        cost[name] = (np.percentile(wall, 50), br.get("kernels"), br.get("busy_ms"))
+    print(f"[10f] f32 update, cv2-exact crop against native_preprocess: wall p50 {cost['cv2'][0]:.3f} / "
+          f"{cost['native'][0]:.3f} ms; one traced update {cost['cv2'][1]} / {cost['native'][1]} kernels and "
+          f"copies, device busy {cost['cv2'][2]} / {cost['native'][2]} ms [{card}]", flush=True)
+    lap("10f")
+    return graph_launches[16]
+
+
 def main() -> int:
     import torch
 
@@ -816,7 +1048,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False  # cuDNN convs run TF32 by default
     torch.backends.cuda.matmul.allow_tf32 = False
     from feartracker_tpu_torch.core import postprocess as pp
-    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, device_line, synthetic_streams
     from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK, TRUNKS, IRBlockSpec
     from feartracker_tpu_torch.ops.cuda import build as kbuild
     from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
@@ -828,8 +1060,16 @@ def main() -> int:
     def k2_smem(spec, cin, tile):
         return bf16_smem_bytes(spec.kernel, spec.stride, cin, spec.out_channels, tile)
 
+    # wall seconds per phase, printed before the kernels line
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     dev = torch.device("cuda")
-    card = _card_line()
+    card = device_line(dev)
     print(f"[1] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
@@ -840,6 +1080,7 @@ def main() -> int:
     for line in (kbuild.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("[2]   " + line.strip())
+    lap("1-2")
 
     # -- 3: K1 against pp.postprocess -------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -865,6 +1106,7 @@ def main() -> int:
         err = (got.bbox - ref.bbox).abs().max().item()
         k1_err = max(k1_err, err)
         print(f"[3] K1 {name:6s} S={S}: bbox max|err| {err:.3e}, coords exact", flush=True)
+    lap("3")
 
     # -- 4: K2 against plain_ir_block -------------------------------------------
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.15}
@@ -926,10 +1168,11 @@ def main() -> int:
     print("[4] K2 ragged widths (Cin 18 and 22, Ce 54 and 44, Cout 18 and 30) ok in both dtypes", flush=True)
     print(f"[4] K2 {n_checked} checks: max|err| f32 {k2_err[torch.float32]:.3e} (atol 1e-4), "
           f"bf16 {k2_err[torch.bfloat16]:.3e} (atol 0.15)", flush=True)
+    lap("4")
 
     # -- 5a: the slice, f32 on the card against the port on the CPU ------------
     n_fused = sum(s.expansion > 1 for s in FEAR_XS_TRUNK)
-    f0, chunk, boxes = synthetic_streams(4, 8, seed=0)
+    f0, chunk, boxes = synthetic_streams(4, 8, seed=0, device="cpu")
     results = {}
     for device in ("cuda", "cpu"):
         tracker, prov = build_scan_tracker(dtype=torch.float32, device=device)
@@ -985,6 +1228,7 @@ def main() -> int:
               f"{br['gemm']:.2f}, convolutions {br['conv']:.2f}, other {br['other']:.2f} ms [{card}]", flush=True)
     else:
         print("[5c] the trace holds no device rows: breakdown not measured", flush=True)
+    lap("5")
 
     # -- 6: kernels beside their plain twins at the main path's shapes ---------
     cfg = tracker.config.postprocess
@@ -992,8 +1236,12 @@ def main() -> int:
     k1_ms = _time_ms(lambda: postprocess_cuda(cls_m, reg_m, cfg, prev_size=prev), iters=200)
     k1_plain = _time_ms(lambda: pp.postprocess(cls_m, reg_m, cfg, prev_size=prev), iters=200)
     k1_bound = _k1_bound(128)
-    print(f"[6] K1 S=128: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, bound {k1_bound:.5f} ms by bytes "
-          f"[{card}]", flush=True)
+    # the card's launch floor on the same timer: an empty kernel (torch's
+    # spin kernel asked for 0 cycles, one thread) launched back to back
+    launch_floor_ms = _time_ms(lambda: torch.cuda._sleep(0), iters=200)
+    print(f"[6] K1 S=128: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, bound {k1_bound:.5f} ms by bytes; "
+          f"an empty kernel back to back {launch_floor_ms:.4f} ms (K1 at {k1_ms / launch_floor_ms:.2f}x that "
+          f"floor) [{card}]", flush=True)
     # K2 at S=128 bf16 at the search (256²) and template (128²) shapes: held
     # against its plain twin with fan-in-scaled weights (phase 4's bf16
     # tolerance), then timed with the packaged weights beside its bound
@@ -1043,17 +1291,25 @@ def main() -> int:
               f"{', '.join(f'{k} {v:.4f}' for k, v in k2_terms[crop].items())}) "
               f"(kernel at {100 * k2_bound[crop] / k2_ms[crop]:.1f}%) [{card}]", flush=True)
     print(f"[6] K2 S=128 bf16, {2 * n_fused} block shapes: max|err| {k2_s128_err:.3e} (atol 0.15)", flush=True)
+    lap("6")
 
     # -- 7, 8: the dual-template path and the slot server -----------------
     counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
     dual_launches, dual_tracker = _phase_dual(card, n_fused, counters)
+    lap("7")
     pool_launches = _phase_pool(card, n_fused, counters, dual_tracker)
+    lap("8")
     seq_launches, s1_times, seq_ms, seqs = _phase_sequential(card, n_fused, counters, gen)
     _phase_bf16(card, seqs)
     print(f"[9] sequential vs batched: FEARTracker update p50 {seq_ms['float32']:.3f} ms f32, "
           f"{seq_ms['bfloat16']:.3f} ms bf16 = {1e3 / seq_ms['bfloat16']:.1f} frames/s; ScanTracker S={S} "
           f"T={T} bf16 {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)
-    by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches}
+    lap("9")
+    graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
+    print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
+    # the graphed static path: one track call of the K=16 graphs (10a)
+    by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
+               "static_scan_unroll_16": graph_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it
@@ -1063,7 +1319,7 @@ def main() -> int:
         {"name": "K1 fused decode", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
          "replaces": "feartracker_tpu/ops/pallas/decode.py:27", **count("K1"),
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": None, "s1": s1_times["K1"]},
+         "bound_by": "bytes", "library_ms": None, "floor_ms": launch_floor_ms, "s1": s1_times["K1"]},
         {"name": "K2 fused inverted-residual block", "route": "cuda",
          "source": "feartracker_tpu_torch/csrc/ir_block.cu",
          "replaces": "feartracker_tpu/ops/pallas/ir_block.py:131", **count("K2"),

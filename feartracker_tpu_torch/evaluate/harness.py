@@ -5,6 +5,8 @@ of ``feartracker_tpu/evaluate/harness.py``)."""
 from __future__ import annotations
 
 import os
+import subprocess
+import time
 from typing import Tuple
 
 import numpy as np
@@ -45,17 +47,67 @@ def build_scan_tracker(
     return ScanTracker(model, dtype=dtype, device=device, **tracker_kw), provenance
 
 
+def bench_device() -> torch.device:
+    """Where the bench and the throughput tools run: the card, unless
+    ``BENCH_DEVICE`` names another device (``cpu`` in the tests)."""
+    return torch.device(os.environ.get("BENCH_DEVICE", "cuda"))
+
+
+def sync(device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_track_calls(tracker: ScanTracker, state, chunk, warmup: int, timed: int, repeats: int):
+    """The bench protocol's loop: ``warmup`` (at least one) ``track`` calls
+    on ``chunk``, then ``repeats`` passes of ``timed`` calls, each pass
+    closed by a device sync. → (state, the last call's outputs, seconds per
+    pass)."""
+    out = None
+    for _ in range(max(warmup, 1)):
+        state, out = tracker.track(state, chunk)
+    sync(tracker.device)
+    elapsed = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, out = tracker.track(state, chunk)
+        sync(tracker.device)
+        elapsed.append(time.perf_counter() - t0)
+    return state, out, elapsed
+
+
+def device_line(device) -> str:
+    """What a measurement runs on, printed beside its numbers: the card's
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line
+    (a card below its maximum power limit runs slower under load), or
+    ``cpu`` for a CPU run, whose times are no device metric."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(device.index or 0), "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip()
+
+
 def synthetic_streams(
     streams: int,
     chunk: int,
     frame_hw: Tuple[int, int] = (256, 480),
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ):
     """(frames0 (S,H,W,3) u8, chunk (T,S,H,W,3) u8, bboxes (S,4) f32) on
-    ``device``: the same pixels as the JAX harness for the same seed. Every
-    stream sees the same random video (throughput is data-independent); the
-    stream axis is an expanded view, stored once."""
+    ``device`` (default the card, like every entry point of the port; a
+    tracker fed CPU frames copies them to the card on every call, and
+    ``.to`` makes the S copies of an expanded view real): the same pixels as
+    the JAX harness for the same seed. Every stream sees the same random
+    video (throughput is data-independent); the stream axis is an expanded
+    view, stored once."""
     rng = np.random.RandomState(seed)
     H, W = frame_hw
     video = torch.from_numpy(rng.randint(0, 255, (chunk + 1, H, W, 3), dtype=np.uint8)).to(device)

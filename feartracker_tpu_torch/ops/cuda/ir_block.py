@@ -111,12 +111,26 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     int32 buffer of at least ``n`` zeros, made once per (device, stream) and
     grown when a launch needs more; every launch leaves it zero again.
     Keyed by stream, so that launches on two streams never share a ticket;
-    launches on one stream run in order."""
+    launches on one stream run in order. Made inside a CUDA-graph capture,
+    the buffer would live in that graph's pool and be zeroed only at its
+    replay, so making one there raises: run the captured launches once
+    eagerly on the capture stream first, and keep :func:`stream_tickets`'
+    buffer alive with the graph (a larger launch replaces the cached one)."""
     key = (device.index, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_ir_block: a float32 launch under CUDA-graph capture needs its stream's "
+                               f"tickets ({n}) made before the capture: launch it once eagerly on that stream")
         buf = _TICKETS[key] = torch.zeros(max(n, MIN_BLOCKS), dtype=torch.int32, device=device)
     return buf
+
+
+def stream_tickets(device: torch.device, stream: int) -> Optional[torch.Tensor]:
+    """The float32 kernel's ticket buffer for launches on ``stream`` (a raw
+    stream handle) of ``device`` (with its index), as the launches there use
+    it now; None before the first launch there that splits its chunks."""
+    return _TICKETS.get((device.index, stream))
 
 
 def kernel_smem_bytes(k: int, s: int, cin: int, cout: int, tile: Tuple[int, int]) -> int:

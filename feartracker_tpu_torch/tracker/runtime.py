@@ -47,6 +47,7 @@ from feartracker_tpu_torch.ops.crop import (
     normalize_imagenet,
 )
 from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
+from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block, stream_tickets
 from feartracker_tpu_torch.ops.fused_trunk import fold_fear_net, get_features_folded
 from feartracker_tpu_torch.tracker.config import TrackerConfig
 from feartracker_tpu_torch.utils.constants import (
@@ -117,8 +118,12 @@ class ScanTracker:
         ``config.confidence_threshold``) that stream's next search window
         uses context ``recover_context`` instead of ``search_context``.
         0 disables it.
-      scan_unroll: 1 only; other values raise ``NotImplementedError`` (the
-        JAX option is an XLA fusion knob).
+      scan_unroll: K frames per unit of ``track`` (JAX: ``lax.scan``'s
+        unroll). 1 runs ``step`` frame by frame. K > 1 on the card captures
+        K consecutive steps into one CUDA graph and replays it over the
+        chunk (see :class:`_Unrolled`); on the CPU the same K-step units run
+        eagerly, as graphs exist only on the card. Results do not depend on
+        K. ``step`` (one frame) always runs eagerly.
     """
 
     def __init__(
@@ -152,8 +157,13 @@ class ScanTracker:
             raise ValueError(f"recover_context must be >= 0, got {recover_context}")
         if scan_unroll < 1:
             raise ValueError(f"scan_unroll must be >= 1, got {scan_unroll}")
-        if scan_unroll != 1:
-            raise NotImplementedError("ScanTracker: scan_unroll other than 1 is not ported")
+        self.scan_unroll = int(scan_unroll)
+        self._unrolled: Dict[tuple, _Unrolled] = {}
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        # kernel launches made by graph replays (the wrappers' own counters
+        # count eager launches, and the kernels recorded at capture, which
+        # run nothing)
+        self.replayed_launches = {"K1": 0, "K2": 0}
         self.crop_impl = crop_impl
         self.config = config
         self.dtype = dtype
@@ -323,7 +333,12 @@ class ScanTracker:
         streams — tracked frame by frame → (state, outputs stacked over T).
 
         ``start_step``: the global index of the chunk's first frame, which
-        keeps the ``update_interval`` cadence steady across chunks."""
+        keeps the ``update_interval`` cadence steady across chunks. With
+        ``scan_unroll`` K > 1 the chunk runs in units of K frames (a CUDA
+        graph each on the card) and the last T mod K frames run eagerly,
+        frame by frame. Returned tensors never alias a graph's memory."""
+        if self.scan_unroll > 1:
+            return self._track_unrolled(state, frames, start_step)
         frames = self._to_device(frames)
         per_frame = []
         for t in range(frames.shape[0]):
@@ -331,3 +346,141 @@ class ScanTracker:
             per_frame.append(out)
         stacked = {k: torch.stack([o[k] for o in per_frame]) for k in per_frame[0]}
         return state, stacked
+
+    # -- scan_unroll > 1 -----------------------------------------------------
+
+    def _graph_stream(self) -> torch.cuda.Stream:
+        """The tracker's own stream, on which every unit captures and replays."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        return self._capture_stream
+
+    @full_float32
+    @torch.inference_mode()
+    def _track_unrolled(self, state: StreamState, frames, start_step: int):
+        K, S = self.scan_unroll, state.bbox.shape[0]
+        frames = torch.as_tensor(frames)
+        if frames.dim() == 5 and frames.stride(1) == 0:
+            frames = frames[:, 0]  # one video expanded over S: keep it stored once
+        frames = self._to_device(frames)
+        T = frames.shape[0]
+        full = T - T % K
+        out: Dict[str, torch.Tensor] = {}
+
+        def write(t, got, stacked):
+            for k, v in got.items():
+                if k not in out:
+                    out[k] = v.new_empty((T,) + (v.shape[1:] if stacked else v.shape))
+                out[k][t].copy_(v)
+
+        for t0 in range(0, full, K):
+            # the dual template's cadence is baked into a unit's steps
+            phase = (start_step + t0) % self.update_interval if self.dynamic_template else 0
+            key = (S, tuple(frames.shape[1:]), frames.dtype, phase)
+            unit = self._unrolled.get(key)
+            if unit is None:
+                unit = self._unrolled[key] = _Unrolled(self, state, frames[t0:t0 + K], phase)
+            state, got = unit.run(state, frames[t0:t0 + K])
+            write(slice(t0, t0 + K), got, True)
+        for t in range(full, T):
+            state, got = self.step(state, frames[t], step_index=start_step + t)
+            write(t, got, False)
+        return state, out
+
+
+class _Unrolled:
+    """K consecutive :meth:`ScanTracker.step` calls over static buffers, the
+    counterpart of the body of JAX's ``lax.scan(..., unroll=K)``.
+
+    On the card the K steps are captured into one CUDA graph at construction
+    and replayed by every :meth:`run` of K frames that shares the unit's key.
+    ``run`` copies the state and frames into the static input buffers,
+    replays, and returns the new state copied out of graph memory (a replay
+    overwrites it) and the stacked outputs, valid until the next ``run``. On
+    the CPU ``run`` calls the same K steps on the same buffers eagerly.
+
+    Capture rules, each against a fault it would otherwise hit:
+
+    * Eager steps first. Device constants made at first use from host memory
+      (``_tables`` in ``ops/cuda/decode.py``, ``_imagenet_stats`` in
+      ``ops/crop.py``), cuBLAS's workspace for a new stream and the caching
+      allocator's first blocks are illegal under capture, or would freeze a
+      stale host buffer into the graph; K eager steps on the capture stream
+      make them all, as torch's CUDA-graph notes prescribe.
+      (``postprocess_cuda``'s ``torch.ones`` for a missing ``prev_size`` is
+      a fill kernel, legal under capture; ``step`` always passes one.)
+    * One stream per tracker (:meth:`ScanTracker._graph_stream`) for every
+      capture and replay. K2 float32's tickets are keyed by (device, stream)
+      and made lazily with ``torch.zeros``; made first inside a capture they
+      would live in that graph's private pool, zeroed only at its replay
+      (so ``_tickets`` raises there). The eager steps on the capture stream
+      make them at the size the captured launches need, and each unit holds
+      the buffer its kernels captured (:func:`stream_tickets`), which a
+      later unit's larger launch may replace in the cache.
+    * The dual template's ``update_interval`` is a host branch in ``step``,
+      baked in at capture: a unit serves the chunks whose first frame has
+      its index mod ``update_interval`` (``phase``).
+    * Frames shared by all streams stay one (K, H, W, 3) buffer, broadcast
+      inside the graph.
+    * The wrappers' ``launches`` counters go up at capture, where a kernel
+      is recorded as a graph node and nothing runs: ``kernels`` holds those
+      node counts. Each replay launches them, and adds them to
+      ``tracker.replayed_launches``; the wrappers count eager launches only.
+
+    A failed capture or replay raises; nothing falls back to eager steps.
+    """
+
+    def __init__(self, tracker: ScanTracker, state: StreamState, frames: torch.Tensor, phase: int):
+        self.tracker = tracker
+        self.K = frames.shape[0]
+        self.phase = phase
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tickets: Optional[torch.Tensor] = None
+        self.kernels = {"K1": 0, "K2": 0}
+        dev = tracker.device
+        if dev.type != "cuda":
+            self.state_in = StreamState(*(t.clone() for t in state))
+            self.frames = frames.clone()
+            return
+        stream = tracker._graph_stream()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.state_in = StreamState(*(t.clone() for t in state))
+            self.frames = frames.clone()
+            self._body()  # warm-up
+            # keyed by the tensors' device ("cuda:0"), as the launches look it up
+            self.tickets = stream_tickets(self.frames.device, stream.cuda_stream)
+            self.graph = torch.cuda.CUDAGraph()
+            before = (postprocess_cuda.launches, fused_ir_block.launches)
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.state_out, self.outputs = self._body()
+            self.kernels = {"K1": postprocess_cuda.launches - before[0],
+                            "K2": fused_ir_block.launches - before[1]}
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def _body(self):
+        state, per_frame = self.state_in, []
+        for k in range(self.K):
+            state, out = self.tracker.step(state, self.frames[k], step_index=self.phase + k)
+            per_frame.append(out)
+        return state, {key: torch.stack([o[key] for o in per_frame]) for key in per_frame[0]}
+
+    def run(self, state: StreamState, frames: torch.Tensor):
+        for buf, src in zip(self.state_in, state):
+            buf.copy_(src)
+        self.frames.copy_(frames)
+        if self.graph is None:
+            state_out, outputs = self._body()
+        else:
+            dev, stream = self.tracker.device, self.tracker._graph_stream()
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self.graph.replay()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            state_out, outputs = self.state_out, self.outputs
+            for k, n in self.kernels.items():
+                self.tracker.replayed_launches[k] += n
+        # a field that passed through unchanged is the caller's own tensor
+        new_state = StreamState(*(src if out is buf else out.clone()
+                                  for src, buf, out in zip(state, self.state_in, state_out)))
+        return new_state, outputs

@@ -146,8 +146,9 @@ class StreamPool:
         """Frames on the tracker's device. Host frames bound for a CUDA card
         go through pinned memory and an asynchronous copy."""
         if isinstance(frames, torch.Tensor):
-            if frames.device == self._device:
-                return frames
+            # by type: a tracker on "cuda" gets tensors on "cuda:0"
+            if frames.device.type == self._device.type:
+                return frames.to(self._device)
             frames = frames.numpy()
         frames = np.asarray(frames)
         if not self._cuda:

@@ -6,7 +6,9 @@ integer-exact cv2 twin, :mod:`feartracker_tpu_torch.data.crops`), the
 normalize, the folded trunk (K2), the head and the fused decode (K1) run on
 the tracker's device, the same code :class:`ScanTracker` runs at S=1. One
 read of the crop-space box and confidence comes back; the rescale and clamp
-are the reference's numpy integer geometry on the host.
+are the reference's numpy integer geometry on the host. With
+``native_preprocess`` the crop is the batched tracker's bilinear device crop
+at S=1 instead of the cv2 twin.
 """
 
 from __future__ import annotations
@@ -17,10 +19,15 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from feartracker_tpu_torch.core.geometry_np import clamp_bbox, rescale_crop_bbox
+from feartracker_tpu_torch.core.geometry_np import (
+    clamp_bbox,
+    ensure_bbox_boundaries,
+    extend_bbox,
+    rescale_crop_bbox,
+)
 from feartracker_tpu_torch.data.crops import get_extended_crop
 from feartracker_tpu_torch.models.fear_net import FEARNet
-from feartracker_tpu_torch.ops.crop import normalize_imagenet
+from feartracker_tpu_torch.ops.crop import crop_resize_mm, normalize_imagenet
 from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
 from feartracker_tpu_torch.ops.resize import pad_color_u8
 from feartracker_tpu_torch.tracker.config import TrackerConfig
@@ -40,8 +47,14 @@ class FEARTracker:
       dtype / device: the model's compute dtype and where the tracker runs,
         as for :class:`ScanTracker`; crop, normalize and decode stay exact
         uint8 / float32.
-      native_preprocess: the JAX package's C++ host crop engine; not ported
-        (raises ``NotImplementedError``).
+      native_preprocess: the counterpart of the JAX package's fused C++
+        crop engine, which computes the device crop op's bilinear crop and
+        normalize rather than the cv2 chain: here the device crop itself at
+        S=1 (``ops/crop.py`` ``crop_resize_mm`` on the float32 window of
+        ``extend_bbox``, padded with the frame's float mean colour, then
+        ``normalize_imagenet``), in place of the ≈20 launches of the
+        cv2-exact crop. Not with ``dynamic_template`` (``ValueError``, as
+        in JAX).
       recover_context / recover_threshold: after a frame whose confidence
         fell below ``recover_threshold`` (default
         ``config.confidence_threshold``), crop the next search window at
@@ -76,8 +89,7 @@ class FEARTracker:
                 "dynamic_template is implemented on the cv2 preprocess path; "
                 "combine it with native_preprocess=False"
             )
-        if native_preprocess:
-            raise NotImplementedError("FEARTracker: native_preprocess (the C++ crop engine) is not ported")
+        self.native_preprocess = bool(native_preprocess)
         self.config = config
         self.dtype = dtype
         self.device = torch.device(device)
@@ -113,6 +125,17 @@ class FEARTracker:
     def _features(self, crop: torch.Tensor) -> torch.Tensor:
         return self._net._features(normalize_imagenet(crop.float())[None])
 
+    def _native_crop(self, frame: torch.Tensor, window: np.ndarray, out_size: int, prev_size=None):
+        """``native_preprocess``'s crop of ``window`` (an ``extend_bbox``
+        window, as float32) → (the normalized (1, out, out, 3) crop,
+        ``prev_size`` as (1, 2) on the device when the decode smooths, else
+        None). The window and ``prev_size`` go to the device in one copy."""
+        host = np.concatenate([window, () if prev_size is None else prev_size]).astype(np.float32)[None]
+        on_device = torch.from_numpy(host).to(self.device)
+        crop = crop_resize_mm(frame[None], on_device[:, :4], out_size, self._pad_float)
+        prev = on_device[:, 4:] if prev_size is not None and self.config.smooth else None
+        return normalize_imagenet(crop), prev
+
     @full_float32
     @torch.inference_mode()
     def initialize(self, image: np.ndarray, rect: np.ndarray) -> None:
@@ -121,12 +144,18 @@ class FEARTracker:
         self.paths = deque([rect], maxlen=10)
         self.last_confidence = 1.0
         self.mean_color = np.mean(image, axis=(0, 1))
-        self._pad_color = pad_color_u8(self.mean_color, self.device)
-        template_crop, _, _ = get_extended_crop(
-            self._upload(image), rect, self.config.template_size,
-            self.config.template_bbox_offset, self._pad_color,
-        )
-        self._template_features = self._features(template_crop)
+        if self.native_preprocess:
+            self._pad_float = torch.from_numpy(self.mean_color.astype(np.float32)[None]).to(self.device)
+            window = extend_bbox(rect, self.config.template_bbox_offset)
+            crop, _ = self._native_crop(self._upload(image), window, self.config.template_size)
+            self._template_features = self._net._features(crop)
+        else:
+            self._pad_color = pad_color_u8(self.mean_color, self.device)
+            template_crop, _, _ = get_extended_crop(
+                self._upload(image), rect, self.config.template_size,
+                self.config.template_bbox_offset, self._pad_color,
+            )
+            self._template_features = self._features(template_crop)
         self._dyn_features = self._template_features
         self._frame_count = 0
 
@@ -140,16 +169,29 @@ class FEARTracker:
         if self.recover_context and self.last_confidence < self.recover_threshold:
             context = self.recover_context
         frame = self._upload(image)
-        search_crop, search_bbox, window = get_extended_crop(
-            frame, self.bbox, cfg.instance_size, context, self._pad_color,
-        )
-        self.prev_size = search_bbox[2:]
-        # prev_size is read only by the smoothing decode: uploading it
-        # otherwise would be a copy from host memory in mid-frame
-        prev = (torch.tensor(self.prev_size, dtype=torch.float32, device=self.device)[None]
-                if cfg.smooth else None)
+        if self.native_preprocess:
+            # JAX's native path: the crop on the float window, the box
+            # geometry on its int64 copy
+            window = extend_bbox(np.asarray(self.bbox), context).astype(np.int64)
+            padded = ensure_bbox_boundaries(
+                np.array([self.bbox[0] - window[0], self.bbox[1] - window[1], self.bbox[2], self.bbox[3]]),
+                img_shape=(int(window[3]), int(window[2])),
+            )
+            self.prev_size = padded[2:] * (cfg.instance_size / window[2:4].astype(np.float64))
+            search, prev = self._native_crop(frame, window, cfg.instance_size, self.prev_size)
+            search = self._net._features(search)
+        else:
+            search_crop, search_bbox, window = get_extended_crop(
+                frame, self.bbox, cfg.instance_size, context, self._pad_color,
+            )
+            self.prev_size = search_bbox[2:]
+            # prev_size is read only by the smoothing decode: uploading it
+            # otherwise would be a copy from host memory in mid-frame
+            prev = (torch.tensor(self.prev_size, dtype=torch.float32, device=self.device)[None]
+                    if cfg.smooth else None)
+            search = self._features(search_crop)
         update = self._dyn_features if self.dynamic_template else None
-        out = self._net.model.connector(self._template_features, self._features(search_crop), update)
+        out = self._net.model.connector(self._template_features, search, update)
         res = postprocess_cuda(
             out[TARGET_CLASSIFICATION_KEY].float().contiguous(),
             out[TARGET_REGRESSION_LABEL_KEY].float().contiguous(),

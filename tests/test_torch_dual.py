@@ -219,7 +219,7 @@ def test_fear_xs_dual_matches_jax(mode):
     f0, ch, bb = jharness.synthetic_streams(2, 3)
     jstate, jout = jtr.track(jtr.init(f0, bb), ch)
     tr, prov = build_scan_tracker(weights, torch.float32, "cpu", **kw)
-    f0, ch, bb = synthetic_streams(2, 3)
+    f0, ch, bb = synthetic_streams(2, 3, device="cpu")
     state, out = tr.track(tr.init(f0, bb), ch)
     assert prov == ("fear_xs" if mode == "feature_recover" else "fear_xs_gate.npz")
     assert np.abs(out["bbox"].numpy() - np.asarray(jout["bbox"])).max() <= 1.0

@@ -358,6 +358,22 @@ def test_tickets_are_cached_per_stream_and_grow():
     assert k2._tickets(dev, 202, 8) is not a  # another stream, another buffer
     big = k2._tickets(dev, 101, 10 * a.numel())
     assert big.numel() >= 10 * a.numel() and not big.any()
+    assert k2.stream_tickets(dev, 101) is big
+    assert k2.stream_tickets(dev, 303) is None
+
+
+def test_tickets_are_not_made_under_capture(monkeypatch):
+    """A CUDA-graph capture finds its stream's buffer made (by eager launches
+    before it) and uses it; asked to make or grow one, it raises."""
+    cuda = torch.device("cuda", 0)
+    made = torch.zeros(64, dtype=torch.int32)
+    monkeypatch.setitem(k2._TICKETS, (0, 404), made)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    assert k2._tickets(cuda, 404, 64) is made
+    with pytest.raises(RuntimeError, match="before the capture"):
+        k2._tickets(cuda, 404, 65)
+    with pytest.raises(RuntimeError, match="before the capture"):
+        k2._tickets(cuda, 505, 8)
 
 
 def _split_reference(x, blk, spec, groups):

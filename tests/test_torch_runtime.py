@@ -88,7 +88,7 @@ def test_fear_xs_slice_matches_jax():
     f0, ch, bb = jharness.synthetic_streams(2, 3)
     _, jout = jtr.track(jtr.init(f0, bb), ch)
     tr, prov = build_scan_tracker(dtype=torch.float32, device="cpu")
-    f0, ch, bb = synthetic_streams(2, 3)
+    f0, ch, bb = synthetic_streams(2, 3, device="cpu")
     state, out = tr.track(tr.init(f0, bb), ch)
     assert prov == jprov == "fear_xs"
     assert tuple(out["bbox"].shape) == (3, 2, 4) and state.template_feats.shape == (2, 8, 8, 256)
@@ -100,8 +100,10 @@ def test_fear_xs_slice_matches_jax():
 
 @pytest.mark.parametrize("kw", [{"scan_unroll": 2}])
 def test_unported_options_raise(tiny_setup, kw):
-    with pytest.raises(NotImplementedError):
-        ScanTracker(tiny_setup[2], TrackerConfig(**TINY_CFG), **kw)
+    """The options that once raised NotImplementedError are ported now:
+    ``scan_unroll`` > 1 builds (``tests/test_torch_unroll.py`` holds it)."""
+    tracker = ScanTracker(tiny_setup[2], TrackerConfig(**TINY_CFG), device="cpu", **kw)
+    assert tracker.scan_unroll == kw["scan_unroll"]
 
 
 @pytest.mark.parametrize("kw", [

@@ -153,12 +153,15 @@ def test_update_runs_through_kernel_dispatchers(tiny, monkeypatch, dual):
     ({"recover_context": -1.0}, ValueError),
     ({"dynamic_template": True, "update_interval": 0}, ValueError),
     ({"dynamic_template": True, "native_preprocess": True}, ValueError),
-    ({"native_preprocess": True}, NotImplementedError),
+    ({"native_preprocess": True}, None),
 ], ids=["negative_recover_context", "update_interval_0", "dual_with_native", "native"])
 def test_bad_options_raise(tiny, kw, err):
-    """JAX's ValueErrors for the same arguments; the C++ crop engine is not
-    ported and says so."""
+    """JAX's ValueErrors for the same arguments; ``native_preprocess`` alone
+    is ported now and builds (``tests/test_torch_native.py`` holds it)."""
     jmodel, v, model, _ = tiny
+    if err is None:
+        assert FEARTracker(model, TrackerConfig(**TINY_CFG), device="cpu", **kw).native_preprocess
+        return
     with pytest.raises(err):
         FEARTracker(model, TrackerConfig(**TINY_CFG), **kw)
     if err is ValueError:
