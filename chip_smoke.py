@@ -9,8 +9,15 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build both kernels from ``feartracker_tpu_torch/csrc``, one ``nvcc`` per
    source started together (seconds, ptxas registers and spills);
-3. K1 (fused decode) against its plain twin on the card, S=128, both
-   ``smooth`` modes and a tie-break case;
+3. K1 against its plain twins on the card: the batched step's decode
+   region (``decode_step_cuda`` against ``decode_step_plain``) at S=1, 128
+   and 300, with float32 and bfloat16 head outputs, both ``smooth`` modes
+   and the edge cases of ``tests/test_torch_decode.py`` (a tie on the peak,
+   a rescale on exactly .5, boxes past each frame edge and both min-side
+   fix-ups, an all-NaN map), and a channel-first ``reg``: coords equal,
+   frame boxes within 1 px (the count of boxes that differ at all printed),
+   APCE rtol 1e-5; then the decode alone (``postprocess_cuda``) at S=128,
+   both ``smooth`` modes and a tie-break case;
 4. K2 (fused inverted-residual block) against its plain twin on the card,
    every FEAR-XS block with expansion > 1 at its search (256²) and template
    (128²) shapes, S=8, in float32 and bfloat16 (bfloat16 at every tile that
@@ -22,13 +29,15 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    T=8 against the same port on the CPU; then bfloat16 at S=128, T=16, with
    the kernels' launch counts over ``init`` + one ``track`` and the time per
    ``track`` call; 5c: one ``track`` call traced, device time by kernel
-   family and the idle share (the profiler slows the host, so the traced
-   span is longer than an untraced call);
+   family, kernels per frame and the idle share (the profiler slows the
+   host, so the traced span is longer than an untraced call);
 6. each kernel's time beside its plain twin and its bound at the main
    path's shapes (S=128; K2 at every block's 256² and 128² shape in
    bfloat16, each also held against its plain twin there, with the
    planner's tile, the blocks per SM and the time at every tile that fits);
-   K1 beside the card's launch floor, an empty kernel on the same timer;
+   K1's decode region (bf16 head outputs) and the decode alone (f32) beside
+   the region's plain chain, its bound and the card's launch floor, an
+   empty kernel on the same timer;
 7. the dual-template path: float32 at S=4, T=8 against the port on the CPU
    in each update mode (``ema``; ``gated`` with ``fear_xs_gate.npz``;
    ``feature`` with ``fear_xs_feature_gate.npz`` and zoom-out recovery);
@@ -44,10 +53,12 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    depth 2;
 9. the sequential tracker ``FEARTracker`` (S=1) on a 60-frame 480×256
    clip rendered with numpy: ``get_extended_crop`` on the card equal to the
-   CPU byte for byte; 9c: K2 at all 26 FEAR-XS block shapes and K1 in both
-   ``smooth`` modes at S=1 against their plain twins, with their times and
-   bounds (a line per float32 block: kernel and plain ms, the bound and its
-   term, the kernel's share, G, blocks per SM); 9d: float32 boxes within 1
+   CPU byte for byte; 9c: K2 at all 26 FEAR-XS block shapes and K1 (the
+   decode alone, both ``smooth`` modes) at S=1 against their plain twins,
+   with their times and bounds (a line per float32 block: kernel and plain
+   ms, the bound and its term, the kernel's share, G, blocks per SM), and
+   K1's decode region at S=1 beside its plain chain, bound and the launch
+   floor; 9d: float32 boxes within 1
    px of the CPU port in the static, dual-EMA (``update_interval=4``) and
    recovery configurations, with the launch counts over ``initialize`` +
    59 updates, and the static one again under torch's TF32 defaults; 9f:
@@ -75,8 +86,9 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
-over one run from 0, the K=16 graphs' one of 10a; K1's ``floor_ms``: the
-empty kernel of phase 6; ``bound_ms``: the least time
+over one run from 0, the K=16 graphs' one of 10a; K1's ``ms``: the decode
+region at S=128 with bf16 head outputs, ``postprocess_ms`` the decode alone
+in f32, ``floor_ms``: the empty kernel of phase 6; ``bound_ms``: the least time
 the card could take, from the H100's published peaks; ``tile``: K2's
 bfloat16 tile per S=128 block shape; ``s1``: the times and bounds at S=1,
 K2's with its practical floor of 13 launches at K1's S=1 time)
@@ -191,10 +203,150 @@ def _k2_bound(S: int, h: int, cin: int, spec, dtype: str = "bfloat16"):
     return terms[by], by, terms
 
 
-def _k1_bound(S: int, n: int = 16) -> float:
-    """ms to move K1's inputs (cls, reg, prev size) and outputs (box, score,
-    coords) once over the memory rate; its few FLOPs are far below."""
-    return 4 * S * (n * n * 5 + 2 + 4 + 1 + 2) / HBM_BYTES_PER_S * 1e3
+def _k1_bound(S: int, itemsize: int = 4, region: bool = True, n: int = 16) -> float:
+    """ms to move K1's inputs and outputs once over the memory rate; its few
+    FLOPs are far below. Inputs: cls and reg (S, n, n, 1 + 4) in their dtype
+    (``itemsize`` bytes), the three (n, n) f32 tables, and the region's box
+    and window (S, 4) or the decode's prev size (S, 2); outputs: the region's
+    frame box, crop box, confidence and APCE or the decode's box and
+    confidence, f32, and the (S, 2) int32 coords."""
+    head = S * n * n * 5 * itemsize + 3 * n * n * 4
+    rest = S * 4 * ((8 + 10 + 2) if region else (2 + 5 + 2))
+    return (head + rest) / HBM_BYTES_PER_S * 1e3
+
+
+# the frame of phase 3's decode-region checks
+K1_FRAME_HW = (120, 160)
+
+
+def _k1_region_inputs(S: int, dtype, dev, seed: int = 0):
+    """The decode region's inputs for S >= 8 streams, made with numpy as
+    ``tests/test_torch_decode.py`` makes its own: stream 0 a tie on the peak
+    (mirror cells of the symmetric window), 1 a rescale landing on exactly
+    .5, 2 and 4 boxes past the left and top edges, 3 and 5 peaks whose frame
+    box starts past the right and bottom edges (zero width / height, then
+    the min-side fix-up), 6 an all-NaN map, the rest random → (cls (S, 16,
+    16, 1), reg (S, 16, 16, 4)) in ``dtype``, state boxes and windows (S, 4)
+    f32, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.ops.crop import extended_crop_window
+
+    H, W = K1_FRAME_HW
+    rng = np.random.RandomState(seed)
+    cls = (rng.randn(S, 16, 16, 1) * 2).astype(np.float32)
+    reg = (rng.rand(S, 16, 16, 4) * 60 + 2).astype(np.float32)
+    state = np.stack([rng.uniform(0, W - 30, S), rng.uniform(0, H - 30, S),
+                      rng.uniform(8, 40, S), rng.uniform(8, 40, S)], 1).astype(np.float32)
+    cls[0] = -5.0
+    cls[0, 4, 9] = cls[0, 11, 6] = 3.0
+    reg[0] = 8.0
+    cls[1] = -5.0
+    cls[1, 7, 7] = 10.0
+    reg[1, 7, 7] = (0.5, 0.5, 8.0, 9.0)
+    state[1] = (40.0, 30.0, 51.2, 51.2)
+    state[2, 0], state[4, 1] = -35.0, -35.0
+    for i, cell, box in ((3, (8, 12), (W - 2.0, 50.0, 20.0, 20.0)), (5, (12, 8), (50.0, H - 2.0, 20.0, 20.0))):
+        cls[i] = -5.0
+        cls[(i, *cell)] = 10.0
+        reg[(i, *cell)] = (1.0, 1.0, 50.0, 50.0)
+        state[i] = box
+    cls[6] = np.nan
+    state = torch.from_numpy(state)
+    windows = extended_crop_window(state, 2.0)
+    return (torch.from_numpy(cls).to(dev, dtype), torch.from_numpy(reg).to(dev, dtype), state.to(dev),
+            windows.to(dev))
+
+
+def _region_diff(got, ref) -> dict:
+    """K1's region against its plain twin: coords equal, crop box rtol 1e-5
+    / atol 1e-4 (the decode's own), confidence rtol 1e-5, frame boxes within
+    1 px, APCE rtol 1e-5 (a mean summed in another order); NaN where the
+    twin has NaN. → max|err| of the crop box, the frame box's max|err| and
+    the count of frame boxes that differ at all."""
+    import torch
+
+    res, bbox, apce = got
+    rres, rbbox, rapce = ref
+    if not torch.equal(res.pred_coords, rres.pred_coords):
+        raise AssertionError("K1 region: coords differ from the plain twin")
+    torch.testing.assert_close(res.bbox, rres.bbox, rtol=1e-5, atol=1e-4, equal_nan=True)
+    torch.testing.assert_close(res.confidence, rres.confidence, rtol=1e-5, atol=0.0, equal_nan=True)
+    torch.testing.assert_close(apce, rapce, rtol=1e-5, atol=0.0, equal_nan=True)
+    same_nan = torch.equal(bbox.isnan(), rbbox.isnan())
+    d = (bbox - rbbox).nan_to_num(0.0).abs()
+    if not (same_nan and d.max().item() <= 1.0):
+        raise AssertionError(f"K1 region: frame boxes {d.max().item()} px from the plain twin (NaN same: {same_nan})")
+    crop = (res.bbox - rres.bbox).nan_to_num(0.0).abs().max().item()
+    return {"crop_err": crop, "frame_px": d.max().item(), "boxes_differ": int((d > 0).any(-1).sum())}
+
+
+def _phase_k1(card, dev) -> float:
+    """Phase 3: K1 against its plain twins on the card → the largest crop-box
+    max|err|."""
+    import torch
+
+    from feartracker_tpu_torch.core import postprocess as pp
+    from feartracker_tpu_torch.ops.cuda.decode import decode_step_cuda, decode_step_plain, postprocess_cuda
+
+    k1_err, n_checks, differ = 0.0, 0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        batch8 = _k1_region_inputs(8, dtype, dev, seed=2)
+        runs = [(f"S=1 stream {i}", tuple(t[i:i + 1] for t in batch8)) for i in range(8)]
+        runs += [(f"S={S}", _k1_region_inputs(S, dtype, dev, seed=S)) for S in (128, 300)]
+        cls, reg, state, windows = runs[-2][1]
+        # channel-first memory behind the same NHWC view: the kernel takes strides
+        runs.append(("S=128 channel-first reg", (cls, reg.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                                                 state, windows)))
+        for smooth in (False, True):
+            cfg = pp.PostprocessConfig(smooth=smooth)
+            line = []
+            for name, (cls, reg, state, windows) in runs:
+                got = decode_step_cuda(cls, reg, cfg, state, windows, K1_FRAME_HW)
+                ref = decode_step_plain(cls, reg, cfg, state, windows, K1_FRAME_HW)
+                torch.cuda.synchronize()
+                d = _region_diff(got, ref)
+                if name == "S=1 stream 0" and got.result.pred_coords[0].tolist() != [4, 9]:
+                    raise AssertionError("K1 region tie: not the row-major first match")
+                if name == "S=1 stream 6" and got.result.pred_coords[0].tolist() != [0, 0]:
+                    raise AssertionError("K1 region all-NaN map: not cell 0")
+                k1_err = max(k1_err, d["crop_err"])
+                differ += d["boxes_differ"]
+                n_checks += 1
+                if not name.startswith("S=1 stream"):
+                    line.append(f"{name}: crop {d['crop_err']:.2e}, frame {d['frame_px']:.0f} px, "
+                                f"{d['boxes_differ']} boxes differ")
+            print(f"[3] K1 region {str(dtype)[6:]} smooth={smooth}: S=1 edge cases 0-7 ok; " + "; ".join(line),
+                  flush=True)
+    print(f"[3] K1 region: {n_checks} checks, coords equal, crop box max|err| {k1_err:.3e}, frame boxes within "
+          f"1 px, {differ} frame boxes differ at all (0 expected: the operation order matches) [{card}]", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    S = 128
+    reg = torch.rand(S, 16, 16, 4, generator=gen, device=dev) * 40 + 4
+    logits = torch.randn(S, 16, 16, 1, generator=gen, device=dev)
+    prev = torch.rand(S, 2, generator=gen, device=dev) * 60 + 20
+    tie = torch.full((S, 16, 16, 1), -5.0, device=dev)
+    tie[:, 4, 9, 0] = 3.0
+    tie[:, 11, 2, 0] = 3.0
+    for name, cls_in, smooth, dt in (("plain", logits, False, torch.float32), ("smooth", logits, True, torch.float32),
+                                     ("tie", tie, False, torch.float32), ("bf16", logits, True, torch.bfloat16)):
+        cfg = pp.PostprocessConfig(smooth=smooth)
+        cls_in, reg_in = cls_in.to(dt), reg.to(dt)
+        ref = pp.postprocess(cls_in, reg_in, cfg, prev_size=prev)
+        got = postprocess_cuda(cls_in, reg_in, cfg, prev_size=prev)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.bbox, ref.bbox, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(got.confidence, ref.confidence, rtol=1e-5, atol=1e-6)
+        if not torch.equal(got.pred_coords, ref.pred_coords):
+            raise AssertionError(f"K1 {name}: coords differ from the plain twin")
+        if name == "tie" and not (got.pred_coords == torch.tensor([4, 9], device=dev, dtype=torch.int32)).all():
+            raise AssertionError("K1 tie: not the row-major first match")
+        err = (got.bbox - ref.bbox).abs().max().item()
+        k1_err = max(k1_err, err)
+        print(f"[3] K1 decode alone {name:6s} S={S}: bbox max|err| {err:.3e}, coords exact", flush=True)
+    return k1_err
 
 
 def _trace_breakdown(fn, out_dir: str) -> dict:
@@ -236,6 +388,43 @@ def _zero(counters) -> None:
 
 def _read(counters) -> dict:
     return {name: fn.launches for name, fn in counters.items()}
+
+
+def _k1_times(cfg, S: int, dtype, dev) -> dict:
+    """K1 at S streams on ``_time_ms``'s timer: the decode region with
+    ``dtype`` head outputs (the batched step) against its plain chain and
+    bound, the decode alone with f32 inputs (the sequential tracker's call)
+    against ``pp.postprocess``, and an empty kernel (torch's spin kernel
+    asked for 0 cycles, one thread) launched back to back: the card's
+    launch floor."""
+    import torch
+
+    from feartracker_tpu_torch.core import postprocess as pp
+    from feartracker_tpu_torch.ops.cuda.decode import decode_step_cuda, decode_step_plain, postprocess_cuda
+
+    batch = _k1_region_inputs(max(S, 8), dtype, dev, seed=7)
+    cls, reg, state, windows = (t[-S:] for t in batch)  # random streams
+    prev = state[:, 2:] * 4.0
+    c32, r32 = cls.float(), reg.float()
+    iters = 200
+    return {
+        "ms": _time_ms(lambda: decode_step_cuda(cls, reg, cfg, state, windows, K1_FRAME_HW), iters=iters),
+        "plain_ms": _time_ms(lambda: decode_step_plain(cls, reg, cfg, state, windows, K1_FRAME_HW), iters=iters),
+        "bound_ms": _k1_bound(S, dtype.itemsize), "bound_by": "bytes",
+        "postprocess_ms": _time_ms(lambda: postprocess_cuda(c32, r32, cfg, prev_size=prev), iters=iters),
+        "postprocess_plain_ms": _time_ms(lambda: pp.postprocess(c32, r32, cfg, prev_size=prev), iters=iters),
+        "postprocess_bound_ms": _k1_bound(S, 4, region=False),
+        "floor_ms": _time_ms(lambda: torch.cuda._sleep(0), iters=iters),
+        "dtype": str(dtype)[6:],
+    }
+
+
+def _k1_line(t: dict) -> str:
+    return (f"region ({t['dtype']} head outputs) kernel {t['ms']:.6f} ms, plain chain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.6f} ms by bytes; decode alone (f32) kernel {t['postprocess_ms']:.6f} ms, plain "
+            f"{t['postprocess_plain_ms']:.4f} ms, bound {t['postprocess_bound_ms']:.6f} ms; an empty kernel back to "
+            f"back {t['floor_ms']:.6f} ms (region at {t['ms'] / t['floor_ms']:.2f}x, decode alone at "
+            f"{t['postprocess_ms'] / t['floor_ms']:.2f}x that floor)")
 
 
 def _phase_dual(card, n_fused, counters):
@@ -656,19 +845,18 @@ def _phase_sequential(card, n_fused, counters, gen):
         if not torch.equal(got.pred_coords, ref.pred_coords):
             raise AssertionError(f"K1 S=1 smooth={smooth}: coords differ from the plain twin")
         k1_err = max(k1_err, (got.bbox - ref.bbox).abs().max().item())
-    cfg = pp.PostprocessConfig()
-    k1_times = {"ms": _time_ms(lambda: postprocess_cuda(logits, reg, cfg, prev_size=prev), iters=200),
-                "plain_ms": _time_ms(lambda: pp.postprocess(logits, reg, cfg, prev_size=prev), iters=200),
-                "bound_ms": _k1_bound(1), "bound_by": "bytes"}
+    k1_times = {dt: _k1_times(pp.PostprocessConfig(), 1, dt, dev) for dt in (torch.float32, torch.bfloat16)}
     # a launch costs about one small kernel's time whatever it computes: K1's
     # S=1 time stands for it, so 13 K2 launches take at least 13 of them
+    k1_s1 = k1_times[torch.float32]["postprocess_ms"]
     for t in k2_times.values():
-        t["launch_floor_ms"] = n_fused * k1_times["ms"]
-    print(f"[9c] K1 S=1 both smooth modes: bbox max|err| {k1_err:.3e}, coords exact; kernel "
-          f"{k1_times['ms']:.4f} ms, plain {k1_times['plain_ms']:.4f} ms, bound {k1_times['bound_ms']:.6f} ms by "
-          f"bytes; K2 S=1 max|err| f32 {err[torch.float32]:.3e} (planner's G, 1 and one chunk a group), bf16 "
-          f"{err[torch.bfloat16]:.3e}; K2's practical floor at S=1: {n_fused} launches x K1's "
-          f"{k1_times['ms']:.4f} ms = {n_fused * k1_times['ms']:.4f} ms [{card}]", flush=True)
+        t["launch_floor_ms"] = n_fused * k1_s1
+    print(f"[9c] K1 S=1 decode alone, both smooth modes: bbox max|err| {k1_err:.3e}, coords exact; K2 S=1 max|err| "
+          f"f32 {err[torch.float32]:.3e} (planner's G, 1 and one chunk a group), bf16 {err[torch.bfloat16]:.3e}; "
+          f"K2's practical floor at S=1: {n_fused} launches x K1's {k1_s1:.4f} ms = {n_fused * k1_s1:.4f} ms "
+          f"[{card}]", flush=True)
+    for t in k1_times.values():
+        print(f"[9c] K1 S=1: " + _k1_line(t) + f" [{card}]", flush=True)
 
     # -- 9d, 9e: boxes card vs CPU in float32; launch counts over init + N updates
     N = len(frames) - 1
@@ -765,7 +953,7 @@ def _phase_sequential(card, n_fused, counters, gen):
           f"{ao['batched'][1]:.4f}; VOT accuracy {card_r['vot']['accuracy']:.4f} vs "
           f"{cpu_r['vot']['accuracy']:.4f}, failures {vot[0]:.0f} vs {vot[1]:.0f}, EAO "
           f"{card_r['vot']['eao']:.4f}", flush=True)
-    return launches, {"K1": k1_times, "K2": k2_times}, seq_ms, seqs
+    return launches, {"K1": k1_times[torch.float32], "K2": k2_times}, seq_ms, seqs
 
 
 # phase 9h's tolerances for bfloat16 on the card: boxes at S=4, T=8 against
@@ -1047,7 +1235,6 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False  # cuDNN convs run TF32 by default
     torch.backends.cuda.matmul.allow_tf32 = False
-    from feartracker_tpu_torch.core import postprocess as pp
     from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, device_line, synthetic_streams
     from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK, TRUNKS, IRBlockSpec
     from feartracker_tpu_torch.ops.cuda import build as kbuild
@@ -1082,30 +1269,9 @@ def main() -> int:
             print("[2]   " + line.strip())
     lap("1-2")
 
-    # -- 3: K1 against pp.postprocess -------------------------------------------
+    # -- 3: K1 against its plain twins ----------------------------------------
+    k1_err = _phase_k1(card, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    S = 128
-    reg = torch.rand(S, 16, 16, 4, generator=gen, device=dev) * 40 + 4
-    logits = torch.randn(S, 16, 16, 1, generator=gen, device=dev)
-    prev = torch.rand(S, 2, generator=gen, device=dev) * 60 + 20
-    tie = torch.full((S, 16, 16, 1), -5.0, device=dev)
-    tie[:, 4, 9, 0] = 3.0
-    tie[:, 11, 2, 0] = 3.0
-    k1_err = 0.0
-    for name, cls_in, smooth in (("plain", logits, False), ("smooth", logits, True), ("tie", tie, False)):
-        cfg = pp.PostprocessConfig(smooth=smooth)
-        ref = pp.postprocess(cls_in, reg, cfg, prev_size=prev)
-        got = postprocess_cuda(cls_in, reg, cfg, prev_size=prev)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.bbox, ref.bbox, rtol=1e-5, atol=1e-4)
-        torch.testing.assert_close(got.confidence, ref.confidence, rtol=1e-5, atol=1e-6)
-        if not torch.equal(got.pred_coords, ref.pred_coords):
-            raise AssertionError(f"K1 {name}: coords differ from the plain twin")
-        if name == "tie" and not (got.pred_coords == torch.tensor([4, 9], device=dev, dtype=torch.int32)).all():
-            raise AssertionError("K1 tie: not the row-major first match")
-        err = (got.bbox - ref.bbox).abs().max().item()
-        k1_err = max(k1_err, err)
-        print(f"[3] K1 {name:6s} S={S}: bbox max|err| {err:.3e}, coords exact", flush=True)
     lap("3")
 
     # -- 4: K2 against plain_ir_block -------------------------------------------
@@ -1222,26 +1388,17 @@ def main() -> int:
     br = _trace_breakdown(lambda: tracker.track(state, chunk), "chiprun_out/trace_static_track")
     if br:
         print(f"[5c] one traced track call, S={S} T={T} bf16: device busy {br['busy_ms']:.2f} of {br['span_ms']:.2f} "
-              f"ms (idle {100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies "
-              f"({br['kernels'] / T:.0f} per "
-              f"frame); K2 {br['K2']:.2f} ms ({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, GEMMs "
+              f"ms (idle {100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies, "
+              f"{br['kernels'] / T:.1f} kernels per frame; K2 {br['K2']:.2f} ms ({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, GEMMs "
               f"{br['gemm']:.2f}, convolutions {br['conv']:.2f}, other {br['other']:.2f} ms [{card}]", flush=True)
     else:
         print("[5c] the trace holds no device rows: breakdown not measured", flush=True)
     lap("5")
 
     # -- 6: kernels beside their plain twins at the main path's shapes ---------
-    cfg = tracker.config.postprocess
-    cls_m, reg_m = logits.contiguous(), reg.contiguous()
-    k1_ms = _time_ms(lambda: postprocess_cuda(cls_m, reg_m, cfg, prev_size=prev), iters=200)
-    k1_plain = _time_ms(lambda: pp.postprocess(cls_m, reg_m, cfg, prev_size=prev), iters=200)
-    k1_bound = _k1_bound(128)
-    # the card's launch floor on the same timer: an empty kernel (torch's
-    # spin kernel asked for 0 cycles, one thread) launched back to back
-    launch_floor_ms = _time_ms(lambda: torch.cuda._sleep(0), iters=200)
-    print(f"[6] K1 S=128: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, bound {k1_bound:.5f} ms by bytes; "
-          f"an empty kernel back to back {launch_floor_ms:.4f} ms (K1 at {k1_ms / launch_floor_ms:.2f}x that "
-          f"floor) [{card}]", flush=True)
+    k1 = _k1_times(tracker.config.postprocess, 128, torch.bfloat16, dev)
+    launch_floor_ms = k1["floor_ms"]
+    print(f"[6] K1 S=128: " + _k1_line(k1) + f" [{card}]", flush=True)
     # K2 at S=128 bf16 at the search (256²) and template (128²) shapes: held
     # against its plain twin with fan-in-scaled weights (phase 4's bf16
     # tolerance), then timed with the packaged weights beside its bound
@@ -1316,10 +1473,12 @@ def main() -> int:
         return {"launches": launches[k], "launches_by_path": {name: p[k] for name, p in by_path.items()}}
 
     kernels = [
-        {"name": "K1 fused decode", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
+        {"name": "K1 fused decode region", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
          "replaces": "feartracker_tpu/ops/pallas/decode.py:27", **count("K1"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": None, "floor_ms": launch_floor_ms, "s1": s1_times["K1"]},
+         "max_abs_err": k1_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "floor_ms": launch_floor_ms,
+         "postprocess_ms": k1["postprocess_ms"], "postprocess_plain_ms": k1["postprocess_plain_ms"],
+         "postprocess_bound_ms": k1["postprocess_bound_ms"], "s1": s1_times["K1"]},
         {"name": "K2 fused inverted-residual block", "route": "cuda",
          "source": "feartracker_tpu_torch/csrc/ir_block.cu",
          "replaces": "feartracker_tpu/ops/pallas/ir_block.py:131", **count("K2"),

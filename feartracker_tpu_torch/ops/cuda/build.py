@@ -5,13 +5,16 @@ started together, and the objects link into one shared library with a plain
 C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
-         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu   # one per source
+         -Xcompiler -fPIC -Xptxas -v [source flags] -c -o <obj> csrc/<source>.cu   # one per source
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libfear_kernels_<hash>.so <objs>
 
 The library is built at first use (never at import), only from the sources
 in the checkout, and cached under ``feartracker_tpu_torch/_kernels_build/``
 by a hash of the sources and flags; ``build.log`` there keeps the compiler's
-output (ptxas registers, shared memory and spills per kernel).
+output (ptxas registers, shared memory and spills per kernel). ``decode.cu``
+builds with ``-fmad=false`` (``SOURCE_FLAGS``): its plain twin is a chain of
+torch ops, each rounded on its own, and a fused multiply-add rounds once,
+which can move a frame box by a pixel at a .5 boundary.
 """
 
 from __future__ import annotations
@@ -33,12 +36,16 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# flags of one source beside NVCC_FLAGS
+SOURCE_FLAGS = {"decode.cu": ("-fmad=false",)}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the exported entry points (see csrc/*.cu)
 SIGNATURES = {
-    "fear_decode": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P],
+    "fear_decode": [_P, _P, _I] + [_L] * 7 + [_P] * 11 + [_I] * 4 + [_F] * 8 + [_P],
     "fear_ir_block": [_P] * 8 + [_I] * 14 + [_P] * 3,
     "fear_ir_block_bf16": [_P] * 6 + [_I] * 14 + [_P],
     "fear_ir_block_smem_bytes": [_I] * 7,
@@ -54,6 +61,7 @@ def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources():
         h.update(path.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(path.name, ())).encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
@@ -78,7 +86,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{src.stem}.o", str(src)]
+        cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", f"{tmp}/{src.stem}.o", str(src)]
                 for src in sources() if src.suffix == ".cu"]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
         outs = [p.communicate()[0] for p in procs]

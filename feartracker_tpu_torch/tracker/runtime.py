@@ -3,8 +3,8 @@
 
 For S independent streams and a chunk of T uint8 frames, each frame runs
 crop → normalize → folded trunk (fused inverted-residual kernel) → neck →
-BoxTower head against the cached template → fused decode → rescale → clamp,
-and carries the per-stream state. ``lax.scan`` becomes a Python loop over T;
+BoxTower head against the cached template → the decode region (fused decode,
+rescale, clamp and APCE in one kernel), and carries the per-stream state. ``lax.scan`` becomes a Python loop over T;
 nothing in the loop waits for the device, so frames queue back to back.
 With ``dynamic_template`` a refresh frame also crops and encodes a candidate
 template at the new box (the 128² crop through the same trunk kernels) and
@@ -13,7 +13,8 @@ blends it into the dynamic template.
 Which implementation runs is decided by the device alone: on CUDA the two
 kernels (:mod:`feartracker_tpu_torch.ops.cuda`), on the CPU their plain
 twins. Precision follows the JAX runtime: the model runs in ``dtype``;
-crop, normalize, decode and geometry stay float32. In float32 the card runs
+crop, normalize, decode and geometry stay float32 (the decode kernel widens
+the head's bfloat16 outputs as it reads them). In float32 the card runs
 full float32, as JAX does on the CPU: torch's default lets cuDNN take TF32
 for float32 convolutions (the stem, the head), which moved the sequential
 tracker's boxes by 3 px over 59 frames on the H100 (``chip_smoke.py`` phase
@@ -29,8 +30,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from feartracker_tpu_torch.convert.load import resolve_weights
-from feartracker_tpu_torch.core import postprocess as pp
-from feartracker_tpu_torch.core.geometry import clamp_bbox, rescale_crop_bbox
+from feartracker_tpu_torch.core.geometry import clamp_bbox
 from feartracker_tpu_torch.models.fear_net import FEARNet
 from feartracker_tpu_torch.models.gate import (
     N_OBS,
@@ -40,13 +40,12 @@ from feartracker_tpu_torch.models.gate import (
     load_gate,
 )
 from feartracker_tpu_torch.ops.crop import (
-    crop_bbox_in_window,
     crop_resize,
     crop_resize_mm,
     extended_crop_window,
     normalize_imagenet,
 )
-from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
+from feartracker_tpu_torch.ops.cuda.decode import decode_step_cuda, postprocess_cuda
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block, stream_tickets
 from feartracker_tpu_torch.ops.fused_trunk import fold_fear_net, get_features_folded
 from feartracker_tpu_torch.tracker.config import TrackerConfig
@@ -293,14 +292,10 @@ class ScanTracker:
         search = self._features(normalize_imagenet(crops))
         update = state.dyn_feats if self.dynamic_template else None
         out = self.model.connector(state.template_feats, search, update)
-        cls = out[TARGET_CLASSIFICATION_KEY].float().contiguous()
-        reg = out[TARGET_REGRESSION_LABEL_KEY].float().contiguous()
-
-        prev_size = crop_bbox_in_window(state.bbox, windows, cfg.instance_size)[:, 2:].contiguous()
-        res = postprocess_cuda(cls, reg, cfg.postprocess, prev_size=prev_size)
-        bbox = clamp_bbox(rescale_crop_bbox(res.bbox, windows, cfg.instance_size), (H, W))
-        # per-frame map-sharpness diagnostic
-        apce = pp.apce(torch.sigmoid(cls[..., 0]))
+        # K1, one launch: the head's outputs in their own dtype → decode,
+        # frame-space box, per-frame map-sharpness diagnostic (APCE)
+        res, bbox, apce = decode_step_cuda(out[TARGET_CLASSIFICATION_KEY], out[TARGET_REGRESSION_LABEL_KEY],
+                                           cfg.postprocess, state.bbox, windows, (H, W))
 
         dyn, gate_obs = state.dyn_feats, None
         if self.dynamic_template:
@@ -407,8 +402,6 @@ class _Unrolled:
       allocator's first blocks are illegal under capture, or would freeze a
       stale host buffer into the graph; K eager steps on the capture stream
       make them all, as torch's CUDA-graph notes prescribe.
-      (``postprocess_cuda``'s ``torch.ones`` for a missing ``prev_size`` is
-      a fill kernel, legal under capture; ``step`` always passes one.)
     * One stream per tracker (:meth:`ScanTracker._graph_stream`) for every
       capture and replay. K2 float32's tickets are keyed by (device, stream)
       and made lazily with ``torch.zeros``; made first inside a capture they

@@ -28,7 +28,7 @@ from feartracker_tpu_torch.core.geometry_np import (
 from feartracker_tpu_torch.data.crops import get_extended_crop
 from feartracker_tpu_torch.models.fear_net import FEARNet
 from feartracker_tpu_torch.ops.crop import crop_resize_mm, normalize_imagenet
-from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
+from feartracker_tpu_torch.ops.cuda.decode import box_and_confidence, postprocess_cuda
 from feartracker_tpu_torch.ops.resize import pad_color_u8
 from feartracker_tpu_torch.tracker.config import TrackerConfig
 from feartracker_tpu_torch.tracker.runtime import ScanTracker, full_float32
@@ -192,13 +192,11 @@ class FEARTracker:
             search = self._features(search_crop)
         update = self._dyn_features if self.dynamic_template else None
         out = self._net.model.connector(self._template_features, search, update)
-        res = postprocess_cuda(
-            out[TARGET_CLASSIFICATION_KEY].float().contiguous(),
-            out[TARGET_REGRESSION_LABEL_KEY].float().contiguous(),
-            cfg.postprocess, prev_size=prev,
-        )
-        # the one read of the frame: crop-space box and confidence together
-        box_conf = torch.cat([res.bbox[0], res.confidence]).cpu().numpy()
+        # K1 on the head's outputs in their own dtype
+        res = postprocess_cuda(out[TARGET_CLASSIFICATION_KEY], out[TARGET_REGRESSION_LABEL_KEY],
+                               cfg.postprocess, prev_size=prev)
+        # the one read of the frame: crop-space box and confidence, one buffer
+        box_conf = box_and_confidence(res).cpu().numpy()
         confidence = float(box_conf[4])
         pred = rescale_crop_bbox(box_conf[:4], window, cfg.instance_size)
         pred = clamp_bbox(pred, image.shape)

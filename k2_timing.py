@@ -77,13 +77,13 @@ def main(argv=None) -> int:
 
     if not Path(feartracker_tpu_torch.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"feartracker_tpu_torch imported from {feartracker_tpu_torch.__file__}, not {root}")
-    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, device_line
     from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
     from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
     from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
 
     smoke = _smoke()
-    card = smoke._card_line()
+    card = device_line("cuda")
     dt = getattr(torch, args.dtype)
     if dt == torch.float32:  # f32 means f32: no TF32 in the twin's convolutions
         torch.backends.cudnn.allow_tf32 = False
