@@ -82,13 +82,33 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    feartracker_tpu_torch.bench`` with a short protocol in its own process;
    10f ``FEARTracker`` with ``native_preprocess`` on phase 9's clip (20
    updates), card against CPU, and its update's wall p50 and traced kernels
-   beside the cv2-exact crop's.
+   beside the cv2-exact crop's;
+11. the deployment surfaces: 11a both exported pairs (``convert/export.py``,
+   float32 and bfloat16, exported on the card from ``fear_xs.npz``) against
+   the eager folded path on seeded crops (equal bit for bit: both run the
+   same kernels on the same folded weights), each exported call launching
+   K2 13 times through its
+   operator, the ms of an exported ``tracker`` call against the eager
+   path's at S=1, and the operator's dispatcher cost per call against the
+   wrapper's (the main path, 5b, calls the wrapper: no operator calls
+   there); 11b ``ExportedTracker`` on phase 9's clip and four more seeds
+   against ``FEARTracker`` on the card (each pair within 1 px of the
+   tracker in its own dtype; the quantized pair within ``BF16_BOX_PX`` of
+   the f32 tracker, the spread over the seeds printed), K1 once a frame;
+   11c ``python -m feartracker_tpu_torch.demo --device cuda`` in its own
+   process on that clip as ``.npy`` (the final box equal to
+   ``FEARTracker``'s) and with two objects on ``--runtime scan`` (object 0
+   within 1 px of it), each
+   also run in-process for its launch counts; 11d a seeded reference-named
+   state dict saved as a Lightning ``.ckpt``, loaded through
+   ``load_variables``, ``track`` f32 at S=4, T=8 card against CPU (1 px).
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
 over one run from 0, the K=16 graphs' one of 10a; K1's ``ms``: the decode
 region at S=128 with bf16 head outputs, ``postprocess_ms`` the decode alone
-in f32, ``floor_ms``: the empty kernel of phase 6; ``bound_ms``: the least time
+in f32, ``floor_ms``: the empty kernel of phase 6; K2's ``op_dispatch_us``: the
+operator's host cost per call over the wrapper's, 11a; ``bound_ms``: the least time
 the card could take, from the H100's published peaks; ``tile``: K2's
 bfloat16 tile per S=128 block shape; ``s1``: the times and bounds at S=1,
 K2's with its practical floor of 13 launches at K1's S=1 time)
@@ -1228,6 +1248,309 @@ def _phase_graphs(card, n_fused, counters, eager_static, eager_dual, lap):
     return graph_launches[16]
 
 
+def _reference_state_dict(seed: int):
+    """FEAR-XS as a reference Lightning checkpoint holds it: the packaged
+    ``fear_xs.npz`` weights under the reference's module names and order
+    (``model.`` prefixed; the layout of ``tests/test_lightning_import.py``),
+    each conv weight scaled elementwise by (1 + 0.02·N(0, 1)) drawn from
+    ``seed``. The cls head's pointwise conv is scaled by 10: the reference's
+    head multiplies by a literal 0.1, which the CoreML-recovered weights have
+    folded in."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net, variables_from_npz
+    from feartracker_tpu_torch.models.fear_net import build_family_model
+
+    model = load_fear_net(build_family_model("fear_xs"), variables_from_npz(PACKAGED_FEAR_XS))
+    src = {k: v.numpy() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def conv(ref, port, bias=False, scale=1.0):
+        w = src[f"{port}.weight"]
+        sd[f"{ref}.weight"] = w * (1 + 0.02 * rng.randn(*w.shape)) * scale
+        if bias:
+            sd[f"{ref}.bias"] = src[f"{port}.bias"] * scale
+
+    def bn(ref, port):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"{ref}.{leaf}"] = src[f"{port}.{leaf}"]
+        sd[f"{ref}.num_batches_tracked"] = np.asarray(100)
+
+    conv("encoder.model.backbone.stages.0.conv", "encoder.stem.conv")
+    bn("encoder.model.backbone.stages.0.bn", "encoder.stem.bn")
+    for i, spec in enumerate(model.trunk_blocks):
+        ref, port = f"encoder.model.backbone.stages.{i + 1}", f"encoder.block{i}"
+        for ref_part, port_part in (("pw", "expand"), ("dw", "dw"), ("pwl", "project")):
+            if port_part == "expand" and spec.expansion == 1:
+                continue
+            conv(f"{ref}.{ref_part}.conv", f"{port}.{port_part}.conv")
+            bn(f"{ref}.{ref_part}.bn", f"{port}.{port_part}.bn")
+    conv("neck.downsample.0", "neck.downsample.conv")
+    bn("neck.downsample.1", "neck.downsample.bn")
+    head = "connect_model"
+    for name in ("cls_encode", "reg_encode"):
+        conv(f"{head}.{name}.matrix11_s.0.depthwise", f"{head}.{name}.sep.dw")
+        conv(f"{head}.{name}.matrix11_s.0.pointwise", f"{head}.{name}.sep.pw")
+        bn(f"{head}.{name}.matrix11_s.1", f"{head}.{name}.bn")
+    for name in ("cls_dw", "reg_dw"):
+        conv(f"{head}.{name}.enc.0.depthwise", f"{head}.{name}.enc.sep.dw", bias=True)
+        conv(f"{head}.{name}.enc.0.pointwise", f"{head}.{name}.enc.sep.pw", bias=True)
+        bn(f"{head}.{name}.enc.1", f"{head}.{name}.enc.bn")
+    for tower in ("bbox_tower", "cls_tower"):
+        for i in range(model.connect_model.towernum):
+            conv(f"{head}.{tower}.{3 * i}.depthwise", f"{head}.{tower}{i}.sep.dw", bias=True)
+            conv(f"{head}.{tower}.{3 * i}.pointwise", f"{head}.{tower}{i}.sep.pw", bias=True)
+            bn(f"{head}.{tower}.{3 * i + 1}", f"{head}.{tower}{i}.bn")
+    for pred, scale in (("bbox_pred", 1.0), ("cls_pred", 10.0)):
+        conv(f"{head}.{pred}.depthwise", f"{head}.{pred}.dw", bias=True)
+        conv(f"{head}.{pred}.pointwise", f"{head}.{pred}.pw", bias=True, scale=scale)
+    sd[f"{head}.adjust"] = src[f"{head}.adjust"]
+    sd[f"{head}.bias"] = src[f"{head}.bias"].reshape(1, 4, 1, 1)
+    return {f"model.{k}": torch.from_numpy(np.asarray(v, np.int64 if k.endswith("tracked") else np.float32))
+            for k, v in sd.items()}
+
+
+def _wall_ms(fn, n: int) -> float:
+    """Host wall ms per call over ``n`` calls ended by one synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _phase_deployment(card, n_fused, counters, lap):
+    """Phase 11: the deployment surfaces on the card. 11a the exported pairs
+    against the eager folded path and K2's operator against its wrapper;
+    11b ``ExportedTracker`` against ``FEARTracker``; 11c the demo in its own
+    process and in-process; 11d a reference ``.ckpt`` through
+    ``load_variables``. Returns the launch counts by path."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch import demo
+    from feartracker_tpu_torch.convert.export import ExportedTracker, export_tracker, load_exported
+    from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net, load_variables
+    from feartracker_tpu_torch.evaluate.harness import synthetic_streams
+    from feartracker_tpu_torch.models.fear_net import build_family_model
+    from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
+    from feartracker_tpu_torch.ops.crop import normalize_imagenet
+    from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block, fused_ir_block_op, ir_block_op_cuda
+    from feartracker_tpu_torch.tracker.runtime import ScanTracker
+
+    launches = {}
+    model = load_fear_net(build_family_model("fear_xs"), load_variables(PACKAGED_FEAR_XS))
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    paths = export_tracker(model, tmp.name, device="cuda")
+    export_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+
+    # -- 11a: each exported pair against the eager folded path on seeded crops
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    template = torch.randint(0, 256, (1, 128, 128, 3), generator=gen, device="cuda").float()
+    search = torch.randint(0, 256, (1, 256, 256, 3), generator=gen, device="cuda").float()
+    for suffix, dtype in (("", torch.float32), ("_quantized", torch.bfloat16)):
+        init_g, track_g = load_exported(paths[f"tracker_init{suffix}"]), load_exported(paths[f"tracker{suffix}"])
+        eager = ScanTracker(model, dtype=dtype, device="cuda")
+
+        def eager_track():
+            feats = eager._features(normalize_imagenet(search))
+            out = eager.model.connector(want_feats.to(dtype), feats)
+            return out["TARGET_REGRESSION_LABEL_KEY"].float(), out["TARGET_CLASSIFICATION_KEY"].float()
+
+        with torch.inference_mode():
+            want_feats = eager._features(normalize_imagenet(template)).float()
+            torch.cuda.synchronize()
+            _zero(counters)
+            ir_block_op_cuda.calls = 0
+            feats = init_g(template)
+            torch.cuda.synchronize()
+            init_counts = {**_read(counters), "op": ir_block_op_cuda.calls}
+            _zero(counters)
+            ir_block_op_cuda.calls = 0
+            reg, cls = track_g(search, want_feats)
+            torch.cuda.synchronize()
+            track_counts = {**_read(counters), "op": ir_block_op_cuda.calls}
+            want_reg, want_cls = eager_track()
+            errs = {"feats": (feats - want_feats).abs().max().item(), "reg": (reg - want_reg).abs().max().item(),
+                    "cls": (cls - want_cls).abs().max().item()}
+            want_counts = {"K1": 0, "K2": n_fused, "op": n_fused}
+            if init_counts != want_counts or track_counts != want_counts:
+                raise AssertionError(f"11a {dtype}: an exported call launched {init_counts} / {track_counts}, "
+                                     f"expected {want_counts}")
+            # the same kernels on the same folded weights, in the same dtype:
+            # any difference is a cast or a weight the export got wrong
+            if max(errs.values()) != 0 or not all(torch.isfinite(t).all() for t in (feats, reg, cls)):
+                raise AssertionError(f"11a {dtype}: exported vs eager max|err| {errs}, expected equality")
+            launches[f"export_tracker{suffix}"] = {k: track_counts[k] for k in ("K1", "K2")}
+            track_call = lambda: track_g(search, want_feats)  # noqa: E731
+            turns = [_wall_ms(f, 50) for f in (eager_track, track_call, track_call, eager_track)]
+        print(f"[11a] exported pair {str(dtype)[6:]} (tracker_init{suffix}.pt2 {sizes[f'tracker_init{suffix}']} B, "
+              f"tracker{suffix}.pt2 {sizes[f'tracker{suffix}']} B) vs the eager folded path, S=1: max|err| feats "
+              f"{errs['feats']:.2e}, reg {errs['reg']:.2e}, cls {errs['cls']:.2e} (== 0); each exported "
+              f"call K2 {track_counts['K2']} launches through the operator, K1 0; wall ms per tracker call over 50, "
+              f"turns eager / exported / exported / eager: {' / '.join(f'{t:.3f}' for t in turns)} [{card}]",
+              flush=True)
+    # K2's operator against its wrapper: the same launches, and the
+    # dispatcher's host cost per call (13 bf16 blocks at S=1, 256², queued
+    # 20 times over without a wait, turns wrapper / op / op / wrapper), on
+    # the bf16 tracker's folded blocks
+    items = []
+    h, cin = 128, 16
+    for spec, blk in zip(FEAR_XS_TRUNK, eager.folded["blocks"]):
+        if spec.expansion > 1:
+            x = torch.randn(1, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+            if not torch.equal(fused_ir_block_op(x, blk, spec), fused_ir_block(x, blk, spec)):
+                raise AssertionError(f"11a: K2's operator and its wrapper differ at {spec} x {tuple(x.shape)}")
+            items.append((x, blk, spec))
+        h //= spec.stride
+        cin = spec.out_channels
+
+    def enqueue_us(fn, reps=20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for x, blk, spec in items:
+                fn(x, blk, spec)
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt * 1e6 / (reps * len(items))
+
+    with torch.inference_mode():
+        enqueue_us(fused_ir_block_op)
+        host = [enqueue_us(f) for f in (fused_ir_block, fused_ir_block_op, fused_ir_block_op, fused_ir_block)]
+    dispatch_us = (host[1] + host[2] - host[0] - host[3]) / 2
+    print(f"[11a] K2 host cost per call, {len(items)} bf16 blocks at S=1 256² queued 20x without a wait, turns "
+          f"wrapper / operator / operator / wrapper: {' / '.join(f'{t:.2f}' for t in host)} us; the operator's "
+          f"dispatcher adds {dispatch_us:.2f} us a call, {dispatch_us * n_fused / 1e3:.4f} ms a frame's {n_fused} "
+          f"launches (outputs equal bit for bit); export of both pairs {export_s:.1f} s [{card}]", flush=True)
+    lap("11a")
+
+    # -- 11b: ExportedTracker on phase 9's clip (the launch counts) and four
+    # more seeds against FEARTracker on the card: each pair against the
+    # tracker in its own dtype, and the quantized pair against float32
+    exported = {suffix: ExportedTracker(paths[f"tracker_init{suffix}"], paths[f"tracker{suffix}"], device="cuda")
+                for suffix in ("", "_quantized")}
+    trackers = {"": _fear_tracker("cuda", torch.float32), "_quantized": _fear_tracker("cuda", torch.bfloat16)}
+    err = {}  # seed -> {"": f32 pair vs f32, "_quantized": vs bf16, "vs_f32": quantized pair vs f32}
+    for seed in (9, 10, 11, 12, 13):
+        frames, true_boxes = _render_clip(seed=seed, n_frames=60)
+        N = len(frames) - 1
+        want = {k: _track_clip(t, frames, true_boxes[0])[0] for k, t in trackers.items()}
+        got = {}
+        for suffix, tracker in exported.items():
+            torch.cuda.synchronize()
+            _zero(counters)
+            ir_block_op_cuda.calls = 0
+            got[suffix] = _track_clip(tracker, frames, true_boxes[0])[0]
+            torch.cuda.synchronize()
+            counts = _read(counters)
+            want_counts = {"K1": N, "K2": n_fused * (1 + N)}
+            if counts != want_counts or ir_block_op_cuda.calls != want_counts["K2"]:
+                raise AssertionError(f"11b ExportedTracker{suffix} seed {seed}: launches {counts}, operator calls "
+                                     f"{ir_block_op_cuda.calls}, expected {want_counts}")
+            if seed == 9:
+                launches[f"exported_tracker{suffix}"] = counts
+        err[seed] = {k: float(np.abs(got[k] - want[k]).max()) for k in got}
+        err[seed]["vs_f32"] = float(np.abs(got["_quantized"] - want[""]).max())
+        if seed == 9:
+            seq = want[""]
+    vs_f32 = [e["vs_f32"] for e in err.values()]
+    print(f"[11b] ExportedTracker, init + {N} updates a clip, seeds {list(err)} (9 is phase 9's clip) vs "
+          f"FEARTracker on the card: bbox max|err| f32 pair vs f32 {[e[''] for e in err.values()]} px (<= 1), "
+          f"quantized pair vs bf16 {[e['_quantized'] for e in err.values()]} px (<= 1), quantized pair vs f32 "
+          f"{vs_f32} px (<= {BF16_BOX_PX['card_f32']}; min {min(vs_f32)}, median {float(np.median(vs_f32))}, max "
+          f"{max(vs_f32)}); launches a clip {launches['exported_tracker']} = K1 {N}, K2 {n_fused}*(1 + {N}), "
+          f"every K2 through the operator", flush=True)
+    if not all(e[""] <= 1.0 and e["_quantized"] <= 1.0 and e["vs_f32"] <= BF16_BOX_PX["card_f32"]
+               for e in err.values()):
+        raise AssertionError(f"11b ExportedTracker vs FEARTracker on the card: bbox max|err| by seed {err}")
+    frames, true_boxes = _render_clip(seed=9, n_frames=60)
+    N = len(frames) - 1
+    lap("11b")
+
+    # -- 11c: the demo, in its own process and in-process, on that clip as .npy
+    clip = os.path.join(tmp.name, "clip.npy")
+    np.save(clip, np.stack(frames))
+    box = [str(int(v)) for v in true_boxes[0]]
+    other = ["40", "40", "60", "50"]
+    want_final = list(map(int, seq[-1]))
+    runs = {}
+    for name, extra in (("demo", ["--initial_bbox", *box]),
+                        ("demo_scan", ["--runtime", "scan", "--initial_bbox", *box, *other])):
+        argv = ["--device", "cuda", "--weights_path", PACKAGED_FEAR_XS, "--video_path", clip,
+                "--output_path", os.path.join(tmp.name, f"{name}.npz"), *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "feartracker_tpu_torch.demo", *argv], capture_output=True,
+                              text=True, timeout=300)
+        finals = [line for line in proc.stdout.splitlines() if line.startswith("final bbox")]
+        if proc.returncode != 0 or not finals:
+            raise AssertionError(f"{name}: rc {proc.returncode}, stdout {proc.stdout[-1000:]!r}, stderr "
+                                 f"{proc.stderr[-2000:]!r}")
+        boxes = [[int(v) for v in line.split("[")[-1].rstrip("]").split(",")] for line in finals]
+        # the same entry point in this process, counted from 0
+        torch.cuda.synchronize()
+        _zero(counters)
+        demo.main(argv)
+        torch.cuda.synchronize()
+        counts = _read(counters)
+        want = {"K1": N, "K2": n_fused * (1 + N)}
+        if counts != want:
+            raise AssertionError(f"{name} in-process: launches {counts}, expected {want}")
+        launches[name] = counts
+        runs[name] = (boxes, time.perf_counter() - t0)
+    if runs["demo"][0] != [want_final]:
+        raise AssertionError(f"11c demo final bbox {runs['demo'][0]} != FEARTracker's {want_final} on the card")
+    scan = runs["demo_scan"][0]
+    if len(scan) != 2 or np.abs(np.asarray(scan[0]) - want_final).max() > 1:
+        raise AssertionError(f"11c demo --runtime scan finals {scan}, object 0 vs FEARTracker's {want_final}")
+    print(f"[11c] python -m feartracker_tpu_torch.demo --device cuda, {len(frames)} frames .npy -> .npz: exit 0, final "
+          f"bbox {runs['demo'][0][0]} == FEARTracker's on the card; --runtime scan with 2 objects: finals {scan} "
+          f"(object 0 within 1 px); launches in-process {launches['demo']} host, {launches['demo_scan']} scan "
+          f"(K1 one a frame for both objects); {runs['demo'][1]:.1f} / {runs['demo_scan'][1]:.1f} s with the "
+          f"process", flush=True)
+    lap("11c")
+
+    # -- 11d: a reference Lightning .ckpt through load_variables, card vs CPU
+    ckpt = os.path.join(tmp.name, "fear.ckpt")
+    torch.save({"state_dict": _reference_state_dict(seed=5), "epoch": 0}, ckpt)
+    ref_model = load_fear_net(build_family_model("fear_xs"), load_variables(ckpt))
+    f0, chunk, sboxes = synthetic_streams(4, 8, seed=0, device="cpu")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        tracker = ScanTracker(ref_model, dtype=torch.float32, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            _zero(counters)
+        _, out = tracker.track(tracker.init(f0, sboxes), chunk)
+        outs[device] = {k: v.cpu() for k, v in out.items()}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches["ckpt_scan"] = _read(counters)
+    box_err = (outs["cuda"]["bbox"] - outs["cpu"]["bbox"]).abs().max().item()
+    conf_err = (outs["cuda"]["confidence"] - outs["cpu"]["confidence"]).abs().max().item()
+    if not (box_err <= 1.0 and conf_err <= 1e-3 and torch.isfinite(outs["cuda"]["bbox"]).all()):
+        raise AssertionError(f"11d .ckpt track f32 S=4 T=8 card vs cpu: bbox {box_err} px, confidence {conf_err}")
+    if launches["ckpt_scan"] != {"K1": 8, "K2": n_fused * 9}:
+        raise AssertionError(f"11d launches {launches['ckpt_scan']}")
+    spread = outs["cuda"]["bbox"][..., 2:].std().item()
+    print(f"[11d] seeded reference state dict -> torch.save .ckpt -> load_variables -> ScanTracker f32 S=4 T=8: card "
+          f"vs cpu bbox max|err| {box_err} px (<= 1), confidence {conf_err:.2e} (<= 1e-3); box size spread "
+          f"{spread:.1f} px; launches {launches['ckpt_scan']}", flush=True)
+    tmp.cleanup()
+    lap("11d")
+    return launches, dispatch_us
+
+
 def main() -> int:
     import torch
 
@@ -1240,8 +1563,8 @@ def main() -> int:
     from feartracker_tpu_torch.ops.cuda import build as kbuild
     from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
     from feartracker_tpu_torch.ops.cuda.ir_block import (_fused_ir_block, bf16_smem_bytes, f32_smem_bytes,
-                                                     fused_ir_block, kernel_smem_bytes, plan_tile,
-                                                     tiles_that_fit)
+                                                     fused_ir_block, ir_block_op_cuda, kernel_smem_bytes,
+                                                     plan_tile, tiles_that_fit)
     from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
 
     def k2_smem(spec, cin, tile):
@@ -1361,6 +1684,7 @@ def main() -> int:
     torch.cuda.synchronize()
     postprocess_cuda.launches = 0
     fused_ir_block.launches = 0
+    ir_block_op_cuda.calls = 0
     state = tracker.init(f0, boxes)
     k2_init = fused_ir_block.launches
     state, out = tracker.track(state, chunk)
@@ -1369,6 +1693,8 @@ def main() -> int:
     if k2_init != n_fused or launches != {"K1": T, "K2": n_fused * (T + 1)}:
         raise AssertionError(f"launch counts {launches} (init K2 {k2_init}); expected K1 {T}, "
                              f"K2 {n_fused} at init + {n_fused}*{T}")
+    if ir_block_op_cuda.calls:
+        raise AssertionError(f"the main path called K2's operator {ir_block_op_cuda.calls} times; it calls the wrapper")
     for k, v in out.items():
         if v.shape[:2] != (T, S):
             raise AssertionError(f"output {k}: shape {tuple(v.shape)}")
@@ -1463,10 +1789,11 @@ def main() -> int:
           f"T={T} bf16 {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)
     lap("9")
     graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
+    deploy_launches, dispatch_us = _phase_deployment(card, n_fused, counters, lap)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
-               "static_scan_unroll_16": graph_launches}
+               "static_scan_unroll_16": graph_launches, **deploy_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it
@@ -1486,7 +1813,7 @@ def main() -> int:
          "ms": k2_ms[256], "plain_ms": k2_plain[256],
          "bound_ms": k2_bound[256], "library_ms": None, "tile": k2_tiles,
          "bound_by": "bytes" if k2_terms[256]["bytes"] == k2_bound[256] else "operations",
-         "s1": s1_times["K2"]},
+         "s1": s1_times["K2"], "op_dispatch_us": dispatch_us},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

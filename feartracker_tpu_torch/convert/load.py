@@ -1,5 +1,16 @@
-"""Weights bridge: the JAX package's ``.npz`` variable archives → a port
-``FEARNet``.
+"""Weights bridge: every weight source a user holds → the flat variables
+dict → a port ``FEARNet``.
+
+:func:`load_variables` reads each source into one flat numpy dict, the JAX
+package's variables with '/'-joined keys, and :func:`load_fear_net` fills a
+``FEARNet`` from it, so every format crosses one bridge:
+
+* a ``.npz`` archive of the JAX package (``tools/export_weights.py``) or a
+  bare model-zoo name;
+* ``.ckpt``: a reference PyTorch-Lightning checkpoint
+  (:mod:`feartracker_tpu_torch.convert.lightning`);
+* anything else: the reference's CoreML ``.mlmodel`` export
+  (:mod:`feartracker_tpu_torch.convert.fear_weights`).
 
 The archives are flat ``{"params/<flax path>/<leaf>": array,
 "batch_stats/<flax path>/<leaf>": array}`` files, read with numpy alone. The
@@ -24,10 +35,11 @@ import numpy as np
 import torch
 from torch import nn
 
-PACKAGED_FEAR_XS = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "feartracker_tpu", "weights", "fear_xs.npz",
-)
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+PACKAGED_FEAR_XS = os.path.join(REPO_ROOT, "feartracker_tpu", "weights", "fear_xs.npz")
+# names the reference's CoreML export (``Tracker.mlmodel``) where a user has
+# it; the default weights come from inside the checkout otherwise
+WEIGHTS_ENV = "FEAR_WEIGHTS"
 
 _LEAF = {
     ("params", "kernel"): "weight",
@@ -53,13 +65,51 @@ def variables_from_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+def default_weights_path() -> str:
+    """The default ``--weights_path`` of the CLI, the demo and the export:
+    the path in ``$FEAR_WEIGHTS`` when the user sets it (the reference's
+    ``Tracker.mlmodel``, or any format :func:`load_variables` reads), else
+    the packaged ``fear_xs.npz`` (the same weights, recovered from it)."""
+    return os.environ.get(WEIGHTS_ENV) or PACKAGED_FEAR_XS
+
+
+def flatten_variables(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested ``{"params": {...}, "batch_stats": {...}}`` → the flat dict
+    with '/'-joined keys."""
     if not isinstance(tree, dict):
         return {prefix[:-1]: tree}
     out: Dict[str, np.ndarray] = {}
     for k, v in tree.items():
-        out.update(_flatten(v, f"{prefix}{k}/"))
+        out.update(flatten_variables(v, f"{prefix}{k}/"))
     return out
+
+
+def load_variables(path: str, channels: int = 256, towernum: int = 2,
+                   trust_pickle: bool = False) -> Dict[str, np.ndarray]:
+    """The flat variables dict of any weight source (see the module
+    docstring), dispatched as the JAX package's ``load_variables``:
+    a bare zoo name or ``.npz``, a ``.ckpt``, else a CoreML ``.mlmodel``.
+    ``channels`` / ``towernum`` shape the ``.ckpt`` and ``.mlmodel``
+    importers; ``trust_pickle`` lets a ``.ckpt`` that holds more than
+    tensors and plain values be unpickled in full (see
+    ``lightning.load_lightning_state_dict``). A directory (an Orbax
+    checkpoint of the JAX trainer) raises ``ValueError``: the port reads no
+    Orbax."""
+    path = resolve_weights(path)
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, an Orbax training checkpoint of the JAX package, which the port does not "
+            "read: convert it to an .npz with `python tools/export_weights.py --weights_path <dir> --out <file>.npz`"
+            " (the port's own trainer is ROADMAP.md Queue 1 item 9)")
+    if path.endswith(".ckpt"):
+        from feartracker_tpu_torch.convert.lightning import load_from_lightning
+
+        return load_from_lightning(path, channels=channels, towernum=towernum, trust_pickle=trust_pickle)
+    if path.endswith(".npz"):
+        return variables_from_npz(path)
+    from feartracker_tpu_torch.convert.fear_weights import load_fear_xs
+
+    return load_fear_xs(path, channels=channels, towernum=towernum)
 
 
 def torch_key(flax_key: str) -> str:
@@ -75,7 +125,7 @@ def load_fear_net(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     Raises ``KeyError`` on any key of the model left unfilled or any array
     left over, and ``ValueError`` on a shape mismatch.
     """
-    flat = variables if all("/" in k for k in variables) else _flatten(variables)
+    flat = variables if all("/" in k for k in variables) else flatten_variables(variables)
     state = model.state_dict()
     wanted = {k for k in state if not k.endswith("num_batches_tracked")}
     loaded: Dict[str, torch.Tensor] = {}

@@ -7,32 +7,39 @@
 
 ``--device`` (default ``cuda``, with no fallback: without a card the first
 CUDA tensor raises; ``--device cpu`` runs the plain twins) is where the
-trackers run; ``macs`` always counts on the CPU. Weights are the JAX
-package's ``.npz`` archives or bare zoo names.
+trackers run; ``macs`` always counts on the CPU. ``--weights_path`` takes
+every format ``convert.load.load_variables`` reads: an ``.npz`` archive of
+the JAX package or a bare zoo name, a reference Lightning ``.ckpt``, or the
+reference's CoreML ``.mlmodel``; it defaults to ``$FEAR_WEIGHTS``, else the
+packaged ``fear_xs.npz``. ``eval --plot`` / ``--plot_precision``
+write the OPE success / precision plots (PNG, with matplotlib).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
 
-from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS
+from feartracker_tpu_torch.convert.load import default_weights_path
 from feartracker_tpu_torch.data.sequence import DATASET_REGISTRY
 from feartracker_tpu_torch.models.fbnet import TRUNKS
 
 
 def _load(args):
-    """A float32 ``FEARNet`` from ``--weights_path`` (an ``.npz`` archive or a
-    bare zoo name), shaped by ``--model_name/--adjust_channels/--towernum``."""
-    from feartracker_tpu_torch.convert.load import load_fear_net, variables_from_npz
+    """A float32 ``FEARNet`` from ``--weights_path`` in any format
+    ``load_variables`` reads, shaped by
+    ``--model_name/--adjust_channels/--towernum``."""
+    from feartracker_tpu_torch.convert.load import load_fear_net, load_variables
     from feartracker_tpu_torch.models.fear_net import FEARNet
 
-    model = FEARNet(TRUNKS[args.model_name], adjust_channels=args.adjust_channels,
-                    towernum=args.towernum)
-    return load_fear_net(model, variables_from_npz(args.weights_path))
+    ch, tn = args.adjust_channels, args.towernum
+    model = FEARNet(TRUNKS[args.model_name], adjust_channels=ch, towernum=tn)
+    return load_fear_net(model, load_variables(args.weights_path, channels=ch, towernum=tn,
+                                               trust_pickle=args.trust_checkpoint))
 
 
 def cmd_macs(args) -> None:
@@ -42,23 +49,21 @@ def cmd_macs(args) -> None:
 
 
 def _video(path: str, n: int) -> np.ndarray:
-    """``n`` RGB frames of ``path``, or seeded noise frames (256×480) when it
-    cannot be read (as the JAX CLI falls back)."""
-    try:
-        import cv2
+    """``n`` RGB frames of ``path`` (``utils.video.read_video``: a ``.npy``,
+    or a video cv2 decodes), or seeded noise frames (256×480) when no path
+    is given, when a video needs cv2 and it is not installed, or when the
+    file holds fewer than ``n`` frames (as the JAX CLI does). A ``.npy``
+    that cannot be read raises."""
+    from feartracker_tpu_torch.utils.video import read_video
 
-        cap = cv2.VideoCapture(path)
-        frames = []
-        while len(frames) < n:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
-        cap.release()
-        if len(frames) == n:
-            return np.stack(frames)
-    except ImportError:
-        pass
+    frames = None
+    if path:
+        try:
+            frames = read_video(path, max_frames=n)
+        except ImportError:
+            pass
+    if frames is not None and len(frames) == n:
+        return frames
     return np.random.RandomState(0).randint(0, 255, (n, 256, 480, 3), dtype=np.uint8)
 
 
@@ -156,21 +161,45 @@ def cmd_eval(args) -> None:
                 max_sequences=args.max_sequences, verbose=True,
             )
     if args.report:
-        import os
-
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as fh:
             json.dump(res, fh, indent=1)
+    if args.plot or args.plot_precision:
+        _plot(args, res)
     curves = ("per_sequence", "success_curve", "precision_curve", "norm_precision_curve")
     print(json.dumps({k: v for k, v in res.items() if k not in curves}))
+
+
+def _plot(args, res) -> None:
+    """``--plot`` / ``--plot_precision``: the run's OPE curves as PNGs, the
+    series named after the weights file."""
+    from feartracker_tpu_torch.evaluate.plots import plot_precision, plot_success
+
+    if "success_curve" not in res:
+        raise SystemExit("--plot/--plot_precision need OPE curves (AO-style eval, not --supervised/--submit_dir)")
+    name = os.path.splitext(os.path.basename(args.weights_path.rstrip("/")))[0]
+    if args.plot:
+        os.makedirs(os.path.dirname(args.plot) or ".", exist_ok=True)
+        plot_success({name: res["success_curve"]}, args.plot, title=f"Success plot (OPE) — {args.dataset}")
+    if args.plot_precision:
+        if "precision_curve" not in res:
+            raise SystemExit("--plot_precision: no precision curve (no scored sequences)")
+        os.makedirs(os.path.dirname(args.plot_precision) or ".", exist_ok=True)
+        plot_precision({name: res["precision_curve"]}, args.plot_precision,
+                       title=f"Precision plot (OPE) — {args.dataset}")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default="cuda",
                    help="where the trackers run: 'cuda' (the kernels; the default) or 'cpu' (their plain twins)")
-    p.add_argument("--weights_path", default=PACKAGED_FEAR_XS,
-                   help="an .npz variables archive of the JAX package, or a bare zoo name")
+    p.add_argument("--weights_path", default=default_weights_path(),
+                   help="an .npz variables archive of the JAX package or a bare zoo name, a reference Lightning "
+                        ".ckpt, or the reference's CoreML .mlmodel (default: $FEAR_WEIGHTS, else the packaged "
+                        "fear_xs.npz)")
+    p.add_argument("--trust_checkpoint", action="store_true",
+                   help="unpickle a .ckpt that holds more than tensors and plain values in full (runs the code it "
+                        "names: only for checkpoints you trust)")
     p.add_argument("--model_name", choices=sorted(TRUNKS), default="fear_xs")
     p.add_argument("--adjust_channels", type=int, default=256)
     p.add_argument("--towernum", type=int, default=2)
@@ -188,7 +217,8 @@ def build_parser() -> argparse.ArgumentParser:
     fp.add_argument("--duration", type=float, default=30.0)
     fp.add_argument("--input_fps", type=float, default=30.0)
     fp.add_argument("--video_path", default="",
-                    help="a video read with cv2 when it is installed; else seeded noise frames")
+                    help="a .npy of (T, H, W, 3) uint8 frames, or a video read with cv2 when it is installed; "
+                         "else seeded noise frames")
     fp.add_argument("--csv", default=None)
     fp.add_argument("--dynamic_template", action="store_true")
     fp.add_argument("--update_interval", type=int, default=1)
@@ -212,6 +242,8 @@ def build_parser() -> argparse.ArgumentParser:
         gp.add_argument("--submit_dir", default=None, help="write eval-server submission files here")
         gp.add_argument("--report", default=None,
                         help="also write the full result (incl. per-sequence) as JSON here")
+        gp.add_argument("--plot", default=None, help="write an OPE success plot (PNG) here")
+        gp.add_argument("--plot_precision", default=None, help="write an OPE precision plot (PNG) here")
     return p
 
 

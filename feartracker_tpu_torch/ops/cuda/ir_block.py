@@ -318,3 +318,95 @@ def _fused_ir_block(
 
 
 fused_ir_block.launches = 0
+
+
+# -- K2 as a PyTorch operator ---------------------------------------------------
+#
+# ``torch.export`` cannot trace the ctypes launch (a raw pointer per tensor,
+# the ticket cache, the current stream), so graphs that must be exported
+# (``convert/export.py``) call K2 as ``torch.ops.fear_port.ir_block``: the
+# block's tensors flat, the packed bfloat16 weights as optional tensors, the
+# rest as scalars. Its CUDA implementation is the wrapper above (workspace
+# and tickets made there, at run time, never in a graph), its CPU
+# implementation the plain twin, and its fake the output's shape and dtype,
+# which is all an export sees. The tracking runtime keeps calling
+# :func:`fused_ir_block`: the dispatcher's host cost per call buys nothing
+# on an eager path (``chip_smoke.py`` phase 11a times both).
+
+
+def ir_block_from_args(expand_w, expand_b, dw_w, dw_b, project_w, project_b, packed_we, packed_wp, packed_aux):
+    """The folded block dict of :func:`ir_block_op`'s tensor arguments (the
+    inverse of :func:`ir_block_args`)."""
+    blk = {"expand": None if expand_w is None else {"w": expand_w, "b": expand_b},
+           "dw": {"w": dw_w, "b": dw_b}, "project": {"w": project_w, "b": project_b}}
+    if packed_wp is not None:
+        blk["packed"] = {"we": packed_we, "wp": packed_wp, "aux": packed_aux}
+    return blk
+
+
+def _op_spec(x: torch.Tensor, dw_w: torch.Tensor, project_w: torch.Tensor, k: int, stride: int) -> IRBlockSpec:
+    return IRBlockSpec(dw_w.shape[-1] // x.shape[-1], k, stride, project_w.shape[-1])
+
+
+@torch.library.custom_op("fear_port::ir_block", mutates_args=(), device_types="cpu")
+def ir_block_op(
+    x: torch.Tensor,
+    expand_w: Optional[torch.Tensor],
+    expand_b: Optional[torch.Tensor],
+    dw_w: torch.Tensor,
+    dw_b: torch.Tensor,
+    project_w: torch.Tensor,
+    project_b: torch.Tensor,
+    packed_we: Optional[torch.Tensor],
+    packed_wp: Optional[torch.Tensor],
+    packed_aux: Optional[torch.Tensor],
+    k: int,
+    stride: int,
+    relu_dw: bool,
+    relu_out: bool,
+) -> torch.Tensor:
+    """K2 as an operator: one folded block on ``x`` (S, H, W, Cin) NHWC, the
+    tensors of ``fold_fear_net``'s block dict passed flat (``packed_*`` the
+    bfloat16 blocks' packed weights, else None). On CPU tensors the plain
+    twin; on CUDA tensors the kernel, through :func:`fused_ir_block`'s
+    launch code and its counter."""
+    blk = ir_block_from_args(expand_w, expand_b, dw_w, dw_b, project_w, project_b, packed_we, packed_wp, packed_aux)
+    return plain_ir_block(x, blk, _op_spec(x, dw_w, project_w, k, stride), relu_dw, relu_out)
+
+
+@ir_block_op.register_kernel("cuda")
+def ir_block_op_cuda(x, expand_w, expand_b, dw_w, dw_b, project_w, project_b, packed_we, packed_wp, packed_aux,
+                     k, stride, relu_dw, relu_out):
+    """The operator on CUDA tensors: the kernel, counted in
+    ``fused_ir_block.launches`` like any launch and in ``.calls`` as one
+    through the operator."""
+    blk = ir_block_from_args(expand_w, expand_b, dw_w, dw_b, project_w, project_b, packed_we, packed_wp, packed_aux)
+    out = _fused_ir_block(x.contiguous(), blk, _op_spec(x, dw_w, project_w, k, stride), relu_dw, relu_out, None)
+    ir_block_op_cuda.calls += 1
+    return out
+
+
+ir_block_op_cuda.calls = 0
+
+
+@ir_block_op.register_fake
+def _ir_block_op_fake(x, expand_w, expand_b, dw_w, dw_b, project_w, project_b, packed_we, packed_wp, packed_aux,
+                      k, stride, relu_dw, relu_out):
+    S, H, W, _ = x.shape
+    return x.new_empty((S, H // stride, W // stride, project_w.shape[-1]))
+
+
+def ir_block_args(blk: Dict[str, Any]) -> Tuple[Optional[torch.Tensor], ...]:
+    """A folded block dict's tensors in :func:`ir_block_op`'s order, from
+    ``expand_w`` to ``packed_aux``."""
+    expand, packed = blk["expand"], blk.get("packed") or {}
+    return (None if expand is None else expand["w"], None if expand is None else expand["b"],
+            blk["dw"]["w"], blk["dw"]["b"], blk["project"]["w"], blk["project"]["b"],
+            packed.get("we"), packed.get("wp"), packed.get("aux"))
+
+
+def fused_ir_block_op(x: torch.Tensor, blk: Dict[str, Any], spec: IRBlockSpec, relu_dw: bool = True,
+                      relu_out: bool = False) -> torch.Tensor:
+    """:func:`fused_ir_block` through the operator, for graphs that are
+    exported."""
+    return torch.ops.fear_port.ir_block(x, *ir_block_args(blk), spec.kernel, spec.stride, relu_dw, relu_out)

@@ -111,25 +111,29 @@ def plain_ir_block(
     return y
 
 
-def trunk_forward(x: torch.Tensor, folded: Dict[str, Any], specs: Sequence[IRBlockSpec]) -> torch.Tensor:
+def trunk_forward(x: torch.Tensor, folded: Dict[str, Any], specs: Sequence[IRBlockSpec],
+                  kernel_block=None) -> torch.Tensor:
     """Folded-weights trunk forward on an NHWC crop batch in the compute
-    dtype. Blocks with ``expansion > 1`` go through the fused-kernel
-    dispatcher; the others (no expanded tensor to keep on chip) take the
-    plain path, as in JAX."""
-    from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
+    dtype. Blocks with ``expansion > 1`` go to ``kernel_block(x, blk,
+    spec)``, by default the fused kernel's dispatcher (``convert/export.py``
+    passes K2's operator); the others (no expanded tensor to keep on chip)
+    take the plain path, as in JAX."""
+    if kernel_block is None:
+        from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block as kernel_block
 
     stem = folded["stem"]
     y = F.conv2d(to_nchw(x), stem["w"].to(x.dtype), stride=2, padding=1)
     x = F.relu(to_nhwc(y).float() + stem["b"]).to(x.dtype).contiguous()
     for spec, blk in zip(specs, folded["blocks"]):
         if spec.expansion > 1:
-            x = fused_ir_block(x, blk, spec)
+            x = kernel_block(x, blk, spec)
         else:
             x = plain_ir_block(x, blk, spec).contiguous()
     return x
 
 
-def get_features_folded(x: torch.Tensor, folded: Dict[str, Any], specs: Sequence[IRBlockSpec]) -> torch.Tensor:
+def get_features_folded(x: torch.Tensor, folded: Dict[str, Any], specs: Sequence[IRBlockSpec],
+                        kernel_block=None) -> torch.Tensor:
     """Folded trunk + neck — inference equivalent of ``FEARNet.get_features``."""
-    t = trunk_forward(x, folded, specs)
+    t = trunk_forward(x, folded, specs, kernel_block)
     return _matmul_channels(t, folded["neck"]["w"], folded["neck"]["b"])

@@ -125,6 +125,17 @@ class FEARTracker:
     def _features(self, crop: torch.Tensor) -> torch.Tensor:
         return self._net._features(normalize_imagenet(crop.float())[None])
 
+    def _head(self, search: torch.Tensor):
+        """The head on search features against the template(s) → (cls, reg)."""
+        update = self._dyn_features if self.dynamic_template else None
+        out = self._net.model.connector(self._template_features, search, update)
+        return out[TARGET_CLASSIFICATION_KEY], out[TARGET_REGRESSION_LABEL_KEY]
+
+    def _track(self, search_crop: torch.Tensor):
+        """The network's share of an update: a uint8 (S, S, 3) search crop →
+        the head's (cls, reg)."""
+        return self._head(self._features(search_crop))
+
     def _native_crop(self, frame: torch.Tensor, window: np.ndarray, out_size: int, prev_size=None):
         """``native_preprocess``'s crop of ``window`` (an ``extend_bbox``
         window, as float32) → (the normalized (1, out, out, 3) crop,
@@ -179,7 +190,7 @@ class FEARTracker:
             )
             self.prev_size = padded[2:] * (cfg.instance_size / window[2:4].astype(np.float64))
             search, prev = self._native_crop(frame, window, cfg.instance_size, self.prev_size)
-            search = self._net._features(search)
+            cls, reg = self._head(self._net._features(search))
         else:
             search_crop, search_bbox, window = get_extended_crop(
                 frame, self.bbox, cfg.instance_size, context, self._pad_color,
@@ -189,12 +200,9 @@ class FEARTracker:
             # otherwise would be a copy from host memory in mid-frame
             prev = (torch.tensor(self.prev_size, dtype=torch.float32, device=self.device)[None]
                     if cfg.smooth else None)
-            search = self._features(search_crop)
-        update = self._dyn_features if self.dynamic_template else None
-        out = self._net.model.connector(self._template_features, search, update)
+            cls, reg = self._track(search_crop)
         # K1 on the head's outputs in their own dtype
-        res = postprocess_cuda(out[TARGET_CLASSIFICATION_KEY], out[TARGET_REGRESSION_LABEL_KEY],
-                               cfg.postprocess, prev_size=prev)
+        res = postprocess_cuda(cls, reg, cfg.postprocess, prev_size=prev)
         # the one read of the frame: crop-space box and confidence, one buffer
         box_conf = box_and_confidence(res).cpu().numpy()
         confidence = float(box_conf[4])

@@ -111,3 +111,25 @@ def test_device_defaults_to_cuda_without_a_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.build_parser().parse_args(["macs"]).device == "cuda"
     assert cli.build_parser().parse_args(["--device", "cpu", "macs"]).device == "cpu"
+
+
+def test_fps_video_reads_npy_and_falls_back_only_without_frames(tmp_path, monkeypatch):
+    """``fps``'s frames: a ``.npy`` as it is; seeded noise when no path is
+    given, when a video needs the missing cv2, or when the file is short; a
+    ``.npy`` that cannot be read raises instead of timing noise."""
+    frames = np.random.RandomState(3).randint(0, 256, (5, 24, 32, 3)).astype(np.uint8)
+    good = str(tmp_path / "clip.npy")
+    np.save(good, frames)
+    np.testing.assert_array_equal(cli._video(good, 4), frames[:4])
+    noise = cli._video("", 2)
+    assert noise.shape == (2, 256, 480, 3) and noise.dtype == np.uint8
+    np.testing.assert_array_equal(cli._video(good, 6), np.random.RandomState(0).randint(
+        0, 255, (6, 256, 480, 3), dtype=np.uint8))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    np.testing.assert_array_equal(cli._video(str(tmp_path / "clip.mp4"), 2), noise)
+    bad = str(tmp_path / "float.npy")
+    np.save(bad, frames.astype(np.float32))
+    with pytest.raises(ValueError, match="uint8"):
+        cli._video(bad, 2)
+    with pytest.raises(OSError):
+        cli._video(str(tmp_path / "missing.npy"), 2)

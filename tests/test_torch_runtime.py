@@ -150,7 +150,11 @@ def test_port_imports_no_jax_or_reference():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(modules) >= 42
+    assert len(modules) >= 58
+    # the deployment surfaces: weight formats, export, demo, plots and report
+    assert {f"feartracker_tpu_torch.{m}" for m in (
+        "convert.protowire", "convert.coreml", "convert.fear_weights", "convert.lightning", "convert.export",
+        "demo", "evaluate.plots", "evaluate.report", "utils.video")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
