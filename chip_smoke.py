@@ -101,7 +101,27 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    within 1 px of it), each
    also run in-process for its launch counts; 11d a seeded reference-named
    state dict saved as a Lightning ``.ckpt``, loaded through
-   ``load_variables``, ``track`` f32 at S=4, T=8 card against CPU (1 px).
+   ``load_variables``, ``track`` f32 at S=4, T=8 card against CPU (1 px);
+12. training, which runs neither kernel (the step trains the unfolded model
+   with BatchNorm in train mode), then hands its module to the tracker,
+   which runs both: 12a one float32 Adam step of FEAR-XS from
+   ``fear_xs.npz`` at B=8, 256²/128², card against CPU with TF32 off (loss
+   rtol 1e-4, running statistics rtol 1e-4; the gradient, printed against
+   the CPU's, held to the same step in float64 on the CPU: within 1e-3 of
+   the gradient's max, 5e-2 of each tensor's own); 12b ``python -m feartracker_tpu_torch.tools.train_profile
+   --batches 32,64,128`` in its own process, bfloat16 (its JSON lines
+   printed; each loss finite and lower after 10 steps on its fixed batch
+   than at the first); 12c the card's data path: a CSV dataset of
+   numpy-rendered ``.npy`` frames → ``SiameseTrackingDataset`` in staged
+   mode → ``BatchLoader`` → ``prefetch_to_device`` → the step with device
+   augmentations, B=32, 10 steps, bfloat16 (neither kernel launched), the
+   loader's host ms per batch beside the step's ms, and ``augment_batch``
+   on the card against the CPU with the same drawn parameters (pixels rtol
+   1e-4); 12d a checkpoint saved after 12c, restored into a fresh state,
+   and one more step from each under ``cudnn.deterministic``: equal bit for
+   bit; 12e the trained module in ``FEARTracker`` on the card, float32:
+   K1 once and K2 13 times an update, boxes on phase 9's clip within 1 px
+   of the same module on the CPU.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -1551,6 +1571,322 @@ def _phase_deployment(card, n_fused, counters, lap):
     return launches, dispatch_us
 
 
+# phase 12's tolerances: float32 card (cuDNN, TF32 off) against the CPU
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_STATS_RTOL = 1e-4
+# the card's float32 gradient against the same step in float64 on the CPU:
+# within 1e-3 of the gradient's max |value| over all tensors, and within
+# 5e-2 of each tensor's own max (float32 reads 7.8e-4 / 3.2e-2 on the H100
+# and 2.0e-3 / 1.2e-2 on the CPU: the worst tensors are the smallest, bias
+# and BatchNorm gradients near 2e-4 of the max, sums over B·H·W that cancel)
+TRAIN_GRAD_F64_ATOL = 1e-3
+TRAIN_GRAD_F64_OWN = 5e-2
+TRAIN_AUG_RTOL = 1e-4  # augmented pixels, card against CPU
+# the training configuration's dataset sizes (conf/dataset/got10k_train.yaml,
+# conf/tracker/siam_tracker.yaml)
+TRAIN_SIZES = {"search_image_size": 256, "template_image_size": 128, "search_context": 2,
+               "template_bbox_offset": 0.2, "search_image_shift": 48, "search_image_scale": 0.35,
+               "context_range": 3}
+
+
+def _grad_errors(got: dict, ref: dict):
+    """(max |got − ref| over the gradient's max |ref|, max |got − ref| over
+    each tensor's own max |ref| where that is above a millionth of the
+    gradient's max, the number of tensors below it: analytically zero
+    gradients, such as a conv bias before a BatchNorm in train mode, of
+    which both sides compute only rounding noise)."""
+    gmax = max(float(r.abs().max()) for r in ref.values())
+    err_all, err_own, zero = 0.0, 0.0, 0
+    for k, r in ref.items():
+        d = float((got[k] - r).abs().max())
+        err_all = max(err_all, d / gmax)
+        own = float(r.abs().max())
+        if own < 1e-6 * gmax:
+            zero += 1
+        else:
+            err_own = max(err_own, d / own)
+    return err_all, err_own, zero
+
+
+def _stat_error(got: dict, ref: dict) -> float:
+    """Max over the BatchNorm statistics of |got − ref| / (|ref| + the
+    tensor's max |ref|·1e-0): an rtol with a floor at the tensor's scale
+    (a channel's mean may cancel to near zero)."""
+    err = 0.0
+    for k, r in ref.items():
+        err = max(err, float(((got[k] - r).abs() / (r.abs() + r.abs().max())).max()))
+    return err
+
+
+def _phase_train_f32(card, dev):
+    """12a: one float32 Adam step of FEAR-XS at B=8, card against CPU, and
+    both against the same gradient in float64 on the CPU."""
+    import copy
+
+    import torch
+
+    from feartracker_tpu_torch.core.box_coder import BoxCoderSpec
+    from feartracker_tpu_torch.tools.train_profile import build_model, synthetic_train_batch
+    from feartracker_tpu_torch.train.optim import apply_updates, build_optimizer
+    from feartracker_tpu_torch.train.step import make_loss_and_grads, params_of
+
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    model, _ = build_model("fear_xs")
+    batch = synthetic_train_batch(8, 128, 256, BoxCoderSpec(), "cpu", seed=12)
+    res = {}
+    for name, d, dt in (("f64", "cpu", torch.float64), ("cpu", "cpu", torch.float32), ("card", dev, torch.float32)):
+        t0 = time.perf_counter()
+        net = copy.deepcopy(model).to(d, dt)
+        tx = build_optimizer({"name": "adam", "lr": 1e-4})
+        params = params_of(net)
+        opt = tx.init(params)
+        total, _, _, grads = make_loss_and_grads()(net, {k: v.to(d, dt) for k, v in batch.items()})
+        with torch.no_grad():
+            updates, opt = tx.update(grads, opt, {k: p.detach() for k, p in params.items()})
+            apply_updates(params, updates)
+        stats = {k: v.cpu().double() for k, v in net.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        res[name] = (float(total), {k: g.cpu().double() for k, g in grads.items()}, stats,
+                     time.perf_counter() - t0)
+    (lc, gc, sc, tc), (lg, gg, sg, tg), g64 = res["cpu"], res["card"], res["f64"][1]
+    loss_err = abs(lg - lc) / abs(lc)
+    err_all, err_own, zero = _grad_errors(gg, gc)
+    card_all, card_own, _ = _grad_errors(gg, g64)
+    cpu_all, cpu_own, _ = _grad_errors(gc, g64)
+    stat_err = _stat_error(sg, sc)
+    print(f"[12a] FEAR-XS f32 Adam step B=8 256²/128², card vs CPU: loss {lg:.6f} vs {lc:.6f} (rel {loss_err:.2e}, "
+          f"rtol {TRAIN_LOSS_RTOL}); BatchNorm statistics rel {stat_err:.2e} (rtol {TRAIN_STATS_RTOL}); "
+          f"gradients ({len(gc)} tensors, {zero} analytically zero) card vs CPU {err_all:.2e} of the gradient's "
+          f"max, {err_own:.2e} of each tensor's own; against float64 on the CPU: card {card_all:.2e} / "
+          f"{card_own:.2e} (limits {TRAIN_GRAD_F64_ATOL} / {TRAIN_GRAD_F64_OWN}), CPU f32 {cpu_all:.2e} / "
+          f"{cpu_own:.2e}; "
+          f"wall {tg:.2f} s card with cuDNN's first calls, {tc:.2f} s CPU [{card}]", flush=True)
+    assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+    assert stat_err <= TRAIN_STATS_RTOL, stat_err
+    assert card_all <= TRAIN_GRAD_F64_ATOL and card_own <= TRAIN_GRAD_F64_OWN, (card_all, card_own)
+
+
+def _phase_train_profile(card):
+    """12b: the training sweep at the configuration's width in its own
+    process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "feartracker_tpu_torch.tools.train_profile",
+                           "--batches", "32,64,128", "--warmup", "2", "--timed", "8"],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0] == card, lines[0]
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    assert [r["batch"] for r in records] == [32, 64, 128], lines
+    for line in lines[1:]:
+        print(f"[12b] {line}", flush=True)
+    for r in records:
+        assert r["steps"] == 10 and r["loss_first"] == r["loss_first"] and r["loss_last"] < r["loss_first"], r
+    print(f"[12b] train_profile bf16 B=32/64/128: step {', '.join(f'{r['step_ms']:.2f}' for r in records)} ms, "
+          f"{', '.join(f'{r['samples_per_s']:.1f}' for r in records)} samples/s, peak "
+          f"{', '.join(f'{r['peak_mem_bytes'] / 2**30:.2f}' for r in records)} GiB, "
+          f"{', '.join(f'{r['mfu_pct']:.2f}' for r in records)}% of 989 TFLOP/s; loss "
+          f"{', '.join(f'{r['loss_first']:.4f}→{r['loss_last']:.4f}' for r in records)} over 10 steps; first "
+          f"steps {', '.join(f'{r['first_step_ms'] / 1e3:.1f}' for r in records)} s (each shape's first calls); "
+          f"{time.perf_counter() - t0:.1f} s in its own process [{card}]", flush=True)
+    return records
+
+
+def _write_npy_dataset(root: str, clips: int = 8, frames: int = 40) -> str:
+    """Phase 9's renderer's clips as ``.npy`` frames and a CSV naming them
+    (the card host has no cv2 and no pandas); → the CSV's path."""
+    import csv
+    import os
+
+    import numpy as np
+
+    rows = []
+    for c in range(clips):
+        imgs, boxes = _render_clip(seed=30 + c, n_frames=frames)
+        for f, (img, box) in enumerate(zip(imgs, boxes)):
+            name = f"c{c}_f{f:03d}.npy"
+            np.save(os.path.join(root, name), img)
+            rows.append({"sequence_id": f"c{c}", "track_id": f"c{c}", "frame_index": f, "img_path": name,
+                         "bbox": str([int(v) for v in box]), "frame_shape": str([480, 256]),
+                         "dataset": "rendered", "presence": 1, "near_corner": 0})
+    path = os.path.join(root, "train.csv")
+    with open(path, "w", newline="") as fh:
+        w = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return path
+
+
+def _phase_train_data(card, dev, counters, root):
+    """12c: the card's data path into the step with device augmentations;
+    → (state, step, one staged batch on the card, launches of the step)."""
+    import itertools
+    import os
+
+    import torch
+
+    from feartracker_tpu_torch.data import device_augs as augs
+    from feartracker_tpu_torch.data.dataset import SiameseTrackingDataset
+    from feartracker_tpu_torch.data.loader import BatchLoader, prefetch_to_device
+    from feartracker_tpu_torch.tools.train_profile import build_model
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state, make_train_step
+
+    B, n_steps = 32, 10
+    csv_path = _write_npy_dataset(root)
+    cfg = {"root": root, "name": "rendered", "sizes": dict(TRAIN_SIZES), "regression_weight_label_size": 16,
+           "device_augs": True,
+           "sampling": {"type": "track", "data_path": csv_path, "negative_ratio": 0.0, "frame_offset": 70,
+                        "num_samples": B * n_steps, "clip_range": True}}
+    dataset = SiameseTrackingDataset(cfg, {"score_size": 16, "total_stride": 16}, seed=0)
+    workers = len(os.sched_getaffinity(0))
+    loader = BatchLoader(dataset, B, num_workers=workers, seed=0)
+    # the loader alone: host ms per batch over the epoch's first half
+    assert len(dataset) == B * n_steps and len(loader) == n_steps, (len(dataset), len(loader))
+    t0 = time.perf_counter()
+    host_batches = list(itertools.islice(loader, n_steps // 2))
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(host_batches)
+
+    aug_cfg = augs.DeviceAugConfig(search_size=256, scale=0.35, shift=48.0, grid_size=16, total_stride=16)
+    tx = build_optimizer({"name": "adam", "lr": 1e-4})
+    state = create_train_state(build_model("fear_xs")[0], tx, device=dev)
+    step = make_train_step(tx, device_augs=aug_cfg, aug_seed=0, dtype=torch.bfloat16)
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, staged = [], None
+    for batch in prefetch_to_device(iter(loader), dev):
+        staged = staged or dict(batch)
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    e2e_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    launches = _read(counters)
+    losses = [float(v) for v in losses]
+    assert len(losses) == n_steps and all(v == v and abs(v) < 1e6 for v in losses), losses
+    assert launches == {"K1": 0, "K2": 0}, launches
+
+    # the step alone on a batch already on the card
+    def one():
+        step(state, dict(staged))
+
+    step_ms = _wall_ms(one, 5)
+
+    # augment_batch on the card against the CPU with the same drawn parameters
+    params = augs.draw_params(staged, aug_cfg, augs.aug_generator(0, 0, dev))
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    got = augs.apply_params(staged, params, aug_cfg)
+    ref = augs.apply_params(to_cpu(staged), to_cpu(params), aug_cfg)
+    from feartracker_tpu_torch.utils import constants as C
+
+    mean = torch.tensor(C.IMAGENET_MEAN) * 255.0
+    std = torch.tensor(C.IMAGENET_STD) * 255.0
+    pix_err = 0.0
+    for k in (C.TRACKER_TARGET_TEMPLATE_IMAGE_KEY, C.TRACKER_TARGET_SEARCH_IMAGE_KEY):
+        a, b = got[k].cpu() * std + mean, ref[k] * std + mean
+        pix_err = max(pix_err, float(((a - b).abs() / (b.abs() + 255.0)).max()))
+    box_diff = (got[C.TRACKER_TARGET_BBOX_KEY].cpu() - ref[C.TRACKER_TARGET_BBOX_KEY]).abs()
+    same = box_diff.amax(dim=1) == 0
+    label_ok = all(torch.equal(got[k].cpu()[same], ref[k][same]) for k in (
+        C.TARGET_REGRESSION_LABEL_KEY, C.TARGET_CLASSIFICATION_KEY, C.TARGET_REGRESSION_WEIGHT_KEY))
+    print(f"[12c] data path B={B}, {n_steps} steps bf16 with device augmentations from {len(dataset)} staged items "
+          f"of .npy frames: loss {losses[0]:.4f} → {losses[-1]:.4f}; loader alone {host_ms:.1f} ms a batch on "
+          f"{workers} threads, loader + step {e2e_ms:.1f} ms a step, step alone {step_ms:.1f} ms "
+          f"({'the loader' if host_ms > step_ms else 'the step'} paces training on this host); launches in the "
+          f"{n_steps} steps {launches}; augment_batch card vs CPU, same draws: pixels rel {pix_err:.2e} (rtol "
+          f"{TRAIN_AUG_RTOL}), {int((~same).sum())} of {B} boxes differ (max {float(box_diff.max()):.0f} px), "
+          f"labels of the equal boxes equal: {label_ok} [{card}]", flush=True)
+    assert pix_err <= TRAIN_AUG_RTOL, pix_err
+    assert float(box_diff.max()) <= 1.0 and label_ok
+    return state, step, staged, launches, {"host_ms": host_ms, "step_ms": step_ms, "e2e_ms": e2e_ms}
+
+
+def _phase_train_checkpoint(card, dev, state, step, staged, root):
+    """12d: save, restore into a fresh state, one more step from each."""
+    import os
+
+    import torch
+
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+    from feartracker_tpu_torch.train.checkpoint import CheckpointManager
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state
+
+    mgr = CheckpointManager(os.path.join(root, "checkpoints"), max_to_keep=2)
+    mgr.save(state.step, state, monitor=0.5, extra={"epoch": 1})
+    fresh = create_train_state(FEARNet(), build_optimizer({"name": "adam", "lr": 1e-4}), device=dev)
+    restored = mgr.restore_last(fresh)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        a, ma = step(state, dict(staged))
+        b, mb = step(restored, dict(staged))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    differ = [k for (k, p), q in zip(a.model.state_dict().items(), b.model.state_dict().values())
+              if not torch.equal(p, q)]
+    differ += [f"mu/{k}" for k, v in a.opt_state["mu"].items() if not torch.equal(v, b.opt_state["mu"][k])]
+    print(f"[12d] checkpoint at step {state.step - 1} ({os.path.getsize(os.path.join(root, 'checkpoints', 'last', 'state.pt')) / 2**20:.1f} MiB) restored "
+          f"into a fresh state: the next step's loss {float(ma['loss']):.6f} / {float(mb['loss']):.6f}, "
+          f"{len(differ)} tensors differ, meta {mgr.load_meta()} [{card}]", flush=True)
+    assert float(ma["loss"]) == float(mb["loss"]) and not differ and a.step == b.step, differ[:5]
+    return b
+
+
+def _phase_train_handover(card, dev, counters, state):
+    """12e: the trained module in ``FEARTracker``, card against CPU."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.tracker.tracker import FEARTracker
+
+    frames, true_boxes = _render_clip(seed=9, n_frames=21)
+    boxes, launches = {}, None
+    for d in ("cpu", dev):
+        tracker = FEARTracker(state.model, dtype=torch.float32, device=d)
+        tracker.initialize(frames[0], true_boxes[0])
+        _zero(counters)
+        out = [tracker.update(f)["bbox"] for f in frames[1:]]
+        if d != "cpu":
+            launches = _read(counters)
+        boxes[str(d)] = np.asarray(out, np.float64)
+    n = len(frames) - 1
+    px = float(np.abs(boxes[str(dev)] - boxes["cpu"]).max())
+    print(f"[12e] trained module in FEARTracker f32: launches over {n} updates {launches} (K1 1, K2 13 an "
+          f"update), boxes card vs CPU max {px:.0f} px (tol 1) [{card}]", flush=True)
+    assert launches == {"K1": n, "K2": 13 * n}, launches
+    assert px <= 1.0, px
+    return launches
+
+
+def _phase_train(card, counters, lap):
+    """Phase 12: training on the card (12a-12e); → each path's launches."""
+    import tempfile
+
+    import torch
+
+    dev = torch.device("cuda")
+    _phase_train_f32(card, dev)
+    lap("12a")
+    _phase_train_profile(card)
+    lap("12b")
+    with tempfile.TemporaryDirectory() as root:
+        state, step, staged, step_launches, _ = _phase_train_data(card, dev, counters, root)
+        lap("12c")
+        state = _phase_train_checkpoint(card, dev, state, step, staged, root)
+        lap("12d")
+    handover = _phase_train_handover(card, dev, counters, state)
+    lap("12e")
+    return {"train_step": step_launches, "train_handover_sequential": handover}
+
+
 def main() -> int:
     import torch
 
@@ -1790,10 +2126,11 @@ def main() -> int:
     lap("9")
     graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
     deploy_launches, dispatch_us = _phase_deployment(card, n_fused, counters, lap)
+    train_launches = _phase_train(card, counters, lap)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
-               "static_scan_unroll_16": graph_launches, **deploy_launches}
+               "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

@@ -24,6 +24,10 @@ port's modules carry the Flax names, so each key maps mechanically:
 * ``batch_stats/.../mean|var`` → ``running_mean|running_var``;
 * the scalar params ``adjust``, ``bias`` (1,1,1,4), ``cls_scale`` and
   ``template_gate`` keep their names and shapes.
+
+An optax Adam state's moments (``mu``, ``nu``: trees shaped as ``params``)
+cross the same map onto the port optimizer's state
+(:func:`load_adam_state`), so that training can go on from a JAX state.
 """
 
 from __future__ import annotations
@@ -118,6 +122,32 @@ def torch_key(flax_key: str) -> str:
     return ".".join(path + [_LEAF.get((collection, leaf), leaf)])
 
 
+def _torch_array(key: str, arr: Any) -> np.ndarray:
+    """A Flax leaf as the port's tensor layout (HWIO kernels → OIHW)."""
+    arr = np.asarray(arr, np.float32)
+    if key.endswith("/kernel") and arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    return arr
+
+
+def load_adam_state(opt_state: Dict[str, Any], mu: Any, nu: Any, count: Any) -> Dict[str, Any]:
+    """Fill the port optimizer's Adam state (``build_optimizer({"name":
+    "adam"})``'s ``mu``, ``nu``, ``count``) in place from an optax
+    ``ScaleByAdamState``'s ``mu`` and ``nu`` (trees shaped as ``params``,
+    nested or flat) and ``count``. Raises ``KeyError`` unless the moments
+    cover the state's parameters exactly."""
+    for name, tree in (("mu", mu), ("nu", nu)):
+        flat = tree if all("/" in k for k in tree) else flatten_variables(tree)
+        dst = opt_state[name]
+        got = {torch_key("params/" + k): k for k in flat}
+        if set(got) != set(dst):
+            raise KeyError(f"{name} does not match the optimizer state: {sorted(set(got) ^ set(dst))}")
+        for tkey, fkey in got.items():
+            dst[tkey].copy_(torch.tensor(_torch_array(fkey, flat[fkey])))
+    opt_state["count"].fill_(int(np.asarray(count)))
+    return opt_state
+
+
 def load_fear_net(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     """Fill ``model`` from the JAX package's variables as numpy arrays, flat
     (:func:`variables_from_npz`) or nested ``{"params", "batch_stats"}``.
@@ -135,9 +165,7 @@ def load_fear_net(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
         if name not in wanted:
             leftover.append(key)
             continue
-        arr = np.asarray(arr, np.float32)
-        if key.endswith("/kernel") and arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+        arr = _torch_array(key, arr)
         if tuple(arr.shape) != tuple(state[name].shape):
             raise ValueError(f"{key}: shape {arr.shape} != {tuple(state[name].shape)} of {name}")
         loaded[name] = torch.tensor(arr)  # a copy: the source may be read-only

@@ -1,5 +1,6 @@
-"""FEAR box decoding on the stride-16 score grid. Maps are channel-last
-``(B, H, W, C)``, as in the JAX package."""
+"""FEAR box coding on the stride-16 score grid: xywh boxes ↔ (regression
+map, classification label). Maps are channel-last ``(B, H, W, C)``, as in the
+JAX package."""
 
 from __future__ import annotations
 
@@ -8,6 +9,11 @@ from typing import NamedTuple
 import torch
 
 from feartracker_tpu_torch.core.grids import make_grid
+
+
+class EncodeResult(NamedTuple):
+    regression_map: torch.Tensor  # (B, H, W, 4) LTRB offsets
+    classification_label: torch.Tensor  # (B, H, W, 1) {0, 1}
 
 
 class DecodeResult(NamedTuple):
@@ -20,6 +26,32 @@ class BoxCoderSpec(NamedTuple):
     score_size: int = 16
     total_stride: int = 16
     instance_size: int = 256
+
+
+def encode(bboxes: torch.Tensor, spec: BoxCoderSpec = BoxCoderSpec()) -> EncodeResult:
+    """xywh boxes ``(B, 4)`` → LTRB offset maps and inside-box labels (a
+    cell is positive iff min(LTRB) > 0)."""
+    grid_x, grid_y = make_grid(spec.score_size, spec.total_stride, spec.instance_size, bboxes.device)
+    b = bboxes[:, :, None, None]  # (B, 4, 1, 1)
+    left = grid_x - b[:, 0]
+    top = grid_y - b[:, 1]
+    right = b[:, 0] + b[:, 2] - grid_x
+    bottom = b[:, 1] + b[:, 3] - grid_y
+    reg = torch.stack((left, top, right, bottom), dim=-1).float()  # (B, H, W, 4)
+    cls = (torch.amin(reg, dim=-1, keepdim=True) > 0).float()  # (B, H, W, 1)
+    return EncodeResult(regression_map=reg, classification_label=cls)
+
+
+def get_box_coder(tracker_config: dict, tracker_name: str = "fear"):
+    """The grid geometry of a tracker config; ``None`` for any tracker but
+    "fear", as in the JAX package."""
+    if tracker_name == "fear":
+        return BoxCoderSpec(
+            score_size=int(tracker_config.get("score_size", 16)),
+            total_stride=int(tracker_config.get("total_stride", 16)),
+            instance_size=int(tracker_config.get("instance_size", 256)),
+        )
+    return None
 
 
 def pred_locations(regression_map: torch.Tensor, spec: BoxCoderSpec = BoxCoderSpec()) -> torch.Tensor:

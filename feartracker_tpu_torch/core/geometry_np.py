@@ -44,6 +44,20 @@ def clamp_bbox(bbox: BBox, shape: Tuple[int, int], min_side: int = 3) -> np.ndar
     return np.array([x, y, w, h])
 
 
+def handle_empty_bbox(bbox: np.ndarray, min_bbox: int = 3) -> np.ndarray:
+    """Enforce a minimum bbox side, in place."""
+    bbox[2] = max(bbox[2], min_bbox)
+    bbox[3] = max(bbox[3], min_bbox)
+    return bbox
+
+
+def center_to_bbox(center: BBox) -> np.ndarray:
+    """xc,yc,w,h → xywh, truncated to int."""
+    return np.array(
+        [center[0] - center[2] / 2, center[1] - center[3] / 2, center[2], center[3]]
+    ).astype("int")
+
+
 def overlap_xywh_np(pred: np.ndarray, gt: np.ndarray) -> np.ndarray:
     """Elementwise IoU of (..., 4) xywh arrays, without the +1 convention."""
     x1 = np.maximum(pred[..., 0], gt[..., 0])

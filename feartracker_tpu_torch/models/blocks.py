@@ -9,8 +9,8 @@ Flax path maps one to one onto its state-dict key
 (:func:`feartracker_tpu_torch.convert.load.load_fear_net`).
 
 Padding is explicit and symmetric (torch's ``padding=p``), which is what the
-JAX blocks pin, stride 2 included. BatchNorm: eps 1e-5; Flax momentum 0.9 is
-torch momentum 0.1.
+JAX blocks pin, stride 2 included. BatchNorm: eps 1e-5; in eval mode it is
+torch's; in train mode it is Flax's (:class:`FlaxBatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -32,8 +32,43 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=0.1)
+FLAX_BN_MOMENTUM = 0.9
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode computes what Flax's
+    ``nn.BatchNorm(momentum=0.9)`` does:
+
+    * batch statistics in float32 or wider whatever the input's dtype (float64
+      stays float64), and the running variance moved with the *biased* batch
+      variance (torch's own BatchNorm moves it with the unbiased one, N/(N−1)
+      larger);
+    * running statistics ``0.9·ra + 0.1·batch``;
+    * the normalization ``(x − mean)·rsqrt(var + eps)·scale + bias`` in that
+      dtype, cast back to the input's dtype (bfloat16 under autocast).
+
+    The normalization and its gradient are one fused library call (cuDNN's
+    on the card); the running statistics are a separate reduction outside
+    the graph. Eval mode is torch's, unchanged: inference and
+    ``fold_fear_net`` read the same parameters and buffers as before.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            m = FLAX_BN_MOMENTUM
+            self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.to(self.running_var.dtype), alpha=1.0 - m)
+        y = torch.batch_norm(xf, self.weight, self.bias, None, None, True, 0.0, self.eps,
+                             torch.backends.cudnn.enabled)
+        return y.to(x.dtype)
+
+
+def _bn(features: int) -> FlaxBatchNorm2d:
+    return FlaxBatchNorm2d(features, eps=BN_EPS, momentum=0.1)
 
 
 class SepConv(nn.Module):

@@ -65,14 +65,26 @@ def crop_resize(
 
 def _interp_matrix(
     origin: torch.Tensor, size: torch.Tensor, src_len: int, out_size: int, dtype,
+    grid: str = "resize",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched rows of the 1-D bilinear operator for one axis.
 
     Returns (R (S, out_size, src_len), wsum (S, out_size)): ``R @ src`` resizes
     the axis with out-of-range samples dropped (weight 0); ``wsum`` is the
     retained weight per output element, used to mix the pad color back in.
+
+    ``grid``: "resize" is cv2's INTER_LINEAR grid, clamped into the window
+    (the trackers' crop); "affine" is ``cv2.warpAffine`` with scale
+    (out−1)/size, ``src = origin + dst·size/(out−1)``, unclamped, as the
+    training crop (``BBoxCropWithOffsets``) samples.
     """
-    src = _src_grid(origin, size, out_size)
+    if grid == "affine":
+        d = torch.arange(out_size, dtype=torch.float32, device=origin.device)
+        src = origin[:, None] + d[None, :] * size[:, None] / (out_size - 1)
+    elif grid == "resize":
+        src = _src_grid(origin, size, out_size)
+    else:
+        raise ValueError(f"unknown grid {grid!r}")
     s0f = torch.floor(src)
     f = src - s0f
     s0 = s0f.long()
@@ -89,13 +101,15 @@ def crop_resize_mm(
     out_size: int,
     pad_value: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    grid: str = "resize",
 ) -> torch.Tensor:
     """Separable-matmul form of :func:`crop_resize`: ``R_y @ frame @ R_xᵀ``
     per stream, as two batched contractions; the pad color is mixed back in
-    with the retained-weight outer product. ``frames`` may be uint8."""
+    with the retained-weight outer product. ``frames`` may be uint8.
+    ``grid`` picks the sample grid (:func:`_interp_matrix`)."""
     S, H, W, C = frames.shape
-    Ry, wy = _interp_matrix(windows[:, 1], windows[:, 3], H, out_size, compute_dtype)
-    Rx, wx = _interp_matrix(windows[:, 0], windows[:, 2], W, out_size, compute_dtype)
+    Ry, wy = _interp_matrix(windows[:, 1], windows[:, 3], H, out_size, compute_dtype, grid)
+    Rx, wx = _interp_matrix(windows[:, 0], windows[:, 2], W, out_size, compute_dtype, grid)
     f = frames.to(compute_dtype)
     tmp = torch.bmm(Ry, f.reshape(S, H, W * C)).reshape(S, out_size, W, C)
     out = torch.einsum("spw,sowc->sopc", Rx, tmp).float()

@@ -133,8 +133,9 @@ def test_provenance_and_load_failure(tmp_path):
 
 
 def test_port_imports_no_jax_or_reference():
-    """Every port module imports without jax, flax, the JAX package, cv2 or
-    matplotlib: the H100 host has none of them."""
+    """Every port module imports without jax, flax, optax, orbax, the JAX
+    package, cv2, matplotlib, pandas or PyYAML: the H100 host has none of
+    them."""
     modules = []
     for root, _, files in os.walk(os.path.join(REPO, "feartracker_tpu_torch")):
         for f in files:
@@ -145,7 +146,8 @@ def test_port_imports_no_jax_or_reference():
         "import importlib, sys\n"
         f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu', 'cv2', 'matplotlib')]\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu', 'cv2', 'matplotlib',\n"
+        "                              'pandas', 'yaml', 'optax', 'orbax')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
@@ -155,6 +157,11 @@ def test_port_imports_no_jax_or_reference():
     assert {f"feartracker_tpu_torch.{m}" for m in (
         "convert.protowire", "convert.coreml", "convert.fear_weights", "convert.lightning", "convert.export",
         "demo", "evaluate.plots", "evaluate.report", "utils.video")} <= set(modules)
+    # the training path: data pipeline, device augmentations, step, checkpoints
+    assert {f"feartracker_tpu_torch.{m}" for m in (
+        "utils.image", "data.labels", "data.samplers", "data.augmentations", "data.dataset", "data.loader",
+        "data.device_augs", "train.loss", "train.metrics", "train.optim", "train.step", "train.checkpoint",
+        "tools.train_profile")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():

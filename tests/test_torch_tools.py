@@ -12,6 +12,7 @@ from feartracker_tpu_torch.tools import (
     multiobject_bench,
     serving_bench,
     sweep_streams,
+    train_profile,
     unroll_probe,
 )
 
@@ -57,3 +58,39 @@ def test_seeded_family_init_is_reproducible():
     a, b = family_bench.seeded_model("fear_m"), family_bench.seeded_model("fear_m")
     for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(p, q), name
+
+
+@pytest.mark.parametrize("extra", [[], ["--scan_steps", "2"], ["--dual", "--dtype", "float32"]],
+                         ids=["plain", "scan_steps", "dual_f32"])
+def test_train_profile_prints_json_lines(extra, capsys):
+    """The training sweep on the tiny model at B=2 on the CPU: a line per
+    batch size with the step time, the FLOPs counted at B=1 times B, and a
+    loss that falls over the steps on the fixed batch."""
+    train_profile.main(["--device", "cpu", "--model", "tiny", "--batches", "2,3", "--warmup", "1",
+                        "--timed", "3", *extra])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "cpu"
+    records = [json.loads(line) for line in out if line.startswith("{")]
+    assert [r["batch"] for r in records] == [2, 3]
+    for r in records:
+        assert r["step_ms"] > 0 and r["samples_per_s"] > 0 and r["device"] == "cpu"
+        assert r["mfu_pct"] is None and r["peak_mem_bytes"] is None  # no device metric from a CPU run
+        assert r["loss_last"] < r["loss_first"]
+        assert r["steps"] == 4 * r["scan_steps"]
+    assert records[1]["flops_per_step"] * 2 == records[0]["flops_per_step"] * 3
+
+
+def test_train_profile_trace_line(tmp_path, capsys):
+    train_profile.main(["--device", "cpu", "--model", "tiny", "--batches", "2", "--warmup", "1", "--timed", "1",
+                        "--trace", str(tmp_path)])
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    assert len(records) == 2 and records[1]["traced_steps"] == 3
+    assert records[1]["busy_ms_per_step"] is None  # a CPU trace holds no device rows
+    assert (tmp_path / "trace.json").exists()
+
+
+def test_train_profile_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_profile.main(["--batches", "2", "--model", "tiny"])
