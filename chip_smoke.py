@@ -121,7 +121,29 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    and one more step from each under ``cudnn.deterministic``: equal bit for
    bit; 12e the trained module in ``FEARTracker`` on the card, float32:
    K1 once and K2 13 times an update, boxes on phase 9's clip within 1 px
-   of the same module on the CPU.
+   of the same module on the CPU;
+13. the training loop, ``train/loop.py``, at FEAR-XS's full width: 13a
+   ``load_config`` with the overrides on the card host (no PyYAML;
+   ``save_config`` reads back equal); 13b ``Trainer.fit``: backend gpu
+   (bfloat16), warm start from ``fear_xs.npz`` (a full transfer), device
+   augmentations over phase 12c's ``.npy`` clips on 8 loader threads,
+   B=32, 3 steps an epoch, 2 epochs, the frame-offset curriculum from
+   epoch 1, validation over three rendered 40-frame clips held in memory
+   (each its own dataset; the sanity check runs all three): 6 steps with
+   finite losses, launches 0/0 in the steps and K1 once and K2 13 times
+   an update (K2 13 more an ``initialize``) in validation, the curriculum
+   moved, ``train/loss`` at every step and ``valid/metrics/box_iou`` at
+   every epoch in the event log, the top-2 checkpoints plus ``last``; the
+   loop's ms a step beside 12b's step alone at B=32, the loader wait,
+   validation ms an update, checkpoint save ms; 13c ``validate()`` card
+   against a CPU ``Trainer`` on the warm start (per-sequence mean IoU
+   within 0.02); 13d ``ScanTracker.set_variables`` bf16, eager and with
+   ``scan_unroll=4`` graphs captured before the swap, each bit-equal to a
+   fresh tracker on the new weights; 13e ``resume=True, max_epochs=3``:
+   one more epoch, its epoch from the checkpoint's metadata; 13f
+   ``_validate_batched`` at ``val_streams=2`` (K1 a frame, K2 13 a frame
+   and an init; mean IoU within 0.1 of the sequential); 13g ``python -m
+   feartracker_tpu_torch.train`` in its own process, 1 epoch of 2 steps.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -674,27 +696,11 @@ def _phase_pool(card, n_fused, counters, tracker):
 def _render_clip(seed: int, n_frames: int, hw=(256, 480)):
     """(frames, boxes): a textured object moving on an ellipse and changing
     scale over a noise background, rendered with numpy from ``seed``;
-    ``boxes`` (n, 4) xywh float64 is its true box."""
-    import numpy as np
+    ``boxes`` (n, 4) xywh float64 is its true box
+    (``tools/make_npy_dataset.py:render_clip``)."""
+    from feartracker_tpu_torch.tools.make_npy_dataset import render_clip
 
-    rng = np.random.RandomState(seed)
-    H, W = hw
-    coarse = np.kron(rng.randint(0, 256, (H // 16, W // 16, 3)), np.ones((16, 16, 1), np.int64))
-    background = coarse // 2 + rng.randint(0, 128, (H, W, 3))
-    texture = np.kron(rng.randint(0, 256, (8, 8, 3)), np.ones((8, 8, 1), np.int64))  # 64×64
-    phase = rng.rand() * 2 * np.pi
-    frames, boxes = [], []
-    for t in range(n_frames):
-        a = phase + 2 * np.pi * t / 60
-        s = 1.0 + 0.35 * np.sin(2 * a)
-        w, h = int(56 * s), int(40 * s)
-        x0 = int(np.clip(round(W / 2 + 0.35 * W * np.sin(a) - w / 2), 0, W - w))
-        y0 = int(np.clip(round(H / 2 + 0.3 * H * np.cos(a) - h / 2), 0, H - h))
-        frame = np.clip(background + rng.randint(-8, 9, (H, W, 3)), 0, 255)
-        frame[y0:y0 + h, x0:x0 + w] = texture[np.arange(h) * 64 // h][:, np.arange(w) * 64 // w]
-        frames.append(frame.astype(np.uint8))
-        boxes.append([x0, y0, w, h])
-    return frames, np.asarray(boxes, np.float64)
+    return render_clip(seed, n_frames, hw)
 
 
 # phase 9d's configurations: static, dual EMA every 4th update, and zoom-out
@@ -732,15 +738,16 @@ def _track_clip(tracker, frames, box):
             refreshes, recoveries)
 
 
-def _protocol_suite(seqs):
-    """An in-memory GOT-10k-like dataset of decoded frames."""
+def _protocol_suite(seqs, name: str = "synthetic"):
+    """An in-memory GOT-10k-like dataset of decoded frames (the card host
+    cannot decode the ``.jpg`` files that ``GOT10kDataset`` globs;
+    ``read_img`` passes arrays through)."""
     from feartracker_tpu_torch.data.sequence import SequenceDataset
 
     class InMemory(SequenceDataset):
-        name = "synthetic"
-
         def __init__(self):
             super().__init__()
+            self.name = name
             self._sequences = [(f"clip{i}", frames, boxes) for i, (frames, boxes) in enumerate(seqs)]
 
     return InMemory()
@@ -1692,31 +1699,6 @@ def _phase_train_profile(card):
     return records
 
 
-def _write_npy_dataset(root: str, clips: int = 8, frames: int = 40) -> str:
-    """Phase 9's renderer's clips as ``.npy`` frames and a CSV naming them
-    (the card host has no cv2 and no pandas); → the CSV's path."""
-    import csv
-    import os
-
-    import numpy as np
-
-    rows = []
-    for c in range(clips):
-        imgs, boxes = _render_clip(seed=30 + c, n_frames=frames)
-        for f, (img, box) in enumerate(zip(imgs, boxes)):
-            name = f"c{c}_f{f:03d}.npy"
-            np.save(os.path.join(root, name), img)
-            rows.append({"sequence_id": f"c{c}", "track_id": f"c{c}", "frame_index": f, "img_path": name,
-                         "bbox": str([int(v) for v in box]), "frame_shape": str([480, 256]),
-                         "dataset": "rendered", "presence": 1, "near_corner": 0})
-    path = os.path.join(root, "train.csv")
-    with open(path, "w", newline="") as fh:
-        w = csv.DictWriter(fh, fieldnames=list(rows[0]))
-        w.writeheader()
-        w.writerows(rows)
-    return path
-
-
 def _phase_train_data(card, dev, counters, root):
     """12c: the card's data path into the step with device augmentations;
     → (state, step, one staged batch on the card, launches of the step)."""
@@ -1728,12 +1710,13 @@ def _phase_train_data(card, dev, counters, root):
     from feartracker_tpu_torch.data import device_augs as augs
     from feartracker_tpu_torch.data.dataset import SiameseTrackingDataset
     from feartracker_tpu_torch.data.loader import BatchLoader, prefetch_to_device
+    from feartracker_tpu_torch.tools.make_npy_dataset import write_npy_dataset
     from feartracker_tpu_torch.tools.train_profile import build_model
     from feartracker_tpu_torch.train.optim import build_optimizer
     from feartracker_tpu_torch.train.step import create_train_state, make_train_step
 
     B, n_steps = 32, 10
-    csv_path = _write_npy_dataset(root)
+    csv_path = write_npy_dataset(root)
     cfg = {"root": root, "name": "rendered", "sizes": dict(TRAIN_SIZES), "regression_weight_label_size": 16,
            "device_augs": True,
            "sampling": {"type": "track", "data_path": csv_path, "negative_ratio": 0.0, "frame_offset": 70,
@@ -1867,7 +1850,8 @@ def _phase_train_handover(card, dev, counters, state):
 
 
 def _phase_train(card, counters, lap):
-    """Phase 12: training on the card (12a-12e); → each path's launches."""
+    """Phase 12: training on the card (12a-12e); → (each path's launches,
+    12b's records)."""
     import tempfile
 
     import torch
@@ -1875,7 +1859,7 @@ def _phase_train(card, counters, lap):
     dev = torch.device("cuda")
     _phase_train_f32(card, dev)
     lap("12a")
-    _phase_train_profile(card)
+    profile = _phase_train_profile(card)
     lap("12b")
     with tempfile.TemporaryDirectory() as root:
         state, step, staged, step_launches, _ = _phase_train_data(card, dev, counters, root)
@@ -1884,7 +1868,238 @@ def _phase_train(card, counters, lap):
         lap("12d")
     handover = _phase_train_handover(card, dev, counters, state)
     lap("12e")
-    return {"train_step": step_launches, "train_handover_sequential": handover}
+    return {"train_step": step_launches, "train_handover_sequential": handover}, profile
+
+
+def _counted(fn, counters, into: dict, times: list):
+    """``fn`` with the kernels it launches added into ``into`` and its wall
+    seconds appended to ``times``."""
+
+    def wrapped(*args, **kwargs):
+        before, t0 = _read(counters), time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        for k, v in _read(counters).items():
+            into[k] += v - before[k]
+        return out
+
+    return wrapped
+
+
+# phase 13's validation: three 40-frame clips, each its own val dataset so
+# that the per-dataset metrics are per-sequence ones; card against CPU
+LOOP_VAL_CLIPS = 3
+LOOP_VAL_FRAMES = 40
+LOOP_SEQ_IOU_TOL = 0.02  # per-sequence mean IoU (phase 9's boxes: within 1 px)
+LOOP_BATCHED_TOL = 0.1  # batched against sequential mean IoU (JAX's own test's bound)
+
+
+def _phase_loop(card, counters, lap, step_alone_ms: float):
+    """Phase 13: the training loop (``Trainer.fit``) on the card; → each
+    of its paths' launches."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.config import yaml_lite
+    from feartracker_tpu_torch.config.compose import load_config, save_config
+    from feartracker_tpu_torch.convert.load import load_fear_net, variables_from_npz
+    from feartracker_tpu_torch.evaluate.harness import synthetic_streams
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+    from feartracker_tpu_torch.tools.make_npy_dataset import render_clip, write_npy_dataset
+    from feartracker_tpu_torch.tracker.runtime import ScanTracker
+    from feartracker_tpu_torch.train.loop import Trainer
+    from feartracker_tpu_torch.train.summary import read_events, scalars
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        write_npy_dataset(os.path.join(data, "got10k"))  # phase 12c's clips, where got10k_train looks
+        exp = os.path.join(root, "exp")
+        # -- 13a: the composed config, with no PyYAML
+        overrides = [f"visual_object_tracking_datasets={data}", f"experiment.folder={exp}", "experiment.name=LOOP",
+                     "model.pretrained_weights=fear_xs", "device_augs=true", "num_workers=8",
+                     "batch_size.train=32", "train_percent=3", "max_epochs=2", "sanity_steps=1",
+                     "log_every_n_steps=1", "save_top_k=2", "dynamic_frame_offset.start_epoch=1",
+                     "dynamic_frame_offset.freq=1", "val.datasets=[]"]
+        cfg = load_config("fear_tracker", overrides)
+        path = os.path.join(root, "experiment_config.yaml")
+        save_config(cfg, path)
+        with open(path) as fh:
+            back = yaml_lite.load(fh.read())
+        assert back == cfg, "save_config did not read back equal"
+        assert "yaml" not in sys.modules, "PyYAML was imported"
+        assert (cfg["platform"], cfg["precision"], cfg["device_augs"], cfg["batch_size"]["train"]) == (
+            "gpu", "bfloat16", True, 32), cfg
+        print(f"[13a] load_config + {len(overrides)} overrides without PyYAML: backend gpu, bf16, device_augs, "
+              f"B=32, {cfg['train_percent']} steps an epoch, {cfg['max_epochs']} epochs; save_config reads back "
+              f"equal [{card}]", flush=True)
+        lap("13a")
+
+        # -- 13b: fit
+        clips = [render_clip(seed=40 + i, n_frames=LOOP_VAL_FRAMES) for i in range(LOOP_VAL_CLIPS)]
+        per_seq = [_protocol_suite([c], f"clip{i}") for i, c in enumerate(clips)]
+        trainer = Trainer(cfg)
+        trainer.setup_data()
+        trainer.val_datasets = per_seq
+        validate = trainer.validate
+        step_k, val_k = {"K1": 0, "K2": 0}, {"K1": 0, "K2": 0}
+        step_s, val_s, save_s, epochs = [], [], [], []
+        trainer.train_step = _counted(trainer.train_step, counters, step_k, step_s)
+        trainer.validate = _counted(validate, counters, val_k, val_s)
+        trainer.ckpt.save = _counted(trainer.ckpt.save, counters, {"K1": 0, "K2": 0}, save_s)
+        train_epoch = trainer.train_epoch
+
+        def epoch_fn(epoch):
+            out = train_epoch(epoch)
+            epochs.append(dict(trainer.epoch_timing))
+            return out
+
+        trainer.train_epoch = epoch_fn
+        _zero(counters)
+        t0 = time.perf_counter()
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        total = _read(counters)
+        report = {k: len(v) for k, v in trainer.transfer_report.items()}
+        assert report == {"transferred": 307, "skipped_shape": 0, "missing": 0, "unused": 0}, report
+        steps = sum(e["steps"] for e in epochs)
+        assert trainer.state.step == steps == 2 * 3, (trainer.state.step, epochs)
+        log = read_events(os.path.join(trainer.exp_dir, "logs"))
+        events = scalars(log)
+        losses = events["train/loss"]
+        # step to step inside an epoch, from the event log's wall times
+        walls = {e["step"]: e["wall_time"] for e in log for v in e.get("summary", ()) if v["tag"] == "train/loss"}
+        periods = [walls[s] - walls[s - 1] for s in walls if s - 1 in walls and (s - 1) % cfg["train_percent"]]
+        assert [s for s, _ in losses] == list(range(1, 7)) and all(np.isfinite(v) for _, v in losses), losses
+        assert [s for s, _ in events["valid/metrics/box_iou"]] == [-1, 0, 1], events["valid/metrics/box_iou"]
+        # sanity (val_percent 1 a dataset: every clip) and 2 epochs, each
+        # clip initialized once and updated 39 times
+        seqs = 3 * LOOP_VAL_CLIPS
+        updates, inits = seqs * (LOOP_VAL_FRAMES - 1), seqs
+        assert step_k == {"K1": 0, "K2": 0}, step_k
+        assert val_k == {"K1": updates, "K2": 13 * (updates + inits)} == total, (val_k, total)
+        offset = trainer.train_dataset.datasets[0].item_sampler.frame_offset
+        assert offset == 70 + 2 * cfg["dynamic_frame_offset"]["step"], offset
+        kept = sorted(int(d) for d in os.listdir(trainer.ckpt.directory) if d.isdigit())
+        assert kept == [3, 6] and trainer.ckpt.has_last(), kept
+        val_metrics = validate(9)
+        val_ms = sum(val_s) * 1e3 / updates
+        print(f"[13b] fit FEAR-XS bf16 B=32, {steps} steps in 2 epochs, warm start {report['transferred']} "
+              f"leaves (full), losses {losses[0][1]:.4f} → {losses[-1][1]:.4f}; launches in the steps {step_k}, in "
+              f"validation {val_k} over {updates} updates + {inits} initializes (K1 1, K2 13 each); frame_offset "
+              f"70 → {offset}; checkpoints {kept} + last; events: train/loss at steps 1-{steps}, "
+              f"valid/metrics/box_iou at epochs -1, 0, 1 [{card}]", flush=True)
+        print(f"[13b] loop a step, epoch by epoch: "
+              f"{', '.join(f'{e['wall_s'] * 1e3 / e['steps']:.1f}' for e in epochs)} ms (12b's step alone at B=32: "
+              f"{step_alone_ms:.2f} ms), of it waiting for the loader and its copy "
+              f"{', '.join(f'{e['wait_s'] * 1e3 / e['steps']:.1f}' for e in epochs)} ms (the first batches of an "
+              f"epoch fill the prefetch); step to step inside an epoch (event wall times) "
+              f"{', '.join(f'{p * 1e3:.1f}' for p in periods)} ms; step calls on the host "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)} ms; validation {val_ms:.2f} ms an update "
+              f"({len(val_s)} calls, {sum(val_s):.2f} s, initializes included); checkpoint save "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in save_s)} ms; fit {fit_s:.1f} s [{card}]", flush=True)
+        lap("13b")
+
+        # -- 13c: the card's validate() against a CPU Trainer's on the same
+        # weights, the warm start (where the tracker follows the clips: a few
+        # steps move the BatchNorm statistics of the packaged weights, whose
+        # BatchNorms are identities, far enough to lose them)
+        def start(platform, name):
+            t = Trainer(dict(copy.deepcopy(cfg), platform=platform, experiment={"folder": exp, "name": name}))
+            t.val_datasets = per_seq
+            t.setup_state(0)
+            return t
+
+        card_start = start("gpu", "LOOP_START")
+        card_metrics = card_start.validate(0)
+        t0 = time.perf_counter()
+        cpu_metrics = start("cpu", "LOOP_CPU").validate(0)
+        cpu_s = time.perf_counter() - t0
+        names = [f"clip{i}_box_iou" for i in range(LOOP_VAL_CLIPS)]
+        diffs = [abs(card_metrics[k] - cpu_metrics[k]) for k in names]
+        print(f"[13c] validate() card vs CPU on the warm start, per-sequence mean IoU "
+              f"{', '.join(f'{card_metrics[k]:.4f}/{cpu_metrics[k]:.4f}' for k in names)}, max diff "
+              f"{max(diffs):.2e} (tol {LOOP_SEQ_IOU_TOL}); CPU {cpu_s:.1f} s; after the 6 steps (card) "
+              f"{', '.join(f'{val_metrics[k]:.4f}' for k in names)} [{card}]", flush=True)
+        assert sorted(card_metrics) == sorted(cpu_metrics) and max(diffs) <= LOOP_SEQ_IOU_TOL, (card_metrics,
+                                                                                                cpu_metrics)
+        lap("13c")
+
+        # -- 13d: set_variables on the card, eager and under captured graphs
+        start = load_fear_net(FEARNet(), variables_from_npz("fear_xs"))
+        f0, chunk, boxes = synthetic_streams(4, 8, seed=3, device="cuda")
+        kw = dict(dtype=torch.bfloat16, device="cuda", dynamic_template=True, update_mode="gated",
+                  update_threshold=0.0)
+        swaps = []
+        for k in (1, 4):
+            tracker = ScanTracker(start, scan_unroll=k, **kw)
+            _, before = tracker.track(tracker.init(f0, boxes), chunk)
+            units, replayed = len(tracker._unrolled), dict(tracker.replayed_launches)
+            tracker.set_variables(trainer.state.model)
+            _, got = tracker.track(tracker.init(f0, boxes), chunk)
+            fresh = ScanTracker(trainer.state.model, scan_unroll=k, **kw)
+            _, want = fresh.track(fresh.init(f0, boxes), chunk)
+            differ = sum(int((got[n] != want[n]).sum()) for n in want)
+            moved = float((before["bbox"] - want["bbox"]).abs().max())
+            assert differ == 0 and moved > 0, (k, differ, moved)
+            assert len(tracker._unrolled) == units, "set_variables recaptured"
+            if k > 1:
+                assert units and tracker.replayed_launches["K1"] > replayed["K1"], tracker.replayed_launches
+            swaps.append(f"K={k}: {differ} elements differ from a fresh tracker, boxes moved {moved:.0f} px from "
+                         f"the old weights' ({units} graph units kept)")
+        print(f"[13d] set_variables bf16 S=4 T=8 gated dual template: {'; '.join(swaps)} [{card}]", flush=True)
+        lap("13d")
+
+        # -- 13e: resume from last for exactly one more epoch
+        resumed = Trainer(dict(copy.deepcopy(cfg), resume=True, max_epochs=3))
+        resumed.setup_data()
+        resumed.val_datasets = per_seq
+        resumed.fit()
+        assert resumed.resumed_epoch == 2 and resumed.state.step == 9, (resumed.resumed_epoch, resumed.state.step)
+        print(f"[13e] resume=True max_epochs=3: epoch 2 from the checkpoint's metadata, step 6 → "
+              f"{resumed.state.step} [{card}]", flush=True)
+        lap("13e")
+
+        # -- 13f: batched validation at val_streams=2, the clips as one
+        # dataset, on 13c's warm start
+        card_start.val_datasets = [_protocol_suite(clips, "clips")]
+        card_start.config.update(val_batched=True, val_streams=2, val_frame_hw=[256, 480])
+        _zero(counters)
+        t0 = time.perf_counter()
+        batched_metrics = card_start.validate(1)
+        batched_s = time.perf_counter() - t0
+        batched = _read(counters)
+        frames = 2 * (LOOP_VAL_FRAMES - 1)  # a group of 2 streams, then 1
+        assert batched == {"K1": frames, "K2": 13 * (frames + 2)}, batched
+        seq_mean = float(np.mean([card_metrics[k] for k in names]))
+        assert {"box_iou", "clips_box_iou"} <= set(batched_metrics), batched_metrics
+        assert abs(batched_metrics["box_iou"] - seq_mean) <= LOOP_BATCHED_TOL, (batched_metrics, seq_mean)
+        print(f"[13f] _validate_batched val_streams=2: box_iou {batched_metrics['box_iou']:.4f} against the "
+              f"sequential {seq_mean:.4f} (tol {LOOP_BATCHED_TOL}); launches {batched} ({frames} frames + 2 "
+              f"inits); {batched_s:.2f} s [{card}]", flush=True)
+        lap("13f")
+
+        # -- 13g: the command line in its own process
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "feartracker_tpu_torch.train", f"visual_object_tracking_datasets={data}",
+             f"experiment.folder={exp}", "experiment.name=CLI", "model.pretrained_weights=fear_xs",
+             "device_augs=true", "batch_size.train=8", "train_percent=2", "max_epochs=1", "sanity_steps=0",
+             "log_every_n_steps=1", "val.datasets=[]"],
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        cli_losses = scalars(read_events(os.path.join(exp, "CLI", "logs")))["train/loss"]
+        assert [s for s, _ in cli_losses] == [1, 2], cli_losses
+        print(f"[13g] python -m feartracker_tpu_torch.train backend gpu, 1 epoch of 2 steps at B=8: exit 0, "
+              f"losses {', '.join(f'{v:.4f}' for _, v in cli_losses)}, {time.perf_counter() - t0:.1f} s in its "
+              f"own process [{card}]", flush=True)
+        lap("13g")
+    print(f"[13] phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {"train_loop_step": step_k, "train_loop_val_sequential": val_k, "train_loop_val_batched": batched}
 
 
 def main() -> int:
@@ -2126,11 +2341,12 @@ def main() -> int:
     lap("9")
     graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
     deploy_launches, dispatch_us = _phase_deployment(card, n_fused, counters, lap)
-    train_launches = _phase_train(card, counters, lap)
+    train_launches, profile = _phase_train(card, counters, lap)
+    loop_launches = _phase_loop(card, counters, lap, next(r["step_ms"] for r in profile if r["batch"] == 32))
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
-               "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches}
+               "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

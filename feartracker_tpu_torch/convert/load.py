@@ -88,6 +88,63 @@ def flatten_variables(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def variables_of(model: nn.Module) -> Dict[str, np.ndarray]:
+    """A port model's weights as the flat variables dict, the inverse of
+    :func:`load_fear_net`: Flax names, HWIO kernels, float32 numpy on the
+    host. ``load_fear_net(m, variables_of(model))`` copies ``model`` into
+    ``m`` exactly."""
+    bn = {name for name, m in model.named_modules() if isinstance(m, nn.BatchNorm2d)}
+    out: Dict[str, np.ndarray] = {}
+    for name, t in model.state_dict().items():
+        *path, leaf = name.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().float().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", leaf[len("running_"):]
+        else:
+            collection = "params"
+            if leaf == "weight":
+                leaf = "scale" if ".".join(path) in bn else "kernel"
+                if arr.ndim == 4:
+                    arr = arr.transpose(2, 3, 1, 0)  # OIHW → HWIO
+        out["/".join([collection] + path + [leaf])] = arr
+    return out
+
+
+def transfer_variables(loaded: Dict[str, Any], target: Dict[str, Any]
+                       ) -> "tuple[Dict[str, np.ndarray], Dict[str, list]]":
+    """Non-strict weight transfer, as the JAX package's: copy every leaf
+    whose path and shape match the target (cast to the target leaf's
+    dtype), keep the target's own value elsewhere.
+
+    ``loaded`` and ``target`` are variables dicts, flat (:func:`variables_of`,
+    :func:`variables_from_npz`) or nested. Returns ``(merged, report)``:
+    ``merged`` is flat and holds the target's keys in the target's order;
+    ``report`` lists '/'-joined keys under ``transferred``,
+    ``skipped_shape`` (path match, shape mismatch: kept), ``missing`` (in
+    the target only: kept) and ``unused`` (in the source only: dropped,
+    sorted)."""
+    flat_t = target if all("/" in k for k in target) else flatten_variables(target)
+    flat_l = loaded if all("/" in k for k in loaded) else flatten_variables(loaded)
+    report: Dict[str, list] = {"transferred": [], "skipped_shape": [], "missing": [], "unused": []}
+    merged: Dict[str, np.ndarray] = {}
+    for k, v in flat_t.items():
+        if k in flat_l:
+            if tuple(np.shape(flat_l[k])) == tuple(np.shape(v)):
+                # a float16/float64 source must not smuggle another precision in
+                merged[k] = np.asarray(flat_l[k], np.asarray(v).dtype)
+                report["transferred"].append(k)
+            else:
+                merged[k] = v
+                report["skipped_shape"].append(k)
+        else:
+            merged[k] = v
+            report["missing"].append(k)
+    report["unused"] = sorted(k for k in flat_l if k not in flat_t)
+    return merged, report
+
+
 def load_variables(path: str, channels: int = 256, towernum: int = 2,
                    trust_pickle: bool = False) -> Dict[str, np.ndarray]:
     """The flat variables dict of any weight source (see the module
@@ -104,7 +161,7 @@ def load_variables(path: str, channels: int = 256, towernum: int = 2,
         raise ValueError(
             f"{path} is a directory, an Orbax training checkpoint of the JAX package, which the port does not "
             "read: convert it to an .npz with `python tools/export_weights.py --weights_path <dir> --out <file>.npz`"
-            " (the port's own trainer is ROADMAP.md Queue 1 item 9)")
+            " (reading Orbax checkpoints is ROADMAP.md Queue 1 item 4)")
     if path.endswith(".ckpt"):
         from feartracker_tpu_torch.convert.lightning import load_from_lightning
 

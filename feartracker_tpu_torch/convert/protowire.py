@@ -1,6 +1,7 @@
 """Minimal protobuf wire-format reader, the port's own copy of
 ``feartracker_tpu/convert/protowire.py`` (the port imports nothing of the
-JAX package).
+JAX package), and the few field encoders that the training loop's event
+log writes with (``train/summary.py``).
 
 coremltools is not a dependency, but the reference ships its
 trained FEAR-XS weights inside CoreML ``.mlmodel`` protobufs
@@ -98,3 +99,37 @@ def packed_uint64(data: bytes) -> List[int]:
 
 def floats_le(data: bytes) -> "List[float]":
     return list(struct.unpack(f"<{len(data)//4}f", data[: len(data) // 4 * 4]))
+
+
+# -- writer: the encodings the training loop's event log needs ---------------
+
+
+def varint(value: int) -> bytes:
+    """An unsigned varint; a negative int64 as its 10-byte two's complement."""
+    value &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def field_varint(number: int, value: int) -> bytes:
+    return varint(number << 3) + varint(int(value))
+
+
+def field_bytes(number: int, data: bytes) -> bytes:
+    """A length-delimited field: bytes, a string's UTF-8 or a message."""
+    return varint(number << 3 | 2) + varint(len(data)) + data
+
+
+def field_double(number: int, value: float) -> bytes:
+    return varint(number << 3 | 1) + struct.pack("<d", value)
+
+
+def field_float(number: int, value: float) -> bytes:
+    return varint(number << 3 | 5) + struct.pack("<f", value)

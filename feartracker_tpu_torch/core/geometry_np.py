@@ -12,6 +12,19 @@ import numpy as np
 BBox = Union[Sequence, np.ndarray]
 
 
+def bbox_iou(a: BBox, b: BBox) -> float:
+    """IoU of two xywh boxes with the reference's +1 pixel convention (the
+    training loop's online validation scores with it)."""
+    x1, y1, w1, h1 = a
+    x2, y2, w2, h2 = b
+    xa, ya = max(x1, x2), max(y1, y2)
+    xb, yb = min(x1 + w1, x2 + w2), min(y1 + h1, y2 + h2)
+    inter = max(xb - xa + 1, 0) * max(yb - ya + 1, 0)
+    area_a = (w1 + 1) * (h1 + 1)
+    area_b = (w2 + 1) * (h2 + 1)
+    return inter / (area_a + area_b - inter)
+
+
 def extend_bbox(bbox: BBox, offset: float = 0.1) -> np.ndarray:
     """Grow a bbox by ``offset`` of its own size on each side, truncated to
     int32. May leave the frame; pair with :func:`ensure_bbox_boundaries`.

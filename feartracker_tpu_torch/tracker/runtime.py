@@ -75,6 +75,28 @@ def full_float32(method):
     return wrapped
 
 
+def _copy_tensors(dst, src, path: str) -> None:
+    """Copy every tensor of the nested dicts/lists ``src`` into the tensor
+    at the same place in ``dst``, in place; raises where the two differ in
+    structure, shape or dtype (``copy_`` would broadcast or cast)."""
+    if isinstance(dst, torch.Tensor):
+        if not isinstance(src, torch.Tensor) or src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"set_variables: {path} differs in shape or dtype")
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        if not isinstance(src, dict) or set(dst) != set(src):
+            raise ValueError(f"set_variables: {path} differs in structure")
+        for k in dst:
+            _copy_tensors(dst[k], src[k], f"{path}.{k}")
+    elif isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(dst) != len(src):
+            raise ValueError(f"set_variables: {path} differs in structure")
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_tensors(d, s, f"{path}.{i}")
+    elif dst is not None or src is not None:
+        raise ValueError(f"set_variables: {path} differs in structure")
+
+
 class StreamState(NamedTuple):
     """Per-stream carried state (leading axis = streams)."""
 
@@ -194,6 +216,23 @@ class ScanTracker:
             self.folded["neck"]["w"].shape[-1],
         )
         self.model = src.to(dtype)
+
+    @torch.inference_mode()
+    def set_variables(self, model: FEARNet) -> None:
+        """Take another loaded model of the same architecture (JAX:
+        ``set_variables``, no recompile): its folded trunk and neck (with
+        K2's packed bf16 weights), the head's copy in ``dtype`` and the
+        "gated" blend weight are copied *into* the tensors the tracker holds.
+        The storage stays where it was, so CUDA graphs captured under
+        ``scan_unroll`` read the new weights at their next replay. Carried
+        ``StreamState``\\ s are the caller's: their templates were encoded
+        with the old weights. ``model`` itself is not changed."""
+        src = copy.deepcopy(model).float().eval().to(self.device)
+        if tuple(src.trunk_blocks) != tuple(self.specs):
+            raise ValueError("set_variables: the model's trunk differs from the tracker's")
+        _copy_tensors(self.folded, fold_fear_net(src, self.dtype), "folded")
+        self._template_gate.copy_(torch.sigmoid(src.template_gate.float()).to(self.dtype))
+        _copy_tensors(self.model.state_dict(), src.to(self.dtype).state_dict(), "model")
 
     # -- building blocks ---------------------------------------------------
 

@@ -384,7 +384,7 @@ def test_load_variables_dispatch_matches_jax(tmp_path, monkeypatch):
 
 
 def test_load_variables_refuses_a_directory(tmp_path):
-    with pytest.raises(ValueError, match=r"tools/export_weights\.py.*Queue 1 item 9"):
+    with pytest.raises(ValueError, match=r"tools/export_weights\.py.*Queue 1 item 4"):
         L.load_variables(str(tmp_path))
 
 

@@ -134,8 +134,8 @@ def test_provenance_and_load_failure(tmp_path):
 
 def test_port_imports_no_jax_or_reference():
     """Every port module imports without jax, flax, optax, orbax, the JAX
-    package, cv2, matplotlib, pandas or PyYAML: the H100 host has none of
-    them."""
+    package, cv2, matplotlib, pandas, PyYAML, tensorboardX or tensorboard:
+    the H100 host has none of them."""
     modules = []
     for root, _, files in os.walk(os.path.join(REPO, "feartracker_tpu_torch")):
         for f in files:
@@ -147,7 +147,7 @@ def test_port_imports_no_jax_or_reference():
         f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu', 'cv2', 'matplotlib',\n"
-        "                              'pandas', 'yaml', 'optax', 'orbax')]\n"
+        "                              'pandas', 'yaml', 'optax', 'orbax', 'tensorboardX', 'tensorboard')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
@@ -162,6 +162,11 @@ def test_port_imports_no_jax_or_reference():
         "utils.image", "data.labels", "data.samplers", "data.augmentations", "data.dataset", "data.loader",
         "data.device_augs", "train.loss", "train.metrics", "train.optim", "train.step", "train.checkpoint",
         "tools.train_profile")} <= set(modules)
+    # the training loop: logging, the config composer, callbacks, the event
+    # log, the loop, its command line and the numpy-only dataset writer
+    assert {f"feartracker_tpu_torch.{m}" for m in (
+        "utils.logging", "config.yaml_lite", "config.compose", "train.callbacks", "train.summary",
+        "train.loop", "train.__main__", "tools.make_npy_dataset")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
