@@ -13,17 +13,16 @@ The subset:
   indentation;
 * ``[a, b]`` flow sequences on one line, ``[]`` and ``{}``;
 * ``#`` comments, also a key whose value holds only comments (null);
-* plain, ``"double"`` and ``'single'`` quoted scalars (``""`` is the
+* plain scalars, ``"double-quoted"`` ones without escapes (``""`` is the
   empty string), ``${a.b}`` strings.
 
-Anything else (anchors, aliases, tags, block scalars, flow mappings with
-content, multi-line scalars, several documents, timestamps, merge keys)
-raises ``ValueError`` naming its line.
+Anything else (single quotes, backslash escapes, anchors, aliases, tags,
+block scalars, flow mappings with content, multi-line scalars, several
+documents, timestamps, merge keys) raises ``ValueError`` naming its line.
 """
 
 from __future__ import annotations
 
-import json
 import math
 import re
 from typing import Any, List, Tuple
@@ -48,11 +47,7 @@ _TIMESTAMP_RE = re.compile(r"""^(?:[0-9][0-9][0-9][0-9]-[0-9][0-9]-[0-9][0-9]
                      (?:[ \t]*(?:Z|[-+][0-9][0-9]?(?::[0-9][0-9])?))?)$""", re.X)
 
 # characters that start a node outside the subset
-_UNSUPPORTED_START = set("&*!|>%@`?")
-_ESCAPES = {"0": "\0", "a": "\a", "b": "\b", "t": "\t", "\t": "\t", "n": "\n", "v": "\v", "f": "\f",
-            "r": "\r", "e": "\x1b", " ": " ", '"': '"', "/": "/", "\\": "\\", "N": "\x85", "_": "\xa0",
-            "L": "\u2028", "P": "\u2029"}
-_HEX_ESCAPES = {"x": 2, "u": 4, "U": 8}
+_UNSUPPORTED_START = set("'&*!|>%@`?")
 
 
 def _sexagesimal(value: str, cast):
@@ -126,52 +121,13 @@ def _rest_is_comment(rest: str, line: int) -> None:
 
 def _double_quoted(text: str, pos: int, line: int) -> Tuple[str, int]:
     """``text[pos]`` is '"' → (the string, the index after its closing quote)."""
-    out: List[str] = []
-    i = pos + 1
-    while i < len(text):
-        c = text[i]
-        if c == '"':
-            return "".join(out), i + 1
-        if c == "\\":
-            if i + 1 >= len(text):
-                break
-            e = text[i + 1]
-            if e in _HEX_ESCAPES:
-                n = _HEX_ESCAPES[e]
-                digits = text[i + 2:i + 2 + n]
-                if len(digits) != n or not all(d in "0123456789abcdefABCDEF" for d in digits):
-                    raise ValueError(f"line {line}: bad escape \\{e}{digits}")
-                out.append(chr(int(digits, 16)))
-                i += 2 + n
-                continue
-            if e not in _ESCAPES:
-                raise ValueError(f"line {line}: unknown escape \\{e}")
-            out.append(_ESCAPES[e])
-            i += 2
-            continue
-        out.append(c)
-        i += 1
-    raise ValueError(f"line {line}: unclosed double-quoted scalar (multi-line scalars are outside the subset)")
-
-
-def _single_quoted(text: str, pos: int, line: int) -> Tuple[str, int]:
-    out: List[str] = []
-    i = pos + 1
-    while i < len(text):
-        c = text[i]
-        if c == "'":
-            if text[i + 1:i + 2] == "'":
-                out.append("'")
-                i += 2
-                continue
-            return "".join(out), i + 1
-        out.append(c)
-        i += 1
-    raise ValueError(f"line {line}: unclosed single-quoted scalar (multi-line scalars are outside the subset)")
-
-
-def _quoted(text: str, pos: int, line: int) -> Tuple[str, int]:
-    return (_double_quoted if text[pos] == '"' else _single_quoted)(text, pos, line)
+    end = text.find('"', pos + 1)
+    if end < 0:
+        raise ValueError(f"line {line}: unclosed double-quoted scalar (multi-line scalars are outside the subset)")
+    value = text[pos + 1:end]
+    if "\\" in value:
+        raise ValueError(f"line {line}: backslash escapes are outside the YAML subset")
+    return value, end + 1
 
 
 def _flow_sequence(text: str, pos: int, line: int) -> Tuple[list, int]:
@@ -195,8 +151,8 @@ def _flow_sequence(text: str, pos: int, line: int) -> Tuple[list, int]:
             continue
         if not expect_item:
             raise ValueError(f"line {line}: expected ',' or ']' in a flow sequence")
-        if c in "\"'":
-            item, i = _quoted(text, i, line)
+        if c == '"':
+            item, i = _double_quoted(text, i, line)
         elif c == "[":
             item, i = _flow_sequence(text, i, line)
         elif c == "{" or c in _UNSUPPORTED_START or c == "#":
@@ -221,8 +177,8 @@ def _inline(text: str, line: int) -> Any:
     if not text or text.startswith("#"):
         return _EMPTY
     c = text[0]
-    if c in "\"'":
-        value, end = _quoted(text, 0, line)
+    if c == '"':
+        value, end = _double_quoted(text, 0, line)
         _rest_is_comment(text[end:], line)
         return value
     if c == "[":
@@ -235,8 +191,8 @@ def _inline(text: str, line: int) -> Any:
             return {}
         raise ValueError(f"line {line}: flow mappings with content are outside the YAML subset")
     if c in _UNSUPPORTED_START or text.startswith("- ") or text == "-":
-        raise ValueError(f"line {line}: {text!r} is outside the YAML subset (anchor, alias, tag, block scalar, "
-                         "directive or compact nested sequence)")
+        raise ValueError(f"line {line}: {text!r} is outside the YAML subset (single quote, anchor, alias, tag, "
+                         "block scalar, directive or compact nested sequence)")
     cut = text.find(" #")
     if cut >= 0:
         text = text[:cut].rstrip()
@@ -247,8 +203,8 @@ def _inline(text: str, line: int) -> Any:
 
 def _key_split(text: str, line: int):
     """``key: rest`` → (key, rest); None when ``text`` is not a mapping entry."""
-    if text[0] in "\"'":
-        key, end = _quoted(text, 0, line)
+    if text[0] == '"':
+        key, end = _double_quoted(text, 0, line)
         rest = text[end:].lstrip(" ")
         if rest == ":" or rest.startswith(": "):
             return key, rest[1:]
@@ -389,7 +345,9 @@ def _scalar(value: Any) -> str:
                     return value
             except ValueError:
                 pass
-        return json.dumps(value)
+        if '"' in value or "\\" in value or not value.isprintable():
+            raise ValueError(f"{value!r} needs escapes, which are outside the YAML subset")
+        return f'"{value}"'
     if hasattr(value, "item") and getattr(value, "shape", None) == ():
         return _scalar(value.item())  # a numpy scalar
     raise TypeError(f"cannot write {type(value).__name__} {value!r} as YAML")
@@ -430,7 +388,8 @@ def _flat(value: Any) -> str:
 def dump(data: Any) -> str:
     """``data`` (dicts, lists, tuples, str, int, float, bool, None) as YAML
     in block style; every string that would read back as another type is
-    double-quoted. ``load(dump(x)) == x`` (tuples come back as lists), and
+    double-quoted. A string that would need an escape (a quote, a backslash,
+    a control character) raises ``ValueError``. ``load(dump(x)) == x`` (tuples come back as lists), and
     so does ``yaml.safe_load``."""
     if isinstance(data, (dict, list, tuple)) and len(data):
         out: List[str] = []

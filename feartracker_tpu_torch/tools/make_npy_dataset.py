@@ -19,6 +19,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+SEED = 30  # clip c is rendered from SEED + c
+NAME = "rendered"  # the CSV's dataset column
 COLUMNS = ("sequence_id", "track_id", "frame_index", "img_path", "bbox", "frame_shape", "dataset",
            "presence", "near_corner", "visible")
 
@@ -46,21 +48,20 @@ def render_clip(seed: int, n_frames: int, hw: Tuple[int, int] = (256, 480)) -> T
     return frames, np.asarray(boxes, np.float64)
 
 
-def write_npy_dataset(root: str, clips: int = 8, frames: int = 40, seed: int = 30,
-                      hw: Tuple[int, int] = (256, 480), name: str = "rendered") -> str:
-    """Clip ``c`` rendered from ``seed + c``, its frames saved as
+def write_npy_dataset(root: str, clips: int = 8, frames: int = 40, hw: Tuple[int, int] = (256, 480)) -> str:
+    """Clip ``c`` rendered from ``SEED + c``, its frames saved as
     ``<root>/c<c>_f<t>.npy``, and ``<root>/train.csv`` naming them (paths
     relative to ``root``; every object present) → the CSV's path."""
     os.makedirs(root, exist_ok=True)
     rows = []
     for c in range(clips):
-        imgs, boxes = render_clip(seed=seed + c, n_frames=frames, hw=hw)
+        imgs, boxes = render_clip(seed=SEED + c, n_frames=frames, hw=hw)
         for f, (img, box) in enumerate(zip(imgs, boxes)):
             path = f"c{c}_f{f:03d}.npy"
             np.save(os.path.join(root, path), img)
             rows.append({"sequence_id": f"c{c}", "track_id": f"c{c}", "frame_index": f, "img_path": path,
                          "bbox": str([int(v) for v in box]), "frame_shape": str([hw[1], hw[0]]),
-                         "dataset": name, "presence": 1, "near_corner": 0, "visible": 1.0})
+                         "dataset": NAME, "presence": 1, "near_corner": 0, "visible": 1.0})
     path = os.path.join(root, "train.csv")
     with open(path, "w", newline="") as fh:
         writer = csv.DictWriter(fh, fieldnames=list(COLUMNS))
@@ -74,11 +75,8 @@ def main(argv=None) -> None:
     p.add_argument("--root", required=True)
     p.add_argument("--clips", type=int, default=8)
     p.add_argument("--frames", type=int, default=40)
-    p.add_argument("--seed", type=int, default=30)
-    p.add_argument("--height", type=int, default=256)
-    p.add_argument("--width", type=int, default=480)
     args = p.parse_args(argv)
-    path = write_npy_dataset(args.root, args.clips, args.frames, args.seed, (args.height, args.width))
+    path = write_npy_dataset(args.root, args.clips, args.frames)
     print(f"wrote {path}: {args.clips} clips of {args.frames} .npy frames")
 
 

@@ -45,7 +45,9 @@ _CRC32C = _crc32c_table()
 
 
 def crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli), as TFRecord frames its records."""
+    """CRC-32C (Castagnoli), as TFRecord frames its records. A byte at a
+    time in Python: cheap for scalars, slow for an image of a few MB (the
+    loop writes two mosaics an epoch, and none with device augmentations)."""
     c = 0xFFFFFFFF
     for b in data:
         c = _CRC32C[(c ^ b) & 0xFF] ^ (c >> 8)
@@ -95,33 +97,27 @@ class SummaryWriter:
                        + struct.pack("<I", masked_crc32c(event)))
         self._fh.flush()
 
-    def _summary(self, value: bytes, step: Optional[int], walltime: Optional[float]) -> None:
-        event = pw.field_double(1, time.time() if walltime is None else float(walltime))
+    def _summary(self, value: bytes, step: Optional[int]) -> None:
+        event = pw.field_double(1, time.time())
         if step is not None:
             event += pw.field_varint(2, int(step))
         self._write(event + pw.field_bytes(5, pw.field_bytes(1, value)))
 
-    def add_scalar(self, tag: str, scalar_value: Any, global_step: Optional[int] = None,
-                   walltime: Optional[float] = None) -> None:
+    def add_scalar(self, tag: str, scalar_value: Any, global_step: Optional[int] = None) -> None:
         value = pw.field_bytes(1, tag.encode()) + pw.field_float(2, float(scalar_value))
-        self._summary(value, global_step, walltime)
+        self._summary(value, global_step)
 
     def add_image(self, tag: str, img_tensor: np.ndarray, global_step: Optional[int] = None,
-                  walltime: Optional[float] = None, dataformats: str = "HWC") -> None:
-        """An (H, W, C) image; uint8 as it is, any other dtype scaled by 255
-        and clipped, as tensorboardX does."""
-        if dataformats != "HWC":
-            raise ValueError(f"only dataformats='HWC' is supported, got {dataformats!r}")
+                  dataformats: str = "HWC") -> None:
+        """An (H, W, C) uint8 image (``dataformats`` as tensorboardX's, which
+        the loop passes; only "HWC" is taken)."""
         img = np.asarray(img_tensor)
-        if img.dtype != np.uint8:
-            img = (img.astype(np.float32) * 255.0).clip(0, 255).astype(np.uint8)
+        if dataformats != "HWC" or img.dtype != np.uint8:
+            raise ValueError(f"only (H, W, C) uint8 images are supported, got {dataformats} {img.dtype}")
         h, w, c = img.shape
         image = (pw.field_varint(1, h) + pw.field_varint(2, w) + pw.field_varint(3, c)
                  + pw.field_bytes(4, encode_png(img)))
-        self._summary(pw.field_bytes(1, tag.encode()) + pw.field_bytes(4, image), global_step, walltime)
-
-    def flush(self) -> None:
-        self._fh.flush()
+        self._summary(pw.field_bytes(1, tag.encode()) + pw.field_bytes(4, image), global_step)
 
     def close(self) -> None:
         if not self._fh.closed:

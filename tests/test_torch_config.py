@@ -27,7 +27,7 @@ CONF_FILES = sorted(
 )
 OVERRIDE_VALUES = ["64", "0.5", "-3", "1e-6", "1.0e-6", "True", "false", "null", '""', "[360, 640]",
                    "/data/x", "abc", "", "~", "0x1F", "017", "1:30", "1_000", ".inf", "on", "Off",
-                   "a b c", "'it''s'", "[a, 'b', [1, 2.5], ~]", "[]", "{}", "3.", "+1", "1.5e+3", "1E-6",
+                   "a b c", '"it s"', '[a, "b", [1, 2.5], ~]', "[]", "{}", "3.", "+1", "1.5e+3", "1E-6",
                    "${tracker.instance_size}", "valid/metrics/box_iou"]
 # the JAX package's groups and options; its three TPU backends have no card
 # counterpart here (gpu.yaml stands for tpu.yaml; data parallelism is later)
@@ -80,6 +80,7 @@ def test_yaml_1_1_floats_need_a_dot():
     ("a: 1\nb: &anchor 2", 2), ("a: *alias", 1), ("a: !!str 1", 1), ("a: |\n  text", 1),
     ("a: {b: 1}", 1), ("a: b: c", 1), ("when: 2001-12-14", 1), ("a:\n  - - x", 2), ("a: [b: 1]", 1),
     ("a: 1\n---\nb: 2", 2), ("a: 'open", 1), ("a: [1, 2", 1), ("a: 1\n  b: 2", 2), ("<<: {}", 1),
+    ("a: 'it''s'", 1), ("a: [x, 'b']", 1), ("'k': 1", 1), ('a: 1\nb: "tab\\tx"', 2),
 ])
 def test_yaml_lite_rejects_what_is_outside_the_subset(text, line):
     with pytest.raises(ValueError, match=f"line {line}"):
@@ -89,7 +90,7 @@ def test_yaml_lite_rejects_what_is_outside_the_subset(text, line):
 def test_dump_reads_back_equal():
     data = {
         "strings": ["1e-6", "true", "", "null", "~", "a: b", "#x", " lead", "0x1F", "${a.b}", "1:30", "yes",
-                    "2001-12-14", "é ü", "tab\tnew\nline", 'quote"s', "back\\slash", "[x]", "- item", "plain text"],
+                    "2001-12-14", "é ü", "[x]", "- item", "plain text", "it's"],
         "numbers": [0, -3, 1e-6, 1e16, 0.1, -2.5, math.inf, -math.inf, 1.0],
         "flags": [True, False, None],
         "nested": {"list": [{"name": "a", "sizes": {"x": 1}}, {"name": "b"}], "empty": {}, "none": [],
@@ -101,6 +102,12 @@ def test_dump_reads_back_equal():
     text = yaml_lite.dump(data)
     assert _same(yaml.safe_load(text), want)
     assert _same(yaml_lite.load(text), want)
+
+
+@pytest.mark.parametrize("value", ["tab\tnew\nline", 'quote"s', "back\\slash"])
+def test_dump_rejects_strings_that_need_escapes(value):
+    with pytest.raises(ValueError, match="escapes"):
+        yaml_lite.dump({"x": value})
 
 
 def test_dump_nan():

@@ -415,3 +415,31 @@ def test_cli_trains_in_a_subprocess(tmp_path):
     losses = scalars(read_events(str(exp_dir / "logs")))["train/loss"]
     assert [s for s, _ in losses] == [1, 2, 3, 4]  # 8 samples in batches of 2
     assert glob.glob(str(exp_dir / "logs" / "events.out.tfevents.*"))
+
+
+def test_loop_timing_refuses_without_cuda():
+    proc = subprocess.run([sys.executable, "loop_timing.py"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA card" in proc.stderr
+    assert "{" not in proc.stdout
+
+
+def test_loop_timing_one_thread_is_the_worker_s_own_setting():
+    """``loop_timing.py``'s ``one_thread`` way: each thread that makes items
+    drops to one intra-op thread; the stepping thread keeps its own."""
+    import threading
+
+    sys.path.insert(0, REPO)
+    from loop_timing import _OneThread
+
+    seen = []
+    dataset = _OneThread([10, 11])
+    main = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        t = threading.Thread(target=lambda: seen.append((dataset[1], torch.get_num_threads())))
+        t.start()
+        t.join()
+        assert seen == [(11, 1)] and len(dataset) == 2
+        assert torch.get_num_threads() == 2
+    finally:
+        torch.set_num_threads(main)
