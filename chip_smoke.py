@@ -143,7 +143,27 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    one more epoch, its epoch from the checkpoint's metadata; 13f
    ``_validate_batched`` at ``val_streams=2`` (K1 a frame, K2 13 a frame
    and an init; mean IoU within 0.1 of the sequential); 13g ``python -m
-   feartracker_tpu_torch.train`` in its own process, 1 epoch of 2 steps.
+   feartracker_tpu_torch.train`` in its own process, 1 epoch of 2 steps;
+14. data parallelism and stream sharding on the one card: 14a the
+   data-parallel step (``make_train_step(mesh=group)``) over a group of one
+   process on NCCL against the no-group step, bf16 B=32, 3 Adam steps on
+   12c's staged batch under ``cudnn.deterministic``: equal bit for bit,
+   launches 0/0, the step's ms beside the no-group step's; 14d
+   ``ShardedScanTracker`` bf16 S=128 T=16 over ``[cuda:0]`` and ``[cuda:0,
+   cuda:0]``, eager and ``scan_unroll=4``: N=1 bit-equal to ``ScanTracker``,
+   N=2 within phase 9h's 6 px (f32 S=4 T=8 within 1e-3 px), K1 N and K2 13·N
+   a frame, ms a call; ``StreamPool`` at capacity 128 over N=2 against the
+   pool over ``ScanTracker``, 20 steps; then two processes on ``cuda:0``
+   over Gloo (``python3 chip_smoke.py --dp-worker``; NCCL refuses two ranks
+   on one card): 14b one float32 SGD step on the same 8 items each against
+   one process's step (local BatchNorm statistics: atol 1e-6 / 2e-5; with
+   cross-process statistics printed), bf16 Adam on different halves of 12c's
+   batch for 3 steps, the ranks bit-identical; 14c ``Trainer.fit`` with
+   ``backend=gpu_dp``, ``num_devices`` 2 (16 a process), 2 epochs of 3
+   steps, the sanity check and validation over 13b's three clips as one
+   dataset: launches 0/0 in the steps, K1/K2 summed over the ranks equal to
+   one process's, the sanity rows gathered equal 13c's one-process rows,
+   one event file and rank 0's checkpoints, the ranks bit-identical.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -1868,7 +1888,7 @@ def _phase_train(card, counters, lap):
         lap("12d")
     handover = _phase_train_handover(card, dev, counters, state)
     lap("12e")
-    return {"train_step": step_launches, "train_handover_sequential": handover}, profile
+    return {"train_step": step_launches, "train_handover_sequential": handover}, profile, staged
 
 
 def _counted(fn, counters, into: dict, times: list):
@@ -2099,7 +2119,406 @@ def _phase_loop(card, counters, lap, step_alone_ms: float):
               f"own process [{card}]", flush=True)
         lap("13g")
     print(f"[13] phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
-    return {"train_loop_step": step_k, "train_loop_val_sequential": val_k, "train_loop_val_batched": batched}
+    return ({"train_loop_step": step_k, "train_loop_val_sequential": val_k, "train_loop_val_batched": batched},
+            {k: card_metrics[k] for k in names})
+
+
+# phase 14's tolerances: the data-parallel step on identical shards against
+# one process's step on one shard, float32 with TF32 off, as the CPU test
+# holds it (tests/test_torch_dp_step.py: JAX's own invariant), with each
+# rank's BatchNorm statistics its own (averaged after the step). With
+# cross-process statistics the step computes Flax's E[x²] − E[x]², which
+# cancels in float32 where the single step's two-pass variance does not
+# (tests/test_torch_warm_start.py: 3.5e-4 against 3.0e-5 of a statistic's
+# scale from float64 after one step), and FEAR-XS's warm-start gradients
+# carry that far: that run is printed, and held only to equal ranks. The
+# sharded
+# tracker at N=2 against ScanTracker, float32 S=4 T=8 (TF32 off), and in
+# bfloat16 at S=128 within phase 9h's bound (other batch sizes of the
+# head's library convolutions round other ways)
+DP_PARAM_ATOL, DP_STAT_ATOL = 1e-6, 2e-5
+DP_SGD = {"name": "sgd", "lr": 0.05}
+SHARD_F32_PX = 1e-3
+DP_F32_B = 8  # 14b's float32 shard
+DP_VAL_ROW_ATOL = 1e-6  # 14c's gathered rows against phase 13's one-process rows
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_aug_cfg():
+    from feartracker_tpu_torch.data.device_augs import DeviceAugConfig
+
+    return DeviceAugConfig(search_size=256, scale=0.35, shift=48.0, grid_size=16, total_stride=16)
+
+
+def _state_cpu(state) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+
+
+def _loop_config(data: str, exp: str, name: str, overrides=()):
+    """Phase 13b's loop configuration (``load_config``) with ``overrides``."""
+    from feartracker_tpu_torch.config.compose import load_config
+
+    return load_config("fear_tracker", [
+        f"visual_object_tracking_datasets={data}", f"experiment.folder={exp}", f"experiment.name={name}",
+        "model.pretrained_weights=fear_xs", "device_augs=true", "batch_size.train=32", "train_percent=3",
+        "max_epochs=2", "log_every_n_steps=1", "save_top_k=2", "dynamic_frame_offset.start_epoch=1",
+        "dynamic_frame_offset.freq=1", "val.datasets=[]", *overrides])
+
+
+def _dp_worker(rank: int, world: int, port: int, root: str) -> int:
+    """One of phase 14's two processes on ``cuda:0`` over Gloo: 14b's steps,
+    then 14c's ``Trainer.fit``; writes ``<root>/out<rank>.pt``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from feartracker_tpu_torch.models.blocks import set_sync_bn
+    from feartracker_tpu_torch.ops.cuda import build as kbuild
+    from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
+    from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
+    from feartracker_tpu_torch.parallel import multihost
+    from feartracker_tpu_torch.parallel.mesh import shard_batch
+    from feartracker_tpu_torch.tools.make_npy_dataset import render_clip
+    from feartracker_tpu_torch.tools.train_profile import build_model
+    from feartracker_tpu_torch.train import loop as L
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state, make_train_step
+
+    kbuild.load_library()
+    addr = f"127.0.0.1:{port}"
+    multihost.initialize({"coordinator_address": addr, "num_processes": world, "process_id": rank,
+                          "backend": "gloo"})
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    inputs = torch.load(os.path.join(root, "inputs.pt"), weights_only=True)
+    out = {}
+    # -- 14b: float32 SGD, the same shard on both ranks, local and
+    # cross-process BatchNorm statistics
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    for name, sync in (("f32", False), ("f32_sync", True)):
+        tx = build_optimizer(DP_SGD)
+        state = create_train_state(set_sync_bn(build_model("fear_xs")[0], sync), tx, device=dev)
+        step = make_train_step(tx, mesh=multihost.process_group())
+        state, m = step(state, {k: v.to(dev) for k, v in inputs["f32"].items()})
+        out[name], out[f"{name}_loss"] = _state_cpu(state), float(m["loss"])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    # -- 14b: bfloat16 Adam, each rank its half of the staged batch, 3 steps
+    tx = build_optimizer({"name": "adam", "lr": 1e-4})
+    state = create_train_state(set_sync_bn(build_model("fear_xs")[0]), tx, device=dev)
+    step = make_train_step(tx, device_augs=_dp_aug_cfg(), aug_seed=0, dtype=torch.bfloat16,
+                           mesh=multihost.process_group())
+    share = {k: v.to(dev) for k, v in shard_batch(inputs["staged"], rank, world).items()}
+    losses = []
+    for _ in range(3):
+        state, m = step(state, dict(share))
+        losses.append(float(m["loss"]))
+    out["bf16"], out["bf16_losses"] = _state_cpu(state), losses
+    del state, step
+
+    # -- 14c: Trainer.fit, backend gpu_dp with num_devices 2, over Gloo
+    cfg = _loop_config(os.path.join(root, "data"), os.path.join(root, "exp"), "DP", [
+        "backend=gpu_dp", "num_devices=2", "distributed.backend=gloo", "num_workers=4", "sanity_steps=3"])
+    cfg["distributed"].update(coordinator_address=addr, num_processes=world, process_id=rank)
+    counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
+    trainer = L.Trainer(cfg)
+    trainer.setup_data()
+    clips = [render_clip(seed=40 + i, n_frames=LOOP_VAL_FRAMES) for i in range(LOOP_VAL_CLIPS)]
+    trainer.val_datasets = [_protocol_suite(clips, "clips")]
+    step_k, val_k, step_s, val_s = {"K1": 0, "K2": 0}, {"K1": 0, "K2": 0}, [], []
+    trainer.train_step = _counted(trainer.train_step, counters, step_k, step_s)
+    trainer.validate = _counted(trainer.validate, counters, val_k, val_s)
+    rows, allgather = [], multihost.allgather_rows
+
+    def recording(r):
+        got = allgather(r)
+        rows.append(got)
+        return got
+
+    multihost.allgather_rows = recording
+    _zero(counters)
+    t0 = time.perf_counter()
+    trainer.fit()
+    out["fit"] = {"s": time.perf_counter() - t0, "step_k": step_k, "val_k": val_k, "step_s": step_s,
+                  "val_s": val_s, "rows": [np.asarray(r).tolist() for r in rows], "step": trainer.state.step,
+                  "batch_size": trainer.batch_size, "is_master": trainer.is_master,
+                  "model": _state_cpu(trainer.state), "device": str(trainer.device)}
+    torch.save(out, os.path.join(root, f"out{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _phase_dp_world1(card, counters, staged, step_alone_ms: float):
+    """14a: the data-parallel step over a group of one process on NCCL
+    against the no-group step, bf16, B=32, 3 steps on 12c's staged batch."""
+    import torch
+    import torch.distributed as dist
+
+    from feartracker_tpu_torch.parallel import multihost
+    from feartracker_tpu_torch.tools.train_profile import build_model
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state, make_train_step
+
+    multihost.initialize({"coordinator_address": f"127.0.0.1:{_free_port()}", "num_processes": 1,
+                          "process_id": 0, "backend": "nccl"})
+    try:
+        assert dist.get_backend() == "nccl" and multihost.process_count() == 1
+        runs, steps = {}, {}
+        flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            for name, mesh in (("group", multihost.process_group()), ("alone", None)):
+                tx = build_optimizer({"name": "adam", "lr": 1e-4})
+                state = create_train_state(build_model("fear_xs")[0], tx, device="cuda")
+                steps[name] = step = make_train_step(tx, device_augs=_dp_aug_cfg(), aug_seed=0,
+                                                     dtype=torch.bfloat16, mesh=mesh)
+                _zero(counters)
+                losses = []
+                for _ in range(3):
+                    state, m = step(state, dict(staged))
+                    losses.append(float(m["loss"]))
+                runs[name] = (_state_cpu(state), losses, _read(counters), state)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        (g_sd, g_loss, g_k, g_state), (a_sd, a_loss, _, _) = runs["group"], runs["alone"]
+        differ = [k for k in g_sd if not torch.equal(g_sd[k], a_sd[k])]
+        assert not differ and g_loss == a_loss, (differ[:5], g_loss, a_loss)
+        assert g_k == {"K1": 0, "K2": 0}, g_k
+        # the step's time, the group's against the no-group step's, in turns
+        # after a call of each under the default cuDNN flags
+        for name in ("group", "alone"):
+            steps[name](g_state, dict(staged))
+        times = {name: [] for name in ("group", "alone")}
+        for name in ("group", "alone", "alone", "group"):
+            times[name].append(_wall_ms(lambda: steps[name](g_state, dict(staged)), 10))
+        print(f"[14a] data-parallel step over a group of 1 on NCCL, bf16 B=32, 3 Adam steps: parameters and "
+              f"BatchNorm statistics equal the no-group step's bit for bit ({len(g_sd)} tensors), losses "
+              f"{', '.join(f'{v:.6f}' for v in g_loss)} equal; launches {g_k}; step ms group "
+              f"{', '.join(f'{t:.2f}' for t in times['group'])}, no group "
+              f"{', '.join(f'{t:.2f}' for t in times['alone'])} (12b's step alone {step_alone_ms:.2f}) [{card}]",
+              flush=True)
+        return g_k
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase_dp_processes(card, counters, staged, loop_val: dict):
+    """14b, 14c: two processes on cuda:0 over Gloo (``_dp_worker``)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from feartracker_tpu_torch.data import device_augs as augs
+    from feartracker_tpu_torch.tools.make_npy_dataset import write_npy_dataset
+    from feartracker_tpu_torch.tools.train_profile import build_model
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as root:
+        write_npy_dataset(os.path.join(root, "data", "got10k"))
+        # 14b's float32 shard: the first 8 staged items augmented once
+        f32 = augs.augment_batch({k: v[:DP_F32_B] for k, v in staged.items()}, augs.aug_generator(0, 0, dev),
+                                 _dp_aug_cfg())
+        torch.save({"f32": {k: v.cpu() for k, v in f32.items()}, "staged": {k: v.cpu() for k, v in staged.items()}},
+                   os.path.join(root, "inputs.pt"))
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, __file__, "--dp-worker", str(r), "2", str(port), root],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            deadline = time.monotonic() + 420
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            logs = [p.communicate(timeout=60) for p in procs]
+        for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, f"phase 14 rank {r} exited {p.returncode}:\n{err[-4000:]}"
+        procs_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(root, f"out{r}.pt"), weights_only=True) for r in range(2)]
+
+        # -- 14b: against one process's step on one shard
+        flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            tx = build_optimizer(DP_SGD)
+            one = create_train_state(build_model("fear_xs")[0], tx, device=dev)
+            init = _state_cpu(one)
+            one, m = make_train_step(tx)(one, dict(f32))
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        ref = _state_cpu(one)
+        stat = lambda k: k.endswith(("running_mean", "running_var"))  # noqa: E731
+        params = [k for k in ref if not stat(k) and not k.endswith("num_batches_tracked")]
+        err = {}
+        for name in ("f32", "f32_sync"):
+            err[name] = (max(float((o[name][k] - ref[k]).abs().max()) for o in outs for k in params),
+                         max(float((o[name][k] - ref[k]).abs().max()) for o in outs for k in ref if stat(k)),
+                         max(abs(o[f"{name}_loss"] - float(m["loss"])) / abs(float(m["loss"])) for o in outs))
+        upd = max(float((ref[k] - init[k]).abs().max()) for k in params)
+        differ = {name: [k for k in outs[0][name] if not torch.equal(outs[0][name][k], outs[1][name][k])]
+                  for name in ("f32", "f32_sync", "bf16")}
+        print(f"[14b] two processes on cuda:0 over Gloo, FEAR-XS: float32 SGD (lr 0.05) step on the same "
+              f"{DP_F32_B}-item shard each against one process's step on it, local BatchNorm statistics: "
+              f"parameters max|err| {err['f32'][0]:.2e} (atol {DP_PARAM_ATOL}), statistics {err['f32'][1]:.2e} "
+              f"(atol {DP_STAT_ATOL}), loss rel {err['f32'][2]:.2e}; cross-process statistics (Flax's E[x²] − "
+              f"E[x]²): parameters {err['f32_sync'][0]:.2e}, statistics {err['f32_sync'][1]:.2e}, loss rel "
+              f"{err['f32_sync'][2]:.2e}, the step's largest update {upd:.2e}; bf16 Adam on different halves "
+              f"of 12c's batch (sync BN), 3 steps: losses {', '.join(f'{v:.4f}' for v in outs[0]['bf16_losses'])}; "
+              f"tensors that differ across the ranks {({k: len(v) for k, v in differ.items()})} of "
+              f"{len(outs[0]['bf16'])} [{card}]", flush=True)
+        assert err["f32"][0] <= DP_PARAM_ATOL and err["f32"][1] <= DP_STAT_ATOL, err
+        assert not any(differ.values()), {k: v[:5] for k, v in differ.items()}
+
+        # -- 14c: the loop in the two processes
+        fit = [o["fit"] for o in outs]
+        names = [f"clip{i}_box_iou" for i in range(LOOP_VAL_CLIPS)]
+        val = {k: fit[0]["val_k"][k] + fit[1]["val_k"][k] for k in ("K1", "K2")}
+        seqs = 3 * LOOP_VAL_CLIPS  # the sanity check and 2 epochs, every clip each
+        updates, inits = seqs * (LOOP_VAL_FRAMES - 1), seqs
+        sanity = fit[0]["rows"][0]
+        # rank 0 tracked clips 0 and 2, rank 1 clip 1: gathered in rank order
+        want = [loop_val[names[i]] for i in (0, 2, 1)]
+        row_err = max(abs(r[1] - w) for r, w in zip(sanity, want))
+        exp = os.path.join(root, "exp", "DP")
+        events = [f for f in os.listdir(os.path.join(exp, "logs")) if f.startswith("events.out.tfevents")]
+        kept = sorted(int(d) for d in os.listdir(os.path.join(exp, "checkpoints")) if d.isdigit())
+        fit_differ = [k for k in fit[0]["model"] if not torch.equal(fit[0]["model"][k], fit[1]["model"][k])]
+        print(f"[14c] Trainer.fit in two processes on cuda:0 (backend gpu_dp, num_devices 2, Gloo), bf16 "
+              f"{fit[0]['batch_size']} a process, {fit[0]['step']} steps in 2 epochs on each: launches in the steps "
+              f"{[f['step_k'] for f in fit]}, in validation {[f['val_k'] for f in fit]} (summed {val}, one "
+              f"process {updates} K1 / {13 * (updates + inits)} K2); sanity rows gathered "
+              f"{[round(r[1], 6) for r in sanity]} against phase 13c's one-process "
+              f"{[round(w, 6) for w in want]} (max diff {row_err:.2e}); {len(events)} event file, checkpoints "
+              f"{kept} + last; {len(fit_differ)} tensors differ across the ranks after fit; fit "
+              f"{', '.join(f'{f['s']:.1f}' for f in fit)} s, step calls "
+              f"{', '.join(f'{t * 1e3:.0f}' for t in fit[0]['step_s'])} ms (rank 0); both processes "
+              f"{procs_s:.1f} s [{card}]", flush=True)
+        assert [f["is_master"] for f in fit] == [True, False] and all(f["step"] == 6 for f in fit), fit
+        assert all(f["step_k"] == {"K1": 0, "K2": 0} for f in fit), fit
+        assert val == {"K1": updates, "K2": 13 * (updates + inits)}, val
+        assert len(sanity) == LOOP_VAL_CLIPS and row_err <= DP_VAL_ROW_ATOL, (sanity, want)
+        assert fit[0]["rows"] == fit[1]["rows"]
+        assert len(events) == 1 and kept == [3, 6] and os.path.isdir(os.path.join(exp, "checkpoints", "last"))
+        assert not fit_differ, fit_differ[:5]
+    return {"dp_fit_2proc_step": {k: fit[0]["step_k"][k] + fit[1]["step_k"][k] for k in ("K1", "K2")},
+            "dp_fit_2proc_val": val}
+
+
+def _phase_sharded(card, counters, track_ms: float):
+    """14d: ShardedScanTracker over [cuda:0] and [cuda:0, cuda:0]."""
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.convert.load import load_fear_net, variables_from_npz
+    from feartracker_tpu_torch.evaluate.harness import synthetic_streams
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+    from feartracker_tpu_torch.parallel.inference import ShardedScanTracker
+    from feartracker_tpu_torch.tracker.runtime import ScanTracker
+    from feartracker_tpu_torch.tracker.serving import StreamPool
+
+    model = load_fear_net(FEARNet(), variables_from_npz("fear_xs"))
+    launches = {}
+    # float32 S=4 T=8 (TF32 off inside the tracker), N=2 against ScanTracker
+    f0, chunk, boxes = synthetic_streams(4, 8, seed=2, device="cuda")
+    ref = ScanTracker(model, dtype=torch.float32)
+    _, want = ref.track(ref.init(f0, boxes), chunk)
+    two = ShardedScanTracker(model, dtype=torch.float32, devices=["cuda:0"] * 2)
+    _, got = two.track(two.init(f0, boxes), chunk)
+    f32_px = float((got["bbox"] - want["bbox"]).abs().max())
+    assert f32_px <= SHARD_F32_PX, f32_px
+
+    S, T = 128, 16
+    f0, chunk, boxes = synthetic_streams(S, T, seed=1, device="cuda")
+    ref = ScanTracker(model, dtype=torch.bfloat16)
+    _, want = ref.track(ref.init(f0, boxes), chunk)
+    lines = []
+    for n in (1, 2):
+        for k in (1, 4):
+            tr = ShardedScanTracker(model, dtype=torch.bfloat16, devices=["cuda:0"] * n, scan_unroll=k)
+            torch.cuda.synchronize()
+            _zero(counters)
+            state = tr.init(f0, boxes)
+            state, got = tr.track(state, chunk)
+            torch.cuda.synchronize()
+            counted = _read(counters)
+            if k == 1:
+                assert counted == {"K1": n * T, "K2": 13 * n * (T + 1)}, (n, counted)
+            else:
+                # a second call from 0: the captured graphs' replays launch them
+                before = dict(tr.replayed_launches)
+                _zero(counters)
+                state, again = tr.track(state, chunk)
+                torch.cuda.synchronize()
+                counted = {key: tr.replayed_launches[key] - before[key] for key in before}
+                assert _read(counters) == {"K1": 0, "K2": 0} and counted == {"K1": n * T, "K2": 13 * n * T}, (
+                    n, counted, _read(counters))
+            launches[f"sharded_n{n}" + ("" if k == 1 else f"_scan_unroll_{k}")] = counted
+            px = float((got["bbox"] - want["bbox"]).abs().max())
+            if n == 1:
+                assert all(torch.equal(got[key], want[key]) for key in want), (n, k)
+            else:
+                assert px <= BF16_BOX_PX["cpu_bf16"], (n, k, px)
+            assert got["bbox"].shape == (T, S, 4) and torch.isfinite(got["bbox"]).all()
+            ms = _wall_ms(lambda: tr.track(state, chunk), 5)
+            lines.append(f"N={n} K={k}: launches {counted}, boxes vs ScanTracker {px:.2f} px, {ms:.2f} ms a "
+                         f"call ({S * T / ms * 1e3:.1f} frames/s)")
+    print(f"[14d] ShardedScanTracker bf16 S={S} T={T} on [cuda:0]*N, eager (K=1: init + one call) and "
+          f"scan_unroll K=4 (a replayed call): {'; '.join(lines)}; 5b's ScanTracker {track_ms:.2f} ms a call; "
+          f"f32 S=4 T=8 N=2 vs ScanTracker {f32_px:.2e} px (tol {SHARD_F32_PX}) [{card}]", flush=True)
+
+    # StreamPool over it at capacity 128 against the pool over ScanTracker
+    rng = np.random.RandomState(3)
+    frames = [rng.randint(0, 255, (256, 480, 3), np.uint8) for _ in range(4)]
+    boxes_np = [[180 + (i % 16) * 4, 100 + (i // 16) * 4, 40, 48] for i in range(S)]
+    results = {}
+    for name, tr in (("single", ScanTracker(model, dtype=torch.bfloat16)),
+                     ("sharded", ShardedScanTracker(model, dtype=torch.bfloat16, devices=["cuda:0"] * 2))):
+        pool = StreamPool(tr, capacity=S, frame_hw=(256, 480))
+        for b in boxes_np:
+            pool.add(frames[0], b)
+        batch = np.broadcast_to(frames[1], (S, 256, 480, 3))
+        t0 = time.perf_counter()
+        outs = [pool.step(frames[1 + t % 3] if t % 2 else batch) for t in range(20)]
+        results[name] = (np.stack([o["bbox"] for o in outs]), (time.perf_counter() - t0) * 1e3 / 20)
+    pool_px = float(np.abs(results["sharded"][0] - results["single"][0]).max())
+    print(f"[14d] StreamPool capacity {S} over ShardedScanTracker N=2 against the pool over ScanTracker, 20 steps "
+          f"of host frames: boxes max diff {pool_px:.2f} px (tol {BF16_BOX_PX['cpu_bf16']}), "
+          f"{results['sharded'][1]:.1f} / {results['single'][1]:.1f} ms a step [{card}]", flush=True)
+    assert pool_px <= BF16_BOX_PX["cpu_bf16"], pool_px
+    return launches
+
+
+def _phase_parallel(card, counters, lap, staged, step_alone_ms: float, loop_val: dict, track_ms: float):
+    """Phase 14: data parallelism and stream sharding on the one card."""
+    import torch
+
+    t_phase = time.perf_counter()
+    staged = {k: v for k, v in staged.items() if isinstance(v, torch.Tensor)}
+    launches = {"dp_step_world1": _phase_dp_world1(card, counters, staged, step_alone_ms)}
+    lap("14a")
+    launches.update(_phase_sharded(card, counters, track_ms))
+    lap("14d")
+    launches.update(_phase_dp_processes(card, counters, staged, loop_val))
+    lap("14b-c")
+    print(f"[14] phase 14 {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2341,12 +2760,15 @@ def main() -> int:
     lap("9")
     graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
     deploy_launches, dispatch_us = _phase_deployment(card, n_fused, counters, lap)
-    train_launches, profile = _phase_train(card, counters, lap)
-    loop_launches = _phase_loop(card, counters, lap, next(r["step_ms"] for r in profile if r["batch"] == 32))
+    train_launches, profile, staged = _phase_train(card, counters, lap)
+    step_alone_ms = next(r["step_ms"] for r in profile if r["batch"] == 32)
+    loop_launches, loop_val = _phase_loop(card, counters, lap, step_alone_ms)
+    parallel_launches = _phase_parallel(card, counters, lap, staged, step_alone_ms, loop_val, track_ms)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
-               "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches}
+               "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches,
+               **parallel_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it
@@ -2376,4 +2798,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(_dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

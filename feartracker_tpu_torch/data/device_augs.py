@@ -29,7 +29,7 @@ Staged batch layout (``SiameseTrackingDataset`` in staged mode):
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -55,12 +55,17 @@ class DeviceAugConfig(NamedTuple):
     p_downscale: float = 0.2
 
 
-def aug_generator(aug_seed: int, step: int, device) -> torch.Generator:
+def aug_generator(aug_seed: int, step: int, device, rank: Optional[int] = None) -> torch.Generator:
     """The draws of step ``step``: a generator seeded from (``aug_seed``,
     ``step``), as the JAX step folds the step into its key, so that a
-    restored state draws what the saved one would have drawn."""
+    restored state draws what the saved one would have drawn. ``rank`` (a
+    data-parallel step over several processes) is folded in too, as JAX
+    folds the shard's axis index, so that the processes draw apart."""
+    seed = int(aug_seed) * 0x9E3779B97F4A7C15 + int(step)
+    if rank is not None:
+        seed = seed * 0x9E3779B97F4A7C15 + int(rank) + 1
     g = torch.Generator(device=device)
-    g.manual_seed((int(aug_seed) * 0x9E3779B97F4A7C15 + int(step)) % (1 << 63))
+    g.manual_seed(seed % (1 << 63))
     return g
 
 

@@ -76,6 +76,10 @@ def batched_evaluate(
         return summarize([], [], [])
 
     dev = tracker.device
+    # a sharded tracker needs the streams to divide over its devices: a
+    # short group is padded by repeating its last sequence; the padded
+    # streams are tracked but never scored
+    divisor = len(getattr(tracker, "devices", ())) or 1
     seq_overlaps: List[np.ndarray] = []
     seq_names: List[str] = []
     seq_precision: List[Dict[str, np.ndarray]] = []
@@ -83,7 +87,9 @@ def batched_evaluate(
     with ThreadPoolExecutor(decode_workers) as pool:
         for g0 in range(0, len(scorable), streams):
             idxs = scorable[g0 : g0 + streams]
-            S = len(idxs)
+            S = len(idxs)  # scored streams; the rest is padding
+            idxs = idxs + [idxs[-1]] * ((-S) % divisor)
+            ST = len(idxs)  # tracked streams
             seqs = [dataset[i] for i in idxs]  # (files, anno, name)
             lengths = [min(len(f), len(a), max_frames or 10**9) for f, a, _ in seqs]
             max_len = max(lengths)
@@ -94,22 +100,22 @@ def batched_evaluate(
 
             # init; pad colour = mean of the real image region, not the
             # letterbox bars
-            first = [letterbox(read_img(seqs[i][0][0]), frame_hw, dev) for i in range(S)]
+            first = [letterbox(read_img(seqs[i][0][0]), frame_hw, dev) for i in range(ST)]
             frames0 = torch.stack([c for c, _, _ in first])
             scales = np.array([s for _, s, _ in first])
             mean_colors = torch.stack([
                 c[:nh, :nw].double().mean(dim=(0, 1)) for c, _, (nh, nw) in first
             ]).float()
-            bb0 = np.stack([np.asarray(seqs[i][1][0], np.float64) * scales[i] for i in range(S)])
+            bb0 = np.stack([np.asarray(seqs[i][1][0], np.float64) * scales[i] for i in range(ST)])
             state = tracker.init(frames0, bb0.astype(np.float32), mean_color=mean_colors)
 
             preds = [[np.asarray(seqs[i][1][0], np.float64)] for i in range(S)]
             t = 1
             while t < max_len:
                 n = min(chunk, max_len - t)
-                raw = list(pool.map(decode, [(i, t + k) for k in range(n) for i in range(S)]))
+                raw = list(pool.map(decode, [(i, t + k) for k in range(n) for i in range(ST)]))
                 frames = torch.stack([letterbox(f, frame_hw, dev)[0] for f in raw])
-                state, out = tracker.track(state, frames.reshape(n, S, *frame_hw, 3), start_step=t - 1)
+                state, out = tracker.track(state, frames.reshape(n, ST, *frame_hw, 3), start_step=t - 1)
                 bboxes = out["bbox"].cpu().numpy()  # (n, S, 4)
                 for k in range(n):
                     for i in range(S):

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -51,11 +52,21 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     on the card); the running statistics are a separate reduction outside
     the graph. Eval mode is torch's, unchanged: inference and
     ``fold_fear_net`` read the same parameters and buffers as before.
+
+    ``sync_bn`` (set by :func:`set_sync_bn`) makes train mode Flax's
+    ``BatchNorm(axis_name=…)`` across the default process group when it has
+    more than one process: the statistics are computed as Flax's
+    ``_compute_stats`` does (:meth:`_forward_sync`). With one process, or
+    without a group, the module runs the single-device path above.
     """
+
+    sync_bn = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync_bn and dist.is_initialized() and dist.get_world_size() > 1:
+            return self._forward_sync(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
@@ -65,6 +76,59 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         y = torch.batch_norm(xf, self.weight, self.bias, None, None, True, 0.0, self.eps,
                              torch.backends.cudnn.enabled)
         return y.to(x.dtype)
+
+    def _forward_sync(self, x: torch.Tensor) -> torch.Tensor:
+        """Flax's statistics across processes, step for step: the local
+        means of x and x² in at least float32, stacked and averaged over the
+        group in one differentiable all-reduce, the "fast variance"
+        ``max(0, E[x²] − E[x]²)``, the normalization in Flax's order, and the
+        running statistics moved 0.9/0.1 with that biased variance."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        local = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        mean, mean2 = all_reduce_mean(local)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = FLAX_BN_MOMENTUM
+            self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.to(self.running_var.dtype), alpha=1.0 - m)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The mean of a tensor over the default process group. Its backward is
+    the same mean of the cotangents: the transpose of JAX's ``pmean`` under
+    ``shard_map``, so that a gradient that flows through the shared
+    statistics sums every process's share."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = x.clone()
+        dist.all_reduce(y)
+        return y / dist.get_world_size()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g)
+        return g / dist.get_world_size()
+
+
+def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable mean of ``x`` over the default process group."""
+    return _AllReduceMean.apply(x)
+
+
+def set_sync_bn(model: nn.Module, enabled: bool = True) -> nn.Module:
+    """Turn the cross-process statistics of every train-mode
+    :class:`FlaxBatchNorm2d` of ``model`` on or off (JAX: the model's
+    ``bn_axis_name``)."""
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.sync_bn = enabled
+    return model
 
 
 def _bn(features: int) -> FlaxBatchNorm2d:

@@ -15,7 +15,10 @@ counterpart of ``feartracker_tpu/tracker/serving.py``.
 
 All state lives in fixed-shape tensors on the tracker's device; a slot write
 builds new tensors (out of place), so outputs already handed out never
-change under the caller.
+change under the caller. Over a ``ShardedScanTracker`` the slots are split
+into the shards' contiguous blocks: a slot's init and write go to the shard
+that holds it, and each shard's block of frames is copied from one pinned
+staging buffer straight to its device.
 
 Pipelined stepping: ``step_async`` enqueues a step and returns a
 ``PendingStep`` at once; the pool's state advances at dispatch time. Host
@@ -29,6 +32,7 @@ for that step's event alone.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -70,7 +74,7 @@ class PendingStep:
 class StreamPool:
     def __init__(
         self,
-        tracker: ScanTracker,
+        tracker: ScanTracker,  # or a ShardedScanTracker
         capacity: int,
         frame_hw,
         auto_reinit: bool = False,
@@ -90,34 +94,57 @@ class StreamPool:
         self._step_count = 0  # paces the dual-template update_interval
         self._device = tracker.device
         self._cuda = self._device.type == "cuda"
+        # a ShardedScanTracker's replicas, each holding a block of slots
+        self._shards = getattr(tracker, "replicas", None)
+        if self._shards is None:
+            self.state = self._empty_state(capacity, self._device)
+        else:
+            from feartracker_tpu_torch.parallel.inference import ShardedState
 
-        dev, fs = self._device, (capacity,) + tuple(tracker.template_shape)
+            if capacity % len(self._shards):
+                raise ValueError(f"capacity {capacity} does not divide over {len(self._shards)} shards")
+            self._per_shard = capacity // len(self._shards)
+            self.state = ShardedState(self._empty_state(self._per_shard, r.device) for r in self._shards)
+
+    def _empty_state(self, rows: int, dev: torch.device) -> StreamState:
         with torch.inference_mode():
-            feats = torch.zeros(fs, dtype=tracker.dtype, device=dev)
-            bbox = torch.zeros((capacity, 4), dtype=torch.float32, device=dev)
+            feats = torch.zeros((rows,) + tuple(self.tracker.template_shape), dtype=self.tracker.dtype, device=dev)
+            bbox = torch.zeros((rows, 4), dtype=torch.float32, device=dev)
             bbox[:, 2:] = 8.0
-            self.state = StreamState(
+            return StreamState(
                 template_feats=feats,
                 dyn_feats=feats,
                 bbox=bbox,
-                mean_color=torch.zeros((capacity, 3), dtype=torch.float32, device=dev),
-                confidence=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+                mean_color=torch.zeros((rows, 3), dtype=torch.float32, device=dev),
+                confidence=torch.zeros((rows,), dtype=torch.float32, device=dev),
             )
 
     # -- slot management -----------------------------------------------------
 
+    @staticmethod
     @torch.inference_mode()
-    def _write_slot(self, slot: int, sub: StreamState) -> None:
-        """Row ``slot`` of every state tensor ← ``sub``'s single row, out of
+    def _written(state: StreamState, row: int, sub: StreamState) -> StreamState:
+        """Row ``row`` of every state tensor ← ``sub``'s single row, out of
         place (slices, no index tensor: nothing is copied from the host)."""
-        self.state = StreamState(*(
-            torch.cat([full[:slot], one[:1], full[slot + 1:]])
-            for full, one in zip(self.state, sub)
+        return StreamState(*(
+            torch.cat([full[:row], one[:1], full[row + 1:]])
+            for full, one in zip(state, sub)
         ))
 
     def _init_slot(self, slot: int, frame, bbox) -> None:
-        sub = self.tracker.init(frame[None], np.asarray(bbox, np.float32)[None])
-        self._write_slot(slot, sub)
+        box = np.asarray(bbox, np.float32)[None]
+        if self._shards is None:
+            self.state = self._written(self.state, slot, self.tracker.init(frame[None], box))
+            return
+        from feartracker_tpu_torch.parallel.inference import ShardedState
+
+        shard, row = divmod(slot, self._per_shard)
+        replica = self._shards[shard]
+        with torch.cuda.device(replica.device) if replica.device.type == "cuda" else contextlib.nullcontext():
+            sub = replica.init(frame[None], box)
+        states = list(self.state)
+        states[shard] = self._written(states[shard], row, sub)
+        self.state = ShardedState(states)
 
     def add(self, frame: np.ndarray, bbox) -> int:
         """Claim a slot and initialize it from (frame, bbox); returns slot id."""
@@ -142,23 +169,46 @@ class StreamPool:
 
     # -- host → device -------------------------------------------------------
 
-    def _stage(self, frames) -> torch.Tensor:
+    def _stage(self, frames, chunk: bool = False):
         """Frames on the tracker's device. Host frames bound for a CUDA card
-        go through pinned memory and an asynchronous copy."""
+        go through pinned memory and an asynchronous copy. Over a sharded
+        tracker: one block a shard on its device (the stream axis is 1 for a
+        ``chunk``, else 0; a shared video goes whole to every shard), each
+        copied from the one staging buffer."""
         if isinstance(frames, torch.Tensor):
             # by type: a tracker on "cuda" gets tensors on "cuda:0"
             if frames.device.type == self._device.type:
-                return frames.to(self._device)
+                return self._place(frames, chunk, lambda x, dev: x.to(dev))
             frames = frames.numpy()
         frames = np.asarray(frames)
         if not self._cuda:
-            return torch.as_tensor(frames, device=self._device)
+            return self._place(frames, chunk, lambda x, dev: torch.as_tensor(x, device=dev))
         # the caching host allocator hands this block out again only after
-        # the copy below has completed on the card
+        # the copies below have completed on the card
         dtype = torch.from_numpy(np.empty(0, frames.dtype)).dtype
+        if self._shards is not None and chunk and frames.ndim == 5:
+            # shard-major, so that each shard's (T, S/N, ...) block is one
+            # contiguous run of the buffer (a strided one would be copied
+            # through pageable memory, synchronously)
+            T, n = frames.shape[0], len(self._shards)
+            pinned = torch.empty((n, T, self._per_shard) + frames.shape[2:], dtype=dtype, pin_memory=True)
+            np.copyto(pinned.numpy(), frames.reshape((T, n, self._per_shard) + frames.shape[2:]).swapaxes(0, 1))
+            return [block.to(r.device, non_blocking=True) for block, r in zip(pinned, self._shards)]
         pinned = torch.empty(frames.shape, dtype=dtype, pin_memory=True)
         np.copyto(pinned.numpy(), frames)  # one pass, broadcast views included
-        return pinned.to(self._device, non_blocking=True)
+        return self._place(pinned, chunk, lambda x, dev: x.to(dev, non_blocking=True))
+
+    def _place(self, frames, chunk: bool, put):
+        """``put(block, device)`` of the frames, or of each shard's block."""
+        if self._shards is None:
+            return put(frames, self._device)
+        shared = frames.ndim == (4 if chunk else 3)
+        blocks = []
+        for i, r in enumerate(self._shards):
+            lo, hi = i * self._per_shard, (i + 1) * self._per_shard
+            block = frames if shared else (frames[:, lo:hi] if chunk else frames[lo:hi])
+            blocks.append(put(block, r.device))
+        return blocks
 
     def _dispatch(self, out: Dict[str, torch.Tensor], frames) -> PendingStep:
         """Queue the copies of the fetched outputs to pinned host memory and
@@ -168,7 +218,7 @@ class StreamPool:
             out = {k: torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=True).copy_(out[k], non_blocking=True)
                    for k in _FETCHED}
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(self._device))
         return PendingStep(self, out, self.active.copy(), frames if self.auto_reinit else None, done)
 
     # -- stepping ------------------------------------------------------------
@@ -198,7 +248,8 @@ class StreamPool:
     def step_chunk_async(self, frames) -> PendingStep:
         """Dispatch a chunk without waiting; pipeline like ``step_async``."""
         T = frames.shape[0]
-        self.state, out = self.tracker.track(self.state, self._stage(frames), start_step=self._step_count)
+        self.state, out = self.tracker.track(self.state, self._stage(frames, chunk=True),
+                                             start_step=self._step_count)
         self._step_count += T
         return self._dispatch(out, frames[-1])
 

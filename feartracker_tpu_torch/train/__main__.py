@@ -10,6 +10,13 @@ and trains. For example::
     python -m feartracker_tpu_torch.train visual_object_tracking_datasets=/data/fear
     python -m feartracker_tpu_torch.train backend=cpu model=fear_tiny tracker=tiny_tracker \\
         utility_overrides=local_fast visual_object_tracking_datasets=/data/fear
+
+Data parallelism runs one process a card under ``torchrun``, which sets
+the rendezvous and ``LOCAL_RANK``, the card the trainer drives::
+
+    torchrun --nproc_per_node 4 -m feartracker_tpu_torch.train backend=gpu_dp ...
+
+Rank 0 alone writes the composed config, the event log and checkpoints.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     exp = config.get("experiment", {})
     exp_dir = os.path.join(exp.get("folder", "experiments"), exp.get("name", "FEAR"))
     os.makedirs(exp_dir, exist_ok=True)
-    save_config(config, os.path.join(exp_dir, "experiment_config.yaml"))
+    if int(os.environ.get("RANK", 0)) == 0:
+        save_config(config, os.path.join(exp_dir, "experiment_config.yaml"))
     logger.info("experiment dir: %s", exp_dir)
     train(config)
 

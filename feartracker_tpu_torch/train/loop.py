@@ -12,8 +12,18 @@ Where PyTorch's idiom differs:
   or ``gpu`` is the card, ``cpu`` the host; there is no fallback, so the
   card without one raises. ``precision: bfloat16`` trains in mixed
   precision (``make_train_step(dtype=torch.bfloat16)``).
-* One process on one device: ``distributed.enabled`` or ``num_devices`` > 1
-  raises (data parallelism is ROADMAP.md Queue 1 item 2).
+* Data parallelism is one process a card (launched by ``torchrun``, or by
+  hand with ``distributed.coordinator_address`` / ``num_processes`` /
+  ``process_id``), joined by ``torch.distributed`` when
+  ``distributed.enabled`` is set or ``num_devices`` > 1. The process drives
+  card ``LOCAL_RANK`` (else its rank modulo the cards it sees). The global
+  batch keeps JAX's meaning, ``batch_size`` × hosts: each process draws
+  ``batch_size // processes on its host`` from its own shard of the data.
+  The step averages gradients, losses and BatchNorm statistics over the
+  group; validation tracks a rank-strided share of the sequences and
+  gathers the rows; rank 0 alone writes the event log and checkpoints. The
+  best/worst mosaics see the rank's own rows (JAX's single-process
+  ``tpu_dp`` sees the global batch).
 * Only the step's keys go to the device (``prefetch_to_device``); dataset
   names stay on the host, as ids that ride the batch's copy. The step's five
   scalars and the learning rate come back in one read a step.
@@ -30,6 +40,7 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from feartracker_tpu_torch.convert.load import load_fear_net, load_variables, transfer_variables, variables_of
 from feartracker_tpu_torch.core import box_coder as bc
@@ -39,7 +50,10 @@ from feartracker_tpu_torch.data.device_augs import STAGED_SEARCH_BBOX_KEY, STAGE
 from feartracker_tpu_torch.data.loader import BatchLoader, prefetch_to_device
 from feartracker_tpu_torch.data.sequence import get_sequence_datasets
 from feartracker_tpu_torch.models.fbnet import TRUNKS
+from feartracker_tpu_torch.models.blocks import set_sync_bn
 from feartracker_tpu_torch.models.fear_net import FEARNet
+from feartracker_tpu_torch.parallel import multihost
+from feartracker_tpu_torch.parallel.mesh import local_batch_size
 from feartracker_tpu_torch.tracker.config import TrackerConfig
 from feartracker_tpu_torch.tracker.tracker import FEARTracker
 from feartracker_tpu_torch.train.callbacks import BestWorstMiner, EarlyStopping
@@ -70,25 +84,56 @@ _MOSAIC_KEYS = (C.TRACKER_TARGET_TEMPLATE_IMAGE_KEY, C.TRACKER_TARGET_SEARCH_IMA
                 C.TRACKER_TARGET_BBOX_KEY, C.TARGET_VISIBILITY_KEY)
 
 
-def platform_device(platform: Optional[str]) -> torch.device:
+def platform_device(platform: Optional[str], index: Optional[int] = None) -> torch.device:
     """The device a config's ``platform`` names: ``""``/None or ``gpu`` the
-    card, ``cpu`` the host. The card without one raises."""
+    card (card ``index`` of several), ``cpu`` the host. The card without one
+    raises."""
     if platform in ("", None, "gpu"):
-        return _device("cuda")
+        dev = _device("cuda")
+        return dev if index is None else torch.device("cuda", index)
     if platform == "cpu":
         return torch.device("cpu")
     raise ValueError(f"platform {platform!r}: the port trains on 'gpu' (or '') or 'cpu'")
 
 
+class _NullWriter:
+    """The event log of a process other than rank 0: writes nothing."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    def add_image(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(self, config: Dict[str, Any]):
         self.config = config
+        # one process a card, joined into a process group (the reference's
+        # DDP backends; JAX: one process a host over a global mesh)
         dist_cfg = config.get("distributed") or {}
-        if dist_cfg.get("enabled") or int(config.get("num_devices", 1) or 1) > 1:
-            raise NotImplementedError(
-                "data-parallel training over several cards is not ported yet (ROADMAP.md Queue 1 item 2); "
-                "the loop trains on one device: set num_devices: 1 and distributed.enabled: false")
-        self.device = platform_device(config.get("platform"))
+        n_dev = int(config.get("num_devices", 1) or 0)
+        if dist_cfg.get("enabled") or n_dev > 1:
+            multihost.initialize(dist_cfg)
+            if n_dev > 1 and n_dev != multihost.local_process_count():
+                raise ValueError(f"num_devices {n_dev}: {multihost.local_process_count()} processes run on this "
+                                 "host; launch one process a card (torchrun --nproc_per_node num_devices)")
+        self.is_master = multihost.is_master()
+        self.rank, self.world = multihost.process_index(), multihost.process_count()
+        # the group's step, also for one process (then bit for bit the
+        # no-group step's)
+        self.mesh = multihost.process_group() if dist.is_initialized() else None
+        self.sync_bn = bool(config.get("sync_bn", False)) and self.world > 1
+        index = None
+        if self.mesh is not None and config.get("platform") != "cpu":
+            index = multihost.local_rank()
+            index = self.rank % torch.cuda.device_count() if index is None else index
+        self.device = platform_device(config.get("platform"), index)
+        if index is not None:
+            torch.cuda.set_device(self.device)
 
         self.dtype = {"bfloat16": torch.bfloat16, "float32": None}.get(str(config.get("precision", "float32")), None)
         model_cfg = config.get("model", {})
@@ -154,6 +199,7 @@ class Trainer:
             self.tx,
             coeffs=config.get("loss", {}).get("coeffs"),
             spec=self.box_spec,
+            mesh=self.mesh,
             dual_template=bool(config.get("dual_template", False)),
             device_augs=self.device_augs_cfg,
             aug_seed=int(config.get("seed", 0)),
@@ -162,7 +208,9 @@ class Trainer:
         )
 
         bs = config.get("batch_size", 32)
-        self.batch_size = int(bs["train"] if isinstance(bs, dict) else bs)
+        # JAX's batch_size is a host's; its processes (one a card) split it
+        self.batch_size = local_batch_size(int(bs["train"] if isinstance(bs, dict) else bs),
+                                           multihost.local_process_count() if self.mesh is not None else 1)
         self.train_dataset: Optional[ConcatDataset] = None
         self.val_datasets: List[Any] = []
         self.state = None
@@ -176,9 +224,14 @@ class Trainer:
     @property
     def writer(self):
         if self._writer is None:
-            from feartracker_tpu_torch.train.summary import SummaryWriter
+            if not self.is_master:
+                # the other ranks compute the same metrics (their plateau
+                # and early-stop decisions stay in step) but write nothing
+                self._writer = _NullWriter()
+            else:
+                from feartracker_tpu_torch.train.summary import SummaryWriter
 
-            self._writer = SummaryWriter(os.path.join(self.exp_dir, "logs"))
+                self._writer = SummaryWriter(os.path.join(self.exp_dir, "logs"))
         return self._writer
 
     def setup_data(self) -> None:
@@ -218,6 +271,7 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(rng_seed)
             model = FEARNet(**self.model_kw)
+        set_sync_bn(model, self.sync_bn)
         self.state = create_train_state(model, self.tx, device=self.device)
         # warm start from recovered weights (the reference's pretrained
         # backbone, config/model/fear.yaml:5)
@@ -270,13 +324,17 @@ class Trainer:
 
     def _loader(self) -> BatchLoader:
         # one loader for the whole fit: its epoch counter drives the
-        # per-epoch reshuffle (a fresh loader would replay one permutation)
+        # per-epoch reshuffle (a fresh loader would replay one permutation);
+        # each rank reads its disjoint shard (the reference's
+        # DistributedSampler)
         if not hasattr(self, "_loader_cache"):
             self._loader_cache = BatchLoader(
                 self.train_dataset,
                 batch_size=self.batch_size,
                 num_workers=int(self.config.get("num_workers", 2)),
                 seed=int(self.config.get("seed", 0)),
+                host_id=multihost.process_index(),
+                num_hosts=multihost.process_count(),
             )
         return self._loader_cache
 
@@ -383,14 +441,17 @@ class Trainer:
         max_samples = int(self.config.get("max_val_samples", 200))
         val_percent = self.config.get("val_percent")
         iou_threshold = 0.01
-        rows: List[List[float]] = []  # (dataset index, sequence mean IoU, sequence failure rate)
+        # several processes: each tracks a rank-strided share of the
+        # sequences, and the gathered rows give every rank the same metrics
+        rank, world = multihost.process_index(), multihost.process_count()
+        local_rows: List[List[float]] = []  # (dataset index, sequence mean IoU, sequence failure rate)
         for d_idx, ds in enumerate(self.val_datasets):
             n_seq = len(ds)
             if val_percent:
                 # at most val_percent sequences (at least 1); an empty
                 # dataset stays empty
                 n_seq = min(n_seq, max(1, int(val_percent)))
-            for s in range(n_seq):
+            for s in range(rank, n_seq, world):
                 files, anno, _ = ds[s]
                 tracker.initialize(read_img(files[0]), np.asarray(anno[0], int))
                 n = min(max_samples, len(files), len(anno))
@@ -401,9 +462,9 @@ class Trainer:
                     ious.append(iou)
                     fails.append(float(iou < iou_threshold))
                 if ious:
-                    rows.append([float(d_idx), float(np.mean(ious)), float(np.mean(fails))])
+                    local_rows.append([float(d_idx), float(np.mean(ious)), float(np.mean(fails))])
 
-        table = np.asarray(rows, np.float64).reshape(-1, 3)
+        table = multihost.allgather_rows(np.asarray(local_rows, np.float64).reshape(-1, 3))
         metrics: Dict[str, float] = {}
         if len(table):
             metrics["box_iou"] = float(np.mean(table[:, 1]))
@@ -432,22 +493,25 @@ class Trainer:
         max_samples = int(self.config.get("max_val_samples", 200))
         val_percent = self.config.get("val_percent")
         iou_threshold = 0.01
+        rank, world = multihost.process_index(), multihost.process_count()
         metrics: Dict[str, float] = {}
-        rows: List[List[float]] = []  # (dataset index, sequence mean, failure, precision@20px)
+        local_rows: List[List[float]] = []  # (dataset index, sequence mean, failure, precision@20px)
         for d_idx, ds in enumerate(self.val_datasets):
             res = batched_evaluate(
                 self._batched_val_tracker, ds,
                 streams=streams, frame_hw=frame_hw, max_frames=max_samples,
                 max_sequences=int(val_percent) if val_percent else None,
+                sequence_stride=(rank, world),
             )
             prec = res.get("per_sequence_precision_20px", {})
-            rows += [
+            local_rows += [
                 [float(d_idx), float(np.mean(ov)),
                  float(np.mean(np.asarray(ov) < iou_threshold)),
                  float(prec.get(name, np.nan))]
                 for name, ov in res["per_sequence"].items()
             ]
-        table = np.asarray(rows, np.float64).reshape(-1, 4)
+        # one collective for every dataset's rows
+        table = multihost.allgather_rows(np.asarray(local_rows, np.float64).reshape(-1, 4))
         for d_idx, ds in enumerate(self.val_datasets):
             sel = table[table[:, 0] == d_idx]
             if not len(sel):
@@ -491,6 +555,11 @@ class Trainer:
         # optimizer, step) from the 'last' checkpoint when asked
         start_epoch = 0
         if self.config.get("resume", False):
+            # a rank that cannot see the checkpoint would start fresh while
+            # the others restore: their parameters would part. Fail instead.
+            if not multihost.all_equal(int(self.ckpt.has_last())):
+                raise RuntimeError("resume: checkpoint visibility differs across ranks; "
+                                   "experiment.folder must be a shared filesystem")
             if self.ckpt.has_last():
                 # a corrupt or incompatible checkpoint fails loudly
                 self.state = self.ckpt.restore_last(self.state)
@@ -554,8 +623,10 @@ class Trainer:
                     logger.info("plateau: lr %.2e -> %.2e", lr, new_lr)
                     self.state.opt_state = set_learning_rate(self.state.opt_state, new_lr)
             # checkpoint ids are GLOBAL steps, so a resumed run never reuses
-            # an id of the run before it
-            self.ckpt.save(self.state.step, self.state, monitor, extra={"epoch": epoch + 1})
+            # an id of the run before it; the ranks hold the same state, so
+            # rank 0 alone writes it
+            if self.is_master:
+                self.ckpt.save(self.state.step, self.state, monitor, extra={"epoch": epoch + 1})
 
             if monitor is not None and self.early_stopping.update(monitor) and epoch + 1 >= min_epochs:
                 logger.info("early stopping at epoch %d (best %.4f)", epoch, self.early_stopping.best)

@@ -8,7 +8,10 @@ matmuls in bfloat16 (``torch.autocast``), BatchNorm statistics in float32
 (:class:`~feartracker_tpu_torch.models.blocks.FlaxBatchNorm2d`), and the
 head's outputs cast to float32 before the loss.
 
-Data parallelism over several cards is not ported yet: a ``mesh`` raises.
+Data parallelism is one process a card (``make_train_step(mesh=group)``):
+each process runs the step on its share of the batch, and the step averages
+the gradients, the losses and scalar metrics, and the BatchNorm running
+statistics over the process group, in JAX's ``shard_map`` step's order.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from feartracker_tpu_torch.core import box_coder as bc
@@ -159,11 +163,25 @@ def make_train_step(
     optimizer's ``skip_non_finite`` guards the rest). ``dtype=bfloat16``
     trains in mixed precision (see the module docstring). The state
     carries the model.
+
+    ``mesh`` (a ``torch.distributed`` process group, e.g.
+    ``parallel.multihost.process_group()``) makes the step data-parallel,
+    JAX's ``shard_map`` step for one process a card: the augmentation draws
+    fold in the rank (when the group has more than one process); the local
+    loss and gradients; the gradients averaged over the group in one flat
+    all-reduce; the losses and scalar metrics averaged; the BatchNorm
+    running statistics averaged; then the NaN guard on the averaged values;
+    then the optimizer. Per-sample outputs (``ious``, ``visibility``,
+    ``cls_map``, ``reg_map``) stay the process's own rows. Cross-process
+    BatchNorm statistics are the model's (``models.blocks.set_sync_bn``). A
+    group of one process gives the no-group step's results bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training over several cards is not ported yet; "
-                                  "the step runs on one device")
+    if mesh is not None and not isinstance(mesh, dist.ProcessGroup):
+        raise TypeError(f"mesh must be a torch.distributed process group, got {type(mesh).__name__}")
     loss_and_grads = make_loss_and_grads(coeffs, dual_template, dtype)
+    rank = None
+    if mesh is not None and dist.get_world_size(mesh) > 1:
+        rank = dist.get_rank(mesh)
 
     def step_fn(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         net = state.model
@@ -171,15 +189,27 @@ def make_train_step(
             from feartracker_tpu_torch.data.device_augs import aug_generator, augment_batch
 
             dev = batch[TRACKER_TARGET_TEMPLATE_IMAGE_KEY].device
-            batch = augment_batch(batch, aug_generator(aug_seed, state.step, dev), device_augs)
+            batch = augment_batch(batch, aug_generator(aug_seed, state.step, dev, rank), device_augs)
         stats = _bn_stats(net)
         saved = [s.clone() for s in stats] if guard_non_finite else None
         total, losses, out, grads = loss_and_grads(net, batch)
         with torch.no_grad():
             metrics = _step_metrics(out, batch, spec)
+            scalars = {
+                "loss": total,
+                "cls_loss": losses[TARGET_CLASSIFICATION_KEY],
+                "reg_loss": losses[TARGET_REGRESSION_LABEL_KEY],
+                "box_iou": metrics["box_iou"],
+                "failure_rate": metrics["failure_rate"],
+            }
+            if mesh is not None:
+                grads = dict(zip(grads, _group_mean(list(grads.values()), mesh)))
+                scalars = dict(zip(scalars, _group_mean(list(scalars.values()), mesh)))
+                for s, mean in zip(stats, _group_mean(stats, mesh)):
+                    s.copy_(mean)
             if guard_non_finite:
                 ok = torch.isfinite(torch.stack(torch._foreach_norm(stats, float("inf")))).all()
-                ok = ok & torch.isfinite(total)
+                ok = ok & torch.isfinite(scalars["loss"])
                 for s, old in zip(stats, saved):
                     s.copy_(torch.where(ok, s, old))
             params = params_of(net)
@@ -187,11 +217,7 @@ def make_train_step(
             apply_updates(params, updates)
         state.step += 1
         return state, {
-            "loss": total,
-            "cls_loss": losses[TARGET_CLASSIFICATION_KEY],
-            "reg_loss": losses[TARGET_REGRESSION_LABEL_KEY],
-            "box_iou": metrics["box_iou"],
-            "failure_rate": metrics["failure_rate"],
+            **scalars,
             "ious": metrics["ious"],
             "visibility": metrics["visibility"],
             # raw maps for the best/worst-batch mosaics (B·16·16·5)
@@ -200,6 +226,15 @@ def make_train_step(
         }
 
     return step_fn
+
+
+def _group_mean(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The mean of each tensor over ``group``, in one all-reduce of one flat
+    buffer (of the widest dtype); returned in order, each in its own dtype."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return [v.view(t.shape).to(t.dtype) for v, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def make_train_multistep(step, k: int):

@@ -29,8 +29,9 @@ OVERRIDE_VALUES = ["64", "0.5", "-3", "1e-6", "1.0e-6", "True", "false", "null",
                    "/data/x", "abc", "", "~", "0x1F", "017", "1:30", "1_000", ".inf", "on", "Off",
                    "a b c", '"it s"', '[a, "b", [1, 2.5], ~]', "[]", "{}", "3.", "+1", "1.5e+3", "1E-6",
                    "${tracker.instance_size}", "valid/metrics/box_iou"]
-# the JAX package's groups and options; its three TPU backends have no card
-# counterpart here (gpu.yaml stands for tpu.yaml; data parallelism is later)
+# the JAX package's groups and options; its three TPU backends have card
+# counterparts of other names (gpu.yaml, gpu_dp.yaml, gpu_pod.yaml), held to
+# them by key below
 JAX_OPTIONS = sorted(
     (os.path.basename(os.path.dirname(p)), os.path.basename(p)[:-5])
     for p in glob.glob(os.path.join(J.DEFAULT_CONFIG_DIR, "*", "*.yaml"))
@@ -55,7 +56,8 @@ def test_both_trees_are_listed():
     assert len([f for f in CONF_FILES if f[0] == "jax"]) == 23
     ported = {f[1] for f in CONF_FILES if f[0] == "port"}
     assert ported == {f[1] for f in CONF_FILES if f[0] == "jax"} - {
-        "backend/tpu.yaml", "backend/tpu_dp.yaml", "backend/tpu_pod.yaml"} | {"backend/gpu.yaml"}
+        "backend/tpu.yaml", "backend/tpu_dp.yaml", "backend/tpu_pod.yaml"} | {
+        "backend/gpu.yaml", "backend/gpu_dp.yaml", "backend/gpu_pod.yaml"}
 
 
 @pytest.mark.parametrize("tree,rel", CONF_FILES, ids=[f"{t}:{r}" for t, r in CONF_FILES])
@@ -176,3 +178,26 @@ def test_save_config_reads_back_equal(tmp_path):
     J.save_config(cfg, str(tmp_path / "jax.yaml"))
     with open(tmp_path / "jax.yaml") as fh:
         assert _same(yaml_lite.load(fh.read()), cfg)
+
+
+@pytest.mark.parametrize("gpu,tpu", [("gpu_dp", "tpu_dp"), ("gpu_pod", "tpu_pod")])
+def test_data_parallel_backends_have_the_tpu_backends_keys(gpu, tpu):
+    """``gpu_dp`` / ``gpu_pod`` compose through ``load_config``; their keys
+    are those of JAX's ``tpu_dp`` / ``tpu_pod`` plus ``distributed.backend``
+    (and ``distributed.enabled`` for ``gpu_dp``: one process a card needs a
+    group even on one host)."""
+    with open(os.path.join(P.DEFAULT_CONFIG_DIR, "backend", f"{gpu}.yaml")) as fh:
+        port = yaml.safe_load(fh)
+    with open(os.path.join(J.DEFAULT_CONFIG_DIR, "backend", f"{tpu}.yaml")) as fh:
+        ref = yaml.safe_load(fh)
+    assert set(port) == set(ref) | {"distributed"}
+    assert set(port["distributed"]) == set(ref.get("distributed", {"enabled": True})) | {"backend"}
+    assert port["distributed"] == {"enabled": True, "backend": "nccl"}
+    assert (port["platform"], port["sync_bn"], port["precision"]) == ("gpu", True, "bfloat16")
+    assert port["num_devices"] == {"gpu_dp": 4, "gpu_pod": 0}[gpu]
+    composed, jcomposed = P.load_config("fear_tracker", [f"backend={gpu}"]), J.load_config(
+        "fear_tracker", [f"backend={tpu}"])
+    assert composed["distributed"] == port["distributed"] and composed["sync_bn"] is True
+    assert set(composed) == set(jcomposed) | {"distributed"}
+    assert {k for k in jcomposed if composed[k] != jcomposed[k]} <= {"platform", "num_devices", "num_workers",
+                                                                     "distributed"}

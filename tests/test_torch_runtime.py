@@ -167,6 +167,8 @@ def test_port_imports_no_jax_or_reference():
     assert {f"feartracker_tpu_torch.{m}" for m in (
         "utils.logging", "config.yaml_lite", "config.compose", "train.callbacks", "train.summary",
         "train.loop", "train.__main__", "tools.make_npy_dataset")} <= set(modules)
+    # data parallelism and stream sharding
+    assert {f"feartracker_tpu_torch.parallel.{m}" for m in ("multihost", "mesh", "inference")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():

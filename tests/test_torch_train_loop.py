@@ -375,7 +375,7 @@ def test_device_augs_on_npy_frames(tmp_path, base_config):
     assert trainer.ckpt.steps() == [2]
 
 
-def test_entry_points_need_the_card_or_the_cpu(base_config):
+def test_entry_points_need_the_card_or_the_cpu(base_config, monkeypatch):
     for platform in ("", "gpu"):
         if torch.cuda.is_available():
             assert Trainer(_cfg(base_config, "CARD", platform=platform)).device.type == "cuda"
@@ -384,8 +384,12 @@ def test_entry_points_need_the_card_or_the_cpu(base_config):
                 Trainer(_cfg(base_config, "NOCARD", platform=platform))
     with pytest.raises(ValueError, match="platform"):
         Trainer(_cfg(base_config, "TPU", platform="tpu"))
+    # data parallelism is one process a card: without torchrun's variables
+    # or the coordinator keys there is no group to join
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     for over in ({"num_devices": 2}, {"distributed": {"enabled": True}}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        with pytest.raises(ValueError, match="torchrun"):
             Trainer(_cfg(base_config, "DP", **over))
 
 

@@ -384,8 +384,10 @@ def test_nan_batch_leaves_the_state_untouched():
 
 
 def test_mesh_raises_and_cuda_default_raises_without_a_card():
+    """A mesh that is not a process group raises (the data-parallel step is
+    ``tests/test_torch_dp_step.py``'s)."""
     tx = build_optimizer({})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="process group"):
         make_train_step(tx, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
