@@ -163,7 +163,26 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    steps, the sanity check and validation over 13b's three clips as one
    dataset: launches 0/0 in the steps, K1/K2 summed over the ranks equal to
    one process's, the sanity rows gathered equal 13c's one-process rows,
-   one event file and rank 0's checkpoints, the ranks bit-identical.
+   one event file and rank 0's checkpoints, the ranks bit-identical;
+15. the measuring tools (``feartracker_tpu_torch/tools``) through their
+   ``main`` in-process, FEAR-XS bf16 from ``fear_xs.npz`` at S=128, each
+   counted into ``launches_by_path``: 15a ``roofline`` at T=16, eager and
+   ``--scan_unroll 4`` (every share at most 100%; the FLOPs a call the
+   CPU's per-frame count × S·T; one step counted on the card with the xla
+   trunk equal to the CPU's count × S), the bound and the unit that sets
+   it; 15b ``recovery_throughput``, contexts 0 and 3, ``overhead_pct``;
+   15c ``fused_trunk_bench``: the xla and fused trunks' boxes on phase
+   9g's rendered clips at phase 9h's size, S=4 T=8 (bf16 within 9h's 6 px,
+   f32 within 1 px; the S=8 T=16 bf16 check printed), both trunks timed at
+   T=16 with K2 launches a call 0 and 13·T; 15d
+   ``ir_block_micro``, all 16 blocks, K2 against its twin (atol 0.15 or
+   2^-5 of the block's max|out|), the sums beside phase 6's; 15e
+   ``loader_throughput`` on 12c's clips, B=32, 8 threads, ``device_augs``
+   with and without the cache, with ``--step``; 15f ``export_weights`` of
+   12d's checkpoint, the ``.npz`` through ``build_scan_tracker`` against a
+   tracker on the checkpoint's model: 0.0 px; and the xla trunk's
+   ``scan_unroll=4`` graphs after ``set_variables`` to that model equal to a
+   fresh tracker's.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -184,44 +203,15 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 
-def _spin_cycles_per_ms() -> float:
-    """Clock cycles per ms of ``torch.cuda._sleep``'s spin, timed on the card."""
-    import torch
-
-    if not hasattr(_spin_cycles_per_ms, "value"):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        torch.cuda._sleep(50_000_000)
-        e1.record()
-        torch.cuda.synchronize()
-        _spin_cycles_per_ms.value = 50_000_000 / e0.elapsed_time(e1)
-    return _spin_cycles_per_ms.value
-
-
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device ms per call of ``fn``: CUDA events around ``iters`` calls that
-    a spin kernel holds back until the host has queued them all, so that
-    the host's cost per call leaves no gap between them on the card."""
-    import torch
+    """The package's device timer, ``evaluate/profiling.py:time_ms``."""
+    from feartracker_tpu_torch.evaluate.profiling import time_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    call_ms = (time.perf_counter() - t0) * 1e3  # host and device, an upper bound on the host's share
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(_spin_cycles_per_ms() * (1.5 * iters * call_ms + 1.0)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return time_ms(fn, iters, warmup)
 
 
 def _random_block(gen, cin, spec, dtype, device):
@@ -257,32 +247,11 @@ def _block_shapes(specs, crop: int):
     return out
 
 
-# the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W)
-HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
-
-
 def _k2_bound(S: int, h: int, cin: int, spec, dtype: str = "bfloat16"):
-    """(bound ms, its larger term, every term) of one fused block on x
-    (S, h, h, cin) in ``dtype``: the block's input and output and its
-    weights each moved once over the memory rate (activations and matmul
-    weights 2 bytes in bfloat16, 4 in float32; biases and taps 4). bfloat16:
-    the expand and project products over the tensor cores' rate and the
-    depthwise over the CUDA cores' float32 rate, two units side by side;
-    float32: every product an FMA on the CUDA cores, so the products and the
-    depthwise add up ("fmas") over the float32 rate (no TF32)."""
-    ce, k, ho, cout = cin * spec.expansion, spec.kernel, h // spec.stride, spec.out_channels
-    itemsize = 4 if dtype == "float32" else 2
-    nbytes = (S * (h * h * cin + ho * ho * cout) + ce * (cin + cout)) * itemsize + (k * k * ce + 2 * ce + cout) * 4
-    products = 2 * S * (h * h * cin * ce + ho * ho * ce * cout)
-    depthwise = 2 * S * ho * ho * ce * k * k
-    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-    if dtype == "float32":
-        terms["fmas"] = (products + depthwise) / F32_FLOPS * 1e3
-    else:
-        terms["products"] = products / BF16_FLOPS * 1e3
-        terms["depthwise"] = depthwise / F32_FLOPS * 1e3
-    by = max(terms, key=terms.get)
-    return terms[by], by, terms
+    """The package's bound of one fused block, ``evaluate/profiling.py:ir_block_bound``."""
+    from feartracker_tpu_torch.evaluate.profiling import ir_block_bound
+
+    return ir_block_bound(S, h, cin, spec, dtype)
 
 
 def _k1_bound(S: int, itemsize: int = 4, region: bool = True, n: int = 16) -> float:
@@ -292,6 +261,8 @@ def _k1_bound(S: int, itemsize: int = 4, region: bool = True, n: int = 16) -> fl
     and window (S, 4) or the decode's prev size (S, 2); outputs: the region's
     frame box, crop box, confidence and APCE or the decode's box and
     confidence, f32, and the (S, 2) int32 coords."""
+    from feartracker_tpu_torch.evaluate.profiling import HBM_BYTES_PER_S
+
     head = S * n * n * 5 * itemsize + 3 * n * n * 4
     rest = S * 4 * ((8 + 10 + 2) if region else (2 + 5 + 2))
     return (head + rest) / HBM_BYTES_PER_S * 1e3
@@ -593,6 +564,7 @@ def _phase_pool(card, n_fused, counters, tracker):
 
     from feartracker_tpu_torch.evaluate.fps import fps_benchmark, pipelined_online_benchmark
     from feartracker_tpu_torch.evaluate.harness import DEMO_BBOX
+    from feartracker_tpu_torch.evaluate.profiling import spin_cycles_per_ms
     from feartracker_tpu_torch.tracker.serving import StreamPool
 
     cap, hw = 128, (256, 480)
@@ -656,7 +628,7 @@ def _phase_pool(card, n_fused, counters, tracker):
     # the delay outlasts three times the host's dispatches, so a slower host
     # in the checked run still returns inside it
     delay_ms = 3 * sum(dispatch_ms) + 50.0
-    checked_ms, first_done, margin_ms = three_async(int(delay_ms * _spin_cycles_per_ms()))
+    checked_ms, first_done, margin_ms = three_async(int(delay_ms * spin_cycles_per_ms()))
     # the third dispatch fills the card's launch queue (about 1000 pending
     # launches) and waits for the delay to end; the first two must not
     if first_done or not sum(checked_ms[:2]) < delay_ms:
@@ -1869,11 +1841,10 @@ def _phase_train_handover(card, dev, counters, state):
     return launches
 
 
-def _phase_train(card, counters, lap):
-    """Phase 12: training on the card (12a-12e); → (each path's launches,
-    12b's records)."""
-    import tempfile
-
+def _phase_train(card, counters, lap, root: str):
+    """Phase 12: training on the card (12a-12e), 12c's clips and 12d's
+    checkpoints written under ``root`` (phase 15 reads them); → (each path's
+    launches, 12b's records)."""
     import torch
 
     dev = torch.device("cuda")
@@ -1881,11 +1852,10 @@ def _phase_train(card, counters, lap):
     lap("12a")
     profile = _phase_train_profile(card)
     lap("12b")
-    with tempfile.TemporaryDirectory() as root:
-        state, step, staged, step_launches, _ = _phase_train_data(card, dev, counters, root)
-        lap("12c")
-        state = _phase_train_checkpoint(card, dev, state, step, staged, root)
-        lap("12d")
+    state, step, staged, step_launches, _ = _phase_train_data(card, dev, counters, root)
+    lap("12c")
+    state = _phase_train_checkpoint(card, dev, state, step, staged, root)
+    lap("12d")
     handover = _phase_train_handover(card, dev, counters, state)
     lap("12e")
     return {"train_step": step_launches, "train_handover_sequential": handover}, profile, staged
@@ -2521,6 +2491,201 @@ def _phase_parallel(card, counters, lap, staged, step_alone_ms: float, loop_val:
     return launches
 
 
+# 15d: K2 against its twin on ir_block_micro's draws (the JAX tool's
+# randn·0.2, not fan-in scaled: outputs up to ≈26, where one bf16 ulp is
+# 0.125): phase 4's atol 0.15, or 2^-5 of the block's max|out| if larger
+MICRO_BF16_RTOL = 2.0 ** -5
+
+
+def _run_tool(module, argv, counters, tag: str):
+    """A tool's ``main`` in-process on the card, its lines echoed under
+    ``tag`` → (its JSON records, the kernels' launches over the run)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    _zero(counters)
+    with contextlib.redirect_stdout(buf):
+        module.main(argv)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[{tag}] {line}", flush=True)
+    return [json.loads(line) for line in lines if line.startswith("{")], launches
+
+
+def _phase_tools(card, counters, lap, work: str, k2_phase6: dict):
+    """Phase 15: the six measuring tools through their ``main`` on the card,
+    FEAR-XS bf16 from ``fear_xs.npz`` at S=128; ``work`` holds phase 12c's
+    ``.npy`` clips and 12d's checkpoints. → each tool's launches."""
+    import os
+
+    import torch
+
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
+    from feartracker_tpu_torch.evaluate.profiling import BF16_FLOPS, F32_FLOPS
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+    from feartracker_tpu_torch.tools import (export_weights, fused_trunk_bench, ir_block_micro, loader_throughput,
+                                             recovery_throughput, roofline)
+    from feartracker_tpu_torch.tracker.runtime import ScanTracker
+
+    S, T, n_fused, launches = 128, 16, 13, {}
+
+    def used(name, got, k1=True, k2=True):
+        launches[name] = got
+        if (got["K1"] > 0) != k1 or (got["K2"] > 0) != k2:
+            raise AssertionError(f"{name}: launches {got}; expected K1 {'> 0' if k1 else '0'}, "
+                                 f"K2 {'> 0' if k2 else '0'}")
+
+    # 15a: the whole step against the card's peaks, eager and graphed
+    for K in (1, 4):
+        (count, row), got = _run_tool(roofline, ["--streams", str(S), "--chunk", str(T), "--warmup", "2", "--timed",
+                                                 "5", "--scan_unroll", str(K)], counters, "15a")
+        used("roofline" if K == 1 else f"roofline_scan_unroll_{K}", got)
+        if row["flops_per_call"] != count["flops_per_frame"] * S * T:
+            raise AssertionError(f"15a: {row['flops_per_call']} FLOPs a call, not the CPU's per frame × S·T")
+        for key in ("mfu_pct", "hbm_util_pct", "bound_share_pct"):
+            if not 0.0 < row[key] <= 100.0:
+                raise AssertionError(f"15a K={K}: {key} {row[key]} is no share")
+        print(f"[15a] scan_unroll {K}: {row['ms_per_call']:.2f} ms a T={T} call at S={S} bf16 against a bound of "
+              f"{row['bound_ms']:.3f} ms set by {row['binding_roofline']} (CUDA cores "
+              f"{row['cuda_core_flops_per_call'] / F32_FLOPS * 1e3:.3f} ms, tensor cores "
+              f"{row['tensor_core_flops_per_call'] / BF16_FLOPS * 1e3:.3f} ms, HBM {row['hbm_floor_ms']:.3f} ms): "
+              f"{row['bound_share_pct']:.2f}% of the bound, MFU {row['mfu_pct']:.3f}%, HBM {row['hbm_util_pct']:.3f}% "
+              f"[{card}]", flush=True)
+    # the card's own count of one step (the xla trunk: K2 runs outside torch's
+    # dispatcher, so a fused step would hide its products) against the CPU's
+    xla, _ = build_scan_tracker(dtype=torch.bfloat16, device="cuda", trunk_impl="xla")
+    f0, ch, bb = synthetic_streams(S, 1, device="cuda")
+    counted = roofline.count_step(xla, xla.init(f0, bb), ch[0])
+    # the unfolded trunk's 1×1s are convolutions where the folded trunk's are
+    # matrix products: the same products, on the same unit
+    parts = count["flops_by_part_per_frame"]
+    want = {"cuda_core": count["cuda_core_flops_per_frame"] * S, "tensor_core": count["tensor_core_flops_per_frame"] * S,
+            **{k: parts[k] * S for k in ("crop", "depthwise", "bmm")}}
+    got = {**counted.by_unit, **{k: counted.by_part[k] for k in ("crop", "depthwise", "bmm")}}
+    if got != want:
+        raise AssertionError(f"15a: the card counts {got} a step at S={S}, the CPU {want}")
+    print(f"[15a] one step at S={S} counted on the card (xla trunk) = the CPU's per-frame count × S: {got}",
+          flush=True)
+    del xla, f0, ch, bb
+    lap("15a")
+
+    # 15b: zoom-out recovery's throughput cost
+    env = {"BENCH_STREAMS": str(S), "BENCH_CHUNK": str(T), "BENCH_WARMUP": "2", "BENCH_TIMED": "5",
+           "BENCH_REPEATS": "2"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        recs, got = _run_tool(recovery_throughput, [], counters, "15b")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    used("recovery_throughput", got)
+    summary = recs[-1]
+    print(f"[15b] recover_context 3 against 0 at S={S} T={T} bf16: {summary['baseline_fps']:.1f} / "
+          f"{summary['recovery_fps']:.1f} frames/s, overhead {summary['overhead_pct']:.2f}% [{card}]", flush=True)
+    lap("15b")
+
+    # 15c: K2's trunk against the model's own trunk on cuDNN, same tracker;
+    # time on the synthetic streams (the JAX tool's S=8 check printed: in
+    # bf16 over 16 frames one stream in eight drifts 13 px on the H100 and
+    # the mean stays 0.5 px); the boxes held on phase 9h's clips and size,
+    # S=4 T=8, where its 6 px was set, and in f32
+    recs, got = _run_tool(fused_trunk_bench, ["--streams", str(S), "--chunk", str(T), "--check_streams", "8",
+                                              "--warmup", "2", "--timed", "5", "--repeats", "2"], counters, "15c")
+    used("fused_trunk_bench", got)
+    check16, xla_row, fused_row = recs
+    per_call = {"xla": xla_row["k2_launches_per_call"], "fused": fused_row["k2_launches_per_call"]}
+    if per_call != {"xla": 0, "fused": n_fused * T}:
+        raise AssertionError(f"15c: K2 launches a call {per_call}; expected xla 0, fused {n_fused * T}")
+    checks = {}
+    for dtype, tol in (("bfloat16", BF16_BOX_PX["card_f32"]), ("float32", 1.0)):
+        (checks[dtype],), got = _run_tool(fused_trunk_bench, ["--dtype", dtype, "--chunk", "8", "--check_streams", "4",
+                                                              "--timed", "0"], counters, "15c")
+        used(f"fused_trunk_bench_check_{dtype}", got)
+        if not checks[dtype]["max_abs_px"] <= tol:
+            raise AssertionError(f"15c: {dtype} xla vs fused trunk {checks[dtype]['max_abs_px']} px > {tol}")
+    print(f"[15c] xla trunk {xla_row['ms_per_call']:.2f} ms / fused {fused_row['ms_per_call']:.2f} ms a T={T} call "
+          f"at S={S} bf16 = {xla_row['ms_per_call'] / fused_row['ms_per_call']:.3f}x; boxes apart at S=4 T=8: bf16 "
+          f"{checks['bfloat16']['max_abs_px']:.3f} px (tol {BF16_BOX_PX['card_f32']}), f32 "
+          f"{checks['float32']['max_abs_px']:.4f} (tol 1); at S=8 T=16 bf16 {check16['max_abs_px']:.3f} max, "
+          f"{check16['mean_abs_px']:.4f} mean (printed); K2 a call {per_call} [{card}]", flush=True)
+    lap("15c")
+
+    # 15d: each FEAR-XS block alone
+    recs, got = _run_tool(ir_block_micro, ["--streams", str(S), "--inner", "20", "--timed", "1", "--repeats", "2"],
+                          counters, "15d")
+    used("ir_block_micro", got, k1=False)
+    fused_rows = [r for r in recs if r["eligible"]]
+    for r in fused_rows:
+        tol = max(0.15, MICRO_BF16_RTOL * r["max_abs_out"])
+        if not r["max_abs_err"] <= tol:
+            raise AssertionError(f"15d block {r['block']}: max|err| {r['max_abs_err']} > {tol}")
+    if len(recs) != 16 or len(fused_rows) != n_fused:
+        raise AssertionError(f"15d: {len(recs)} blocks, {len(fused_rows)} through K2")
+    print(f"[15d] {len(fused_rows)} K2 blocks at S={S} bf16: kernel {sum(r['fused_ms'] for r in fused_rows):.3f} ms, "
+          f"plain {sum(r['plain_ms'] for r in fused_rows):.3f} ms (phase 6 on the packaged weights: "
+          f"{k2_phase6['ms']:.3f} / {k2_phase6['plain_ms']:.3f}); max|err| "
+          f"{max(r['max_abs_err'] for r in fused_rows):.3e} [{card}]", flush=True)
+    lap("15d")
+
+    # 15e: the loader on 12c's clips against the step's demand
+    recs, got = _run_tool(loader_throughput, ["--root", work, "--batch", "32", "--steps", "6", "--num_workers", "8",
+                                              "--modes", "device_augs,device_augs+cache", "--step"], counters, "15e")
+    used("loader_throughput", got, k1=False, k2=False)
+    for r in recs:
+        if not (r["loader_samples_s"] > 0 and r["device_step_samples_s"] > 0):
+            raise AssertionError(f"15e: {r}")
+    print(f"[15e] B=32 on 8 threads: " + ", ".join(f"{r['mode']} {r['loader_samples_s']:.1f} samples/s (feed ratio "
+                                                   f"{r['feed_ratio']:.4f})" for r in recs)
+          + f" against the step's {recs[0]['device_step_samples_s']:.1f} [{card}]", flush=True)
+    lap("15e")
+
+    # 15f: 12d's checkpoint → .npz → build_scan_tracker, against the
+    # tracker built from the checkpoint's model
+    npz = os.path.join(work, "exported.npz")
+    _, got = _run_tool(export_weights, ["--weights_path", os.path.join(work, "checkpoints", "last"), "--out", npz],
+                       counters, "15f")
+    used("export_weights", got, k1=False, k2=False)
+    model = FEARNet()
+    model.load_state_dict(torch.load(os.path.join(work, "checkpoints", "last", "state.pt"), map_location="cpu",
+                                     weights_only=True)["model"])
+    f0, ch, bb = synthetic_streams(S, 8, seed=2, device="cuda")
+    boxes = {}
+    for name, tracker in (("npz", build_scan_tracker(npz, dtype=torch.bfloat16, device="cuda")[0]),
+                          ("model", ScanTracker(model, dtype=torch.bfloat16, device="cuda"))):
+        _zero(counters)
+        boxes[name] = tracker.track(tracker.init(f0, bb), ch)[1]["bbox"]
+        torch.cuda.synchronize()
+        if name == "npz":
+            used("export_weights_tracker", _read(counters))
+    px = (boxes["npz"] - boxes["model"]).abs().max().item()
+    if px != 0.0:
+        raise AssertionError(f"15f: the exported weights' boxes {px} px from the checkpoint's model's")
+    # the xla trunk under K=4 graphs captured on fear_xs.npz, then swapped
+    # to the checkpoint's model, against a fresh xla tracker on it
+    swapped = build_scan_tracker(dtype=torch.bfloat16, device="cuda", trunk_impl="xla", scan_unroll=4)[0]
+    swapped.track(swapped.init(f0, bb), ch)
+    swapped.set_variables(model)
+    fresh = ScanTracker(model, dtype=torch.bfloat16, device="cuda", trunk_impl="xla", scan_unroll=4)
+    got, want = (t.track(t.init(f0, bb), ch)[1] for t in (swapped, fresh))
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"15f: xla trunk after set_variables under graphs: {differ} differ from a fresh tracker")
+    print(f"[15f] checkpoint → {os.path.getsize(npz) / 2**20:.1f} MiB .npz → ScanTracker bf16 S={S} T=8: boxes "
+          f"{px} px from the tracker on the checkpoint's model; the xla trunk's K=4 graphs after set_variables "
+          f"equal a fresh tracker's [{card}]", flush=True)
+    lap("15f")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2760,15 +2925,17 @@ def main() -> int:
     lap("9")
     graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
     deploy_launches, dispatch_us = _phase_deployment(card, n_fused, counters, lap)
-    train_launches, profile, staged = _phase_train(card, counters, lap)
-    step_alone_ms = next(r["step_ms"] for r in profile if r["batch"] == 32)
-    loop_launches, loop_val = _phase_loop(card, counters, lap, step_alone_ms)
-    parallel_launches = _phase_parallel(card, counters, lap, staged, step_alone_ms, loop_val, track_ms)
+    with tempfile.TemporaryDirectory() as work:
+        train_launches, profile, staged = _phase_train(card, counters, lap, work)
+        step_alone_ms = next(r["step_ms"] for r in profile if r["batch"] == 32)
+        loop_launches, loop_val = _phase_loop(card, counters, lap, step_alone_ms)
+        parallel_launches = _phase_parallel(card, counters, lap, staged, step_alone_ms, loop_val, track_ms)
+        tool_launches = _phase_tools(card, counters, lap, work, {"ms": k2_ms[256], "plain_ms": k2_plain[256]})
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
                "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches,
-               **parallel_launches}
+               **parallel_launches, **tool_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

@@ -93,9 +93,16 @@ def variables_of(model: nn.Module) -> Dict[str, np.ndarray]:
     :func:`load_fear_net`: Flax names, HWIO kernels, float32 numpy on the
     host. ``load_fear_net(m, variables_of(model))`` copies ``model`` into
     ``m`` exactly."""
-    bn = {name for name, m in model.named_modules() if isinstance(m, nn.BatchNorm2d)}
+    return variables_of_state_dict(model.state_dict())
+
+
+def variables_of_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """:func:`variables_of` of a port model's ``state_dict`` (a training
+    checkpoint's ``model``), without the model: a BatchNorm is the module
+    that holds running statistics, as every one of the port's does."""
+    bn = {name.rsplit(".", 1)[0] for name in state if name.endswith(".running_mean")}
     out: Dict[str, np.ndarray] = {}
-    for name, t in model.state_dict().items():
+    for name, t in state.items():
         *path, leaf = name.split(".")
         if leaf == "num_batches_tracked":
             continue

@@ -73,7 +73,7 @@ def cmd_fps(args) -> None:
 
     tracker = ScanTracker(_load(args), dtype=torch.bfloat16, device=args.device,
                           dynamic_template=args.dynamic_template,
-                          update_interval=args.update_interval)
+                          update_interval=args.update_interval, trunk_impl=args.trunk_impl)
     S, T = args.streams, args.chunk
     video = torch.from_numpy(_video(args.video_path, T + 1)).to(args.device)
     frames0 = video[0].expand(S, *video.shape[1:])
@@ -222,6 +222,9 @@ def build_parser() -> argparse.ArgumentParser:
     fp.add_argument("--csv", default=None)
     fp.add_argument("--dynamic_template", action="store_true")
     fp.add_argument("--update_interval", type=int, default=1)
+    fp.add_argument("--trunk_impl", choices=["xla", "fused"], default="fused",
+                    help="'fused' = the folded trunk with the fused block kernel (the default); "
+                         "'xla' = the model's own unfolded trunk on cuDNN")
 
     # `got10k` kept as an alias of `eval --dataset got10k`
     for cmd_name in ("got10k", "eval"):

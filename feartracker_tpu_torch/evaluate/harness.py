@@ -94,6 +94,18 @@ def device_line(device) -> str:
     return out.stdout.strip()
 
 
+def power_limit_w(card_line: str):
+    """The power limit in watts from :func:`device_line`'s ``name, limit``
+    line; None for a CPU run."""
+    return None if card_line == "cpu" else float(card_line.rsplit(",", 1)[1].split()[0])
+
+
+def rate_key(name: str, device) -> str:
+    """The key a rate is printed under: ``name`` on the card, ``name_on_cpu``
+    for a CPU run, whose rates are no device metric."""
+    return name if torch.device(device).type == "cuda" else f"{name}_on_cpu"
+
+
 def synthetic_streams(
     streams: int,
     chunk: int,

@@ -54,7 +54,10 @@ class ShardedScanTracker:
     whole to every device. Frames may also come already split, as one
     tensor a shard on its device (``StreamPool`` stages them so). Every
     shard's work is queued before anything waits, so the devices overlap.
-    The other arguments are ``ScanTracker``'s, given to each replica.
+    The other arguments are ``ScanTracker``'s, given to each replica;
+    ``trunk_impl`` among them: both trunks run here, each replica launching
+    its own kernels on its own device (JAX allows only "xla" on a sharded
+    stream axis, because a Pallas call has no partitioning rule).
     """
 
     def __init__(self, model: FEARNet, config: TrackerConfig = TrackerConfig(), dtype: torch.dtype = torch.float32,

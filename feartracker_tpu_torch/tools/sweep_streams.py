@@ -10,8 +10,8 @@ of ``tools/sweep_streams.py``:
     python -m feartracker_tpu_torch.tools.sweep_streams --streams 64,128,160,192,256 \\
         --warmup 5 --timed 10 --repeats 3 [--profile-dir DIR] [--memory]
 
-``--trunk_impl`` keeps the JAX tool's flag for its command lines; the port
-has one trunk (the folded one with the fused block kernel, JAX's "fused").
+``--trunk_impl`` is ``ScanTracker``'s: "fused" (the default, the folded
+trunk with the fused block kernel) or "xla" (the model's unfolded trunk).
 """
 
 from __future__ import annotations
@@ -45,12 +45,12 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--profile-dir", default=None, help="a torch.profiler trace of one call at the last S")
     ap.add_argument("--memory", action="store_true", help="print the device's peak memory for each S")
-    ap.add_argument("--trunk_impl", default="fused", choices=["fused"], help="the port's one trunk")
+    ap.add_argument("--trunk_impl", default="fused", choices=["xla", "fused"])
     args = ap.parse_args(argv)
 
     device = bench_device()
     s_values = [int(s) for s in args.streams.split(",")]
-    tracker, provenance = build_scan_tracker(dtype=DTYPES[args.dtype], device=device)
+    tracker, provenance = build_scan_tracker(dtype=DTYPES[args.dtype], device=device, trunk_impl=args.trunk_impl)
     print(device_line(device), flush=True)
     print(f"[setup] weights: {provenance}, trunk: {args.trunk_impl}, dtype: {args.dtype}", flush=True)
 

@@ -2,10 +2,12 @@
 ``feartracker_tpu/tracker/runtime.py``.
 
 For S independent streams and a chunk of T uint8 frames, each frame runs
-crop → normalize → folded trunk (fused inverted-residual kernel) → neck →
-BoxTower head against the cached template → the decode region (fused decode,
-rescale, clamp and APCE in one kernel), and carries the per-stream state. ``lax.scan`` becomes a Python loop over T;
-nothing in the loop waits for the device, so frames queue back to back.
+crop → normalize → trunk + neck (by default the folded trunk with the fused
+inverted-residual kernel; ``trunk_impl="xla"`` runs the model's own
+unfolded ``get_features``) → BoxTower head against the cached template →
+the decode region (fused decode, rescale, clamp and APCE in one kernel),
+and carries the per-stream state. ``lax.scan`` becomes a Python loop over
+T; nothing in the loop waits for the device, so frames queue back to back.
 With ``dynamic_template`` a refresh frame also crops and encodes a candidate
 template at the new box (the 128² crop through the same trunk kernels) and
 blends it into the dynamic template.
@@ -145,6 +147,12 @@ class ScanTracker:
         chunk (see :class:`_Unrolled`); on the CPU the same K-step units run
         eagerly, as graphs exist only on the card. Results do not depend on
         K. ``step`` (one frame) always runs eagerly.
+      trunk_impl: "fused" (default): the trunk and neck folded with their
+        BatchNorms (``fold_fear_net``), every block with expansion > 1 in
+        the fused kernel (K2); "xla": the model's own ``get_features`` in
+        ``dtype``, the unfolded convolutions (cuDNN on the card) with
+        eval-mode BatchNorm, and no K2 launch (JAX's default, and its
+        yardstick for the kernel). Both run K1.
     """
 
     def __init__(
@@ -163,7 +171,10 @@ class ScanTracker:
         recover_context: float = 0.0,
         recover_threshold: Optional[float] = None,
         scan_unroll: int = 1,
+        trunk_impl: str = "fused",
     ):
+        if trunk_impl not in ("xla", "fused"):
+            raise ValueError(f"trunk_impl must be 'xla' or 'fused', got {trunk_impl!r}")
         if crop_impl not in ("mm", "gather"):
             raise ValueError(f"crop_impl must be 'mm' or 'gather', got {crop_impl!r}")
         if update_mode not in ("ema", "gated", "feature"):
@@ -186,6 +197,7 @@ class ScanTracker:
         # run nothing)
         self.replayed_launches = {"K1": 0, "K2": 0}
         self.crop_impl = crop_impl
+        self.trunk_impl = trunk_impl
         self.config = config
         self.dtype = dtype
         self.device = torch.device(device)
@@ -205,7 +217,8 @@ class ScanTracker:
             self._gate = gate_params_to(gate_params, self.device)
         src = copy.deepcopy(model).float().eval().to(self.device)
         self.specs = src.trunk_blocks
-        self.folded = fold_fear_net(src, dtype)
+        # fold only for the fused trunk, as JAX does; "xla" reads self.model
+        self.folded = fold_fear_net(src, dtype) if trunk_impl == "fused" else None
         # the "gated" blend weight: sigmoid of the float32 parameter, then
         # cast, as in JAX (the model copy below is cast to ``dtype`` whole)
         with torch.no_grad():
@@ -213,7 +226,7 @@ class ScanTracker:
         self.template_shape = (
             config.template_size // src.encoder.stride,
             config.template_size // src.encoder.stride,
-            self.folded["neck"]["w"].shape[-1],
+            src.neck.downsample.conv.out_channels,
         )
         self.model = src.to(dtype)
 
@@ -221,7 +234,8 @@ class ScanTracker:
     def set_variables(self, model: FEARNet) -> None:
         """Take another loaded model of the same architecture (JAX:
         ``set_variables``, no recompile): its folded trunk and neck (with
-        K2's packed bf16 weights), the head's copy in ``dtype`` and the
+        K2's packed bf16 weights; the fused trunk only), the model's copy in
+        ``dtype`` (the head, and the xla trunk) and the
         "gated" blend weight are copied *into* the tensors the tracker holds.
         The storage stays where it was, so CUDA graphs captured under
         ``scan_unroll`` read the new weights at their next replay. Carried
@@ -230,7 +244,8 @@ class ScanTracker:
         src = copy.deepcopy(model).float().eval().to(self.device)
         if tuple(src.trunk_blocks) != tuple(self.specs):
             raise ValueError("set_variables: the model's trunk differs from the tracker's")
-        _copy_tensors(self.folded, fold_fear_net(src, self.dtype), "folded")
+        if self.folded is not None:
+            _copy_tensors(self.folded, fold_fear_net(src, self.dtype), "folded")
         self._template_gate.copy_(torch.sigmoid(src.template_gate.float()).to(self.dtype))
         _copy_tensors(self.model.state_dict(), src.to(self.dtype).state_dict(), "model")
 
@@ -243,7 +258,10 @@ class ScanTracker:
         return crop_resize(frames.float(), windows, out_size, mean_color)
 
     def _features(self, x: torch.Tensor) -> torch.Tensor:
-        return get_features_folded(x.to(self.dtype).contiguous(), self.folded, self.specs)
+        x = x.to(self.dtype).contiguous()
+        if self.folded is None:
+            return self.model.get_features(x)
+        return get_features_folded(x, self.folded, self.specs)
 
     def _template_features(self, frames, bboxes, mean_color) -> torch.Tensor:
         cfg = self.config

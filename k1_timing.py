@@ -12,8 +12,9 @@ sequential tracker's call) at S=1 and S=128; and an empty kernel (torch's
 spin kernel asked for 0 cycles) back to back, the card's launch floor. Two
 timers, as in ``k2_timing.py``, both CUDA events around a run of calls:
 
-* ``device``: ``chip_smoke.py``'s ``_time_ms``, whose calls a spin kernel
-  holds back until the host has queued them all, so it reads device time
+* ``device``: ``evaluate/profiling.py:time_ms`` of this checkout (loaded
+  by path, whatever ``--root`` holds), whose calls a spin kernel holds back
+  until the host has queued them all, so it reads device time
   (runs of 10 calls, averaged over 20 runs: see :func:`_device_ms`);
 * ``queued``: events around calls queued back to back as the host issues
   them, so a gap the host leaves between two launches counts too.
@@ -52,13 +53,13 @@ def _beside(name: str):
     return mod
 
 
-def _device_ms(smoke, fn, calls: int = 10, reps: int = 20) -> float:
-    """Device ms per call: ``_time_ms`` over runs of ``calls`` calls, few
+def _device_ms(time_ms, fn, calls: int = 10, reps: int = 20) -> float:
+    """Device ms per call: ``time_ms`` over runs of ``calls`` calls, few
     enough that an op sequence's ≈70 launches a call stay under the ≈1021
     launches the card queues before the host blocks (past that the spin
     ends before the host has queued the run, and host gaps count again),
     averaged over ``reps`` runs."""
-    return sum(smoke._time_ms(fn, iters=calls, warmup=1) for _ in range(reps)) / reps
+    return sum(time_ms(fn, iters=calls, warmup=1) for _ in range(reps)) / reps
 
 
 def main(argv=None) -> int:
@@ -85,7 +86,8 @@ def main(argv=None) -> int:
     from feartracker_tpu_torch.ops.crop import crop_bbox_in_window
     from feartracker_tpu_torch.ops.cuda import decode as k1
 
-    smoke, queued_ms = _beside("chip_smoke"), _beside("k2_timing")._queued_ms
+    smoke, k2 = _beside("chip_smoke"), _beside("k2_timing")
+    queued_ms, time_ms = k2._queued_ms, k2._device_timer()
     dev = torch.device("cuda")
     card = device_line(dev)
     cfg = pp.PostprocessConfig()
@@ -120,12 +122,12 @@ def main(argv=None) -> int:
             res = fn()
         sums.update(crop=res.bbox.sum().item(), coords=int(res.pred_coords.sum().item()))
         name = f"{what} S={S} {str(dtype)[6:]}"
-        cells[name] = {"device_ms": _device_ms(smoke, fn), "queued_ms": queued_ms(fn, args.iters),
+        cells[name] = {"device_ms": _device_ms(time_ms, fn), "queued_ms": queued_ms(fn, args.iters),
                        "sums": sums}
         print(f"K1 {name} ({'one launch' if fused or what == 'decode' else 'the op sequence'}): "
               f"{cells[name]['device_ms']:.6f} ms device, {cells[name]['queued_ms']:.6f} ms queued; output sums "
               f"{sums} [{card}]", flush=True)
-    floor = {"device_ms": _device_ms(smoke, lambda: torch.cuda._sleep(0)),
+    floor = {"device_ms": _device_ms(time_ms, lambda: torch.cuda._sleep(0)),
              "queued_ms": queued_ms(lambda: torch.cuda._sleep(0), args.iters)}
     print(f"launch floor (empty kernel): {floor['device_ms']:.6f} ms device, {floor['queued_ms']:.6f} ms queued "
           f"[{card}]", flush=True)

@@ -7,8 +7,9 @@ float32, the sequential tracker's precision, at S=1), at every block with
 expansion > 1, at the search (256²) and template (128²) crops. Two timers,
 both CUDA events around a run of calls:
 
-* ``device``: ``chip_smoke.py``'s ``_time_ms``, whose calls a spin kernel
-  holds back until the host has queued them all, so it reads device time;
+* ``device``: ``evaluate/profiling.py:time_ms`` of this checkout (loaded
+  by path, whatever ``--root`` holds), whose calls a spin kernel holds back
+  until the host has queued them all, so it reads device time;
 * ``queued``: events around calls queued back to back as the host issues
   them, so a gap the host leaves between two launches counts too.
 
@@ -42,6 +43,16 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _device_timer():
+    """``time_ms`` of this checkout's ``evaluate/profiling.py``, loaded by
+    path, so that two checkouts are timed by one timer."""
+    path = HERE / "feartracker_tpu_torch" / "evaluate" / "profiling.py"
+    spec = importlib.util.spec_from_file_location("_timing_profiling", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.time_ms
 
 
 def _queued_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -82,7 +93,7 @@ def main(argv=None) -> int:
     from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
     from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
 
-    smoke = _smoke()
+    smoke, device_ms = _smoke(), _device_timer()
     card = device_line("cuda")
     dt = getattr(torch, args.dtype)
     if dt == torch.float32:  # f32 means f32: no TF32 in the twin's convolutions
@@ -105,8 +116,8 @@ def main(argv=None) -> int:
                     raise AssertionError(f"K2 block{i} S={S} crop {crop}: non-finite output")
                 err, mag = (got - want).abs().max().item(), want.abs().max().item()
                 kern, plain = (lambda: fused_ir_block(x, blk, spec)), (lambda: plain_ir_block(x, blk, spec))
-                row = {"device_ms": smoke._time_ms(kern, iters=iters), "queued_ms": _queued_ms(kern, iters),
-                       "plain_device_ms": smoke._time_ms(plain, iters=iters),
+                row = {"device_ms": device_ms(kern, iters=iters), "queued_ms": _queued_ms(kern, iters),
+                       "plain_device_ms": device_ms(plain, iters=iters),
                        "plain_queued_ms": _queued_ms(plain, iters)}
                 for key in tot:
                     tot[key] += row[key]

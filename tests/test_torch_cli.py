@@ -107,6 +107,15 @@ def test_fps_offline_protocol(capsys):
     assert res["calls"] == 1.0 and res["achieved_fps"] > 0
 
 
+def test_fps_xla_trunk(capsys):
+    """``fps --trunk_impl xla``: the model's own unfolded trunk, JAX's flag;
+    the port's default stays the fused trunk."""
+    res = _run(capsys, ["fps", "--protocol", "offline", "--streams", "2", "--chunk", "2",
+                        "--duration", "1", "--input_fps", "1", "--warmup_calls", "0", "--trunk_impl", "xla"])
+    assert res["calls"] == 1.0 and res["achieved_fps"] > 0
+    assert cli.build_parser().parse_args(["fps"]).trunk_impl == "fused"
+
+
 def test_device_defaults_to_cuda_without_a_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.build_parser().parse_args(["macs"]).device == "cuda"

@@ -113,8 +113,9 @@ def test_unported_options_raise(tiny_setup, kw):
     {"update_interval": 0},
     {"recover_context": -1.0},
     {"scan_unroll": 0},
+    {"trunk_impl": "sometimes"},
 ], ids=["bad_update_mode", "feature_without_gate", "gate_with_ema", "update_interval_0",
-        "negative_recover_context", "scan_unroll_0"])
+        "negative_recover_context", "scan_unroll_0", "bad_trunk_impl"])
 def test_bad_options_raise_value_error(tiny_setup, kw):
     """The JAX ScanTracker's ValueErrors, for the same arguments."""
     with pytest.raises(ValueError):
@@ -169,6 +170,10 @@ def test_port_imports_no_jax_or_reference():
         "train.loop", "train.__main__", "tools.make_npy_dataset")} <= set(modules)
     # data parallelism and stream sharding
     assert {f"feartracker_tpu_torch.parallel.{m}" for m in ("multihost", "mesh", "inference")} <= set(modules)
+    # the measuring tools
+    assert {f"feartracker_tpu_torch.tools.{m}" for m in (
+        "recovery_throughput", "roofline", "fused_trunk_bench", "ir_block_micro", "loader_throughput",
+        "export_weights")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -9,7 +9,10 @@ import torch
 
 from feartracker_tpu_torch.tools import (
     family_bench,
+    fused_trunk_bench,
+    ir_block_micro,
     multiobject_bench,
+    recovery_throughput,
     serving_bench,
     sweep_streams,
     train_profile,
@@ -24,13 +27,31 @@ CASES = {
     "multiobject_bench": (multiobject_bench, ["--objects", "2", "--chunk", "2", "--chunks", "1",
                                               "--height", "256", "--width", "480"], "mode", 2),
     "family_bench": (family_bench, ["--streams", "2", "--chunk", "2", "--repeats", "1", *SMALL], "model", 3),
+    "sweep_streams_xla": (sweep_streams, ["--streams", "2", "--chunk", "2", "--repeats", "1", "--trunk_impl", "xla",
+                                          *SMALL], "S", 1),
+    "recovery_throughput": (recovery_throughput, [], "weights", 3),
+    "fused_trunk_bench": (fused_trunk_bench, ["--streams", "2", "--chunk", "2", "--check_streams", "2",
+                                              "--repeats", "1", *SMALL], "chunk", 3),
+    "ir_block_micro": (ir_block_micro, ["--streams", "2", "--blocks", "3,4", "--inner", "1", "--timed", "1",
+                                        "--repeats", "1"], "plain_ms", 2),
+}
+# the JAX tools' keys in each tool's lines, a rate as ``<name>_on_cpu`` (a CPU
+# run's rates are no device metric)
+JAX_KEYS = {
+    "recovery_throughput": [{"recover_context", "fps_on_cpu", "streams", "chunk", "weights"}] * 2
+    + [{"summary", "baseline_fps_on_cpu", "recovery_fps_on_cpu", "overhead_pct", "weights"}],
+    "fused_trunk_bench": [{"check", "max_abs_px", "mean_abs_px"}]
+    + [{"impl", "weights", "compile_s", "ms_per_call", "tracked_fps_on_cpu", "k2_launches_per_call"}] * 2,
+    "ir_block_micro": [{"block", "spec", "in", "eligible", "plain_ms"}, {"block", "spec", "in", "eligible",
+                                                                         "plain_ms", "fused_ms", "speedup"}],
 }
 
 
 @pytest.fixture(autouse=True)
 def _small_cpu_run(monkeypatch):
     for k, v in {"BENCH_DEVICE": "cpu", "PROBE_WARMUP": "1", "PROBE_TIMED": "1", "PROBE_STREAMS": "2",
-                 "PROBE_CHUNK": "2", "PROBE_REPEATS": "1"}.items():
+                 "PROBE_CHUNK": "2", "PROBE_REPEATS": "1", "BENCH_WARMUP": "1", "BENCH_TIMED": "1",
+                 "BENCH_STREAMS": "2", "BENCH_CHUNK": "2", "BENCH_REPEATS": "1"}.items():
         monkeypatch.setenv(k, v)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -52,6 +73,16 @@ def test_tool_prints_json_lines(name, capsys):
         assert all(r["finite"] for r in records)
     if name == "unroll_probe":
         assert [r["unroll"] for r in records] == [1, 2] and all(r["fps"] > 0 for r in records)
+    for want, r in zip(JAX_KEYS.get(name, ()), records):
+        assert want <= set(r), (want - set(r), r)
+    if name == "recovery_throughput":
+        assert [r.get("recover_context") for r in records] == [0.0, 3.0, None]
+    if name == "fused_trunk_bench":
+        assert [r.get("impl") for r in records] == [None, "xla", "fused"]
+        assert all(r["k2_launches_per_call"] == 0 for r in records[1:])  # the CPU runs the twins
+    if name == "ir_block_micro":
+        assert [(r["block"], r["eligible"]) for r in records] == [(3, False), (4, True)]
+        assert records[1]["max_abs_err"] == 0.0 and records[1]["bound_share_pct"] is None
 
 
 def test_seeded_family_init_is_reproducible():
