@@ -3,19 +3,27 @@ counted from shapes. The counterpart of ``tools/roofline.py``, which reads
 XLA's cost model and prices it against a TPU's peaks; here no compiler is
 asked and no TPU figure is used.
 
-**Work.** One plain frame of the tracker's ``step`` at S=1 on the CPU runs
-under :class:`ProductCounter`, which applies ``torch.utils.flop_counter``'s
-formulas at dispatch (the same total as ``FlopCounterMode``), and the count
-is scaled by S·T. It counts products only (convolutions, matrix products,
-the correlation's bmm; no elementwise work, as ``evaluate/flops.py`` says),
-so it is no XLA count and is not compared with one. It is a function of
-the tracker's configuration (model, dtype, trunk, crop), not of the
-kernels: K2 and its plain twin count the same. Products are split by the
-unit that can run them:
+**Work.** The products the step needs, whatever implements them. The
+model's are counted over one plain frame of the tracker's ``step`` at S=1
+on the CPU under :class:`ProductCounter`, which applies
+``torch.utils.flop_counter``'s formulas at dispatch (the same total as
+``FlopCounterMode``): convolutions, matrix products, the correlation's bmm;
+no elementwise work, as ``evaluate/flops.py`` says, so it is no XLA count
+and is not compared with one. The crop is counted by what a bilinear crop
+needs, four taps a value at a multiply-add each (:func:`crop_flops`), not
+by the products its implementation runs: ``crop_impl="mm"`` contracts with
+dense (out, H) and (out, W) matrices of two nonzeros a row, 0.3775 GFLOP a
+256×480 frame against the 1.6 MFLOP the crop needs, and ``"gather"`` runs
+none. What the step runs as implemented is printed apart as information
+(``executed_flops_per_frame``, ``executed_crop_flops_per_frame``); it sets
+no floor. The count is scaled by S·T. It is a function of the tracker's
+configuration (model, dtype), not of the kernels or of ``crop_impl``: K2
+and its plain twin count the same. Products are split by the unit that can
+run them:
 
-* CUDA cores, 67 TFLOP/s: float32 products (the crop's two contractions,
-  float32 whatever the tracker's dtype, with TF32 off; every product of a
-  float32 tracker) and every depthwise convolution;
+* CUDA cores, 67 TFLOP/s: the crop's taps (float32 whatever the tracker's
+  dtype), every product of a float32 tracker (TF32 off), and every
+  depthwise convolution;
 * tensor cores, 989 TFLOP/s: bfloat16 dense products.
 
 **Bytes** are what the call must move, each once: the frames in
@@ -68,14 +76,15 @@ BATCHED = (aten.bmm, aten.baddbmm)
 
 
 class ProductCounter(TorchDispatchMode):
-    """FLOPs of every op that torch's FLOP counter has a formula for, by
-    part ("crop" while :attr:`part` says so, else "depthwise", "conv", "bmm"
-    or "mm") and by unit ("cuda_core": depthwise or float32; else
-    "tensor_core")."""
+    """FLOPs of every op that torch's FLOP counter has a formula for: inside
+    the crop (while :attr:`in_crop`) into :attr:`crop_executed`, elsewhere
+    by part ("depthwise", "conv", "bmm" or "mm") and by unit ("cuda_core":
+    depthwise or float32; else "tensor_core")."""
 
     def __init__(self):
         super().__init__()
-        self.part = None
+        self.in_crop = False
+        self.crop_executed = 0
         self.by_part: Dict[str, int] = defaultdict(int)
         self.by_unit: Dict[str, int] = defaultdict(int)
 
@@ -95,27 +104,38 @@ class ProductCounter(TorchDispatchMode):
             return func(*args, **kwargs)
         out = func(*args, **kwargs)
         n = int(formula(*args, **kwargs, out_val=out))
+        if self.in_crop:
+            self.crop_executed += n
+            return out
         if packet in CONVOLUTIONS:
             groups = args[8] if len(args) > 8 else kwargs.get("groups", 1)
             kind = "depthwise" if groups > 1 and groups == args[0].shape[1] else "conv"
         else:
             kind = "bmm" if packet in BATCHED else "mm"
-        self.by_part[self.part or kind] += n
+        self.by_part[kind] += n
         f32 = out.dtype in (torch.float32, torch.float64)
         self.by_unit["cuda_core" if kind == "depthwise" or f32 else "tensor_core"] += n
         return out
 
 
-def count_step(tracker, state, frames) -> ProductCounter:
-    """Count one ``tracker.step(state, frames)``, its crop apart."""
+def crop_flops(out_size: int, channels: int) -> int:
+    """The products a bilinear ``out_size``² crop needs: four taps a value,
+    a multiply-add (2 FLOPs) each."""
+    return 2 * 4 * out_size * out_size * channels
+
+
+def count_step(tracker, state, frames) -> Dict:
+    """The products one ``tracker.step(state, frames)`` needs over its S
+    streams: the model's as counted, the crop's by :func:`crop_flops`; and
+    what it runs as implemented (``executed``)."""
     counter, crop = ProductCounter(), tracker._crop
 
     def counted_crop(*args, **kwargs):
-        counter.part = "crop"
+        counter.in_crop = True
         try:
             return crop(*args, **kwargs)
         finally:
-            counter.part = None
+            counter.in_crop = False
 
     tracker._crop = counted_crop
     try:
@@ -123,7 +143,11 @@ def count_step(tracker, state, frames) -> ProductCounter:
             tracker.step(state, frames)
     finally:
         del tracker._crop
-    return counter
+    model = sum(counter.by_part.values())
+    needed = crop_flops(tracker.config.instance_size, frames.shape[-1]) * state.template_feats.shape[0]
+    return {"flops": model + needed, "by_part": {**counter.by_part, "crop": needed},
+            "cuda_core": counter.by_unit["cuda_core"] + needed, "tensor_core": counter.by_unit["tensor_core"],
+            "executed": model + counter.crop_executed, "executed_crop": counter.crop_executed}
 
 
 def _nbytes(tensors) -> int:
@@ -150,23 +174,20 @@ def unfused_activation_bytes(model, search: torch.Tensor, template_feats: torch.
     return total[0]
 
 
-def frame_cost(dtype: torch.dtype) -> Dict:
+def frame_cost(dtype: torch.dtype, crop_impl: str = "mm") -> Dict:
     """One plain frame (256×480, FEAR-XS from ``fear_xs.npz``) at S=1 on the
-    CPU: its products by part and unit, the state's bytes per stream (in
+    CPU: :func:`count_step`'s products, the state's bytes per stream (in
     and out), the outputs' bytes per frame and stream, the weights' bytes
     and the unfused activation bytes."""
-    tracker, _ = build_scan_tracker(dtype=dtype, device="cpu")
+    tracker, _ = build_scan_tracker(dtype=dtype, device="cpu", crop_impl=crop_impl)
     frames0, chunk, boxes = synthetic_streams(1, 1, device="cpu")
     state = tracker.init(frames0, boxes)
-    counter = count_step(tracker, state, chunk[0])
+    cost = count_step(tracker, state, chunk[0])
     _, out = tracker.step(state, chunk[0])
     size = tracker.config.instance_size
     search = torch.zeros((1, size, size, 3), dtype=dtype)
     return {
-        "flops": sum(counter.by_part.values()),
-        "by_part": dict(counter.by_part),
-        "cuda_core": counter.by_unit["cuda_core"],
-        "tensor_core": counter.by_unit["tensor_core"],
+        **cost,
         "frame_hw": tuple(frames0.shape[1:3]),
         "weight_bytes": _nbytes(tracker.model.parameters()),
         "state_bytes": 2 * _nbytes(state),
@@ -239,6 +260,9 @@ def main(argv=None) -> None:
         "count": "one plain step at S=1 on the CPU, per frame", "weights": provenance, "dtype": args.dtype,
         "flops_per_frame": cost["flops"], "flops_by_part_per_frame": cost["by_part"],
         "cuda_core_flops_per_frame": cost["cuda_core"], "tensor_core_flops_per_frame": cost["tensor_core"],
+        "executed_flops_per_frame": cost["executed"], "executed_crop_flops_per_frame": cost["executed_crop"],
+        "executed_note": "information only: the products the tracker runs as implemented (the mm crop's dense "
+                         "contractions); sets no floor",
         "weight_bytes": cost["weight_bytes"], "state_bytes_per_stream": cost["state_bytes"],
         "output_bytes_per_frame_stream": cost["output_bytes"],
         "unfused_activation_bytes_per_frame_MB": cost["activation_bytes"] / 1e6,

@@ -186,8 +186,11 @@ def test_frame_count_equals_flop_counter_mode(costs, dtype):
     with FlopCounterMode(display=False) as counter:
         tracker.step(state, ch[0])
     cost = costs[dtype]
-    assert cost["flops"] == counter.get_total_flops() == sum(cost["by_part"].values())
-    assert cost["cuda_core"] + cost["tensor_core"] == cost["flops"]
+    # what the step runs is FlopCounterMode's total; what it needs swaps the
+    # mm crop's contractions for the bilinear taps
+    assert cost["executed"] == counter.get_total_flops()
+    assert cost["flops"] == cost["executed"] - cost["executed_crop"] + roofline.crop_flops(256, 3)
+    assert cost["flops"] == sum(cost["by_part"].values()) == cost["cuda_core"] + cost["tensor_core"]
 
 
 def _depthwise_flops(model: nn.Module, search: torch.Tensor, feats: torch.Tensor) -> int:
@@ -210,13 +213,25 @@ def test_frame_count_parts(costs):
     cost = costs[torch.float32]
     model = build_scan_tracker(dtype=torch.float32, device="cpu")[0].model
     parts = cost["by_part"]
-    # the model's products are track_cost's; the crop's two contractions its formula
+    # the model's products are track_cost's; the crop its bilinear taps; the
+    # mm crop runs its two contractions' formula
     assert cost["flops"] - parts["crop"] == flops.track_cost(model)["flops"]
     (H, W), out, C = cost["frame_hw"], 256, 3
-    assert parts["crop"] == 2 * (out * H * W * C + out * out * W * C)
+    assert parts["crop"] == 2 * 4 * out * out * C
+    assert cost["executed_crop"] == 2 * (out * H * W * C + out * out * W * C)
     assert parts["depthwise"] == _depthwise_flops(model, torch.zeros(1, 256, 256, 3), torch.zeros(1, 8, 8, 256))
-    for got, want in ((cost["flops"], 1.300e9), (parts["crop"], 0.3775e9), (parts["depthwise"], 0.0945e9)):
+    for got, want in ((cost["executed"], 1.300e9), (cost["executed_crop"], 0.3775e9), (parts["depthwise"], 0.0945e9),
+                      (cost["flops"], 0.9243e9)):
         assert abs(got / want - 1) <= 0.005, (got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_frame_count_is_the_same_whatever_crop_impl(costs, dtype):
+    mm, gather = costs[dtype], roofline.frame_cost(dtype, crop_impl="gather")
+    for key in ("flops", "by_part", "cuda_core", "tensor_core"):
+        assert gather[key] == mm[key], key
+    # the gather crop runs no product; the mm crop its contractions
+    assert gather["executed_crop"] == 0 < mm["executed_crop"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
@@ -410,17 +425,12 @@ def test_export_refuses_an_orbax_like_directory(tmp_path):
 
 # -- the shared timer and peaks ----------------------------------------------------------
 
-def test_chip_smoke_resolves_to_the_packages_timer_and_peaks(monkeypatch):
+def test_chip_smoke_resolves_to_the_packages_timer_and_peaks():
     import chip_smoke
-    from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
 
-    calls = []
-    monkeypatch.setattr(profiling, "time_ms", lambda fn, iters, warmup: calls.append((fn, iters, warmup)) or 1.5)
-    assert chip_smoke._time_ms(print, 7, 2) == 1.5 and calls == [(print, 7, 2)]
-    for S, h, cin, spec, dt in ((128, 128, 16, FEAR_XS_TRUNK[1], "bfloat16"), (1, 16, 64, FEAR_XS_TRUNK[10], "float32")):
-        assert chip_smoke._k2_bound(S, h, cin, spec, dt) == profiling.ir_block_bound(S, h, cin, spec, dt)
+    # no copy of the timer, its spin calibration, the bound or the peaks
     assert not any(hasattr(chip_smoke, k) for k in ("HBM_BYTES_PER_S", "BF16_FLOPS", "F32_FLOPS",
-                                                    "_spin_cycles_per_ms"))
+                                                    "_spin_cycles_per_ms", "_time_ms", "_k2_bound"))
     nbytes = 128 * 16 * 16 * 5 * 2 + 3 * 16 * 16 * 4 + 128 * 4 * 20
     assert chip_smoke._k1_bound(128, 2) == nbytes / profiling.HBM_BYTES_PER_S * 1e3
     assert (profiling.HBM_BYTES_PER_S, profiling.BF16_FLOPS, profiling.F32_FLOPS) == (3.35e12, 989e12, 67e12)
