@@ -185,7 +185,25 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    12d's checkpoint, the ``.npz`` through ``build_scan_tracker`` against a
    tracker on the checkpoint's model: 0.0 px; and the xla trunk's
    ``scan_unroll=4`` graphs after ``set_variables`` to that model equal to a
-   fresh tracker's.
+   fresh tracker's;
+16. the scenario suites and the ablation and probe tools
+   (``feartracker_tpu_torch/tools``), each through its ``run`` on the card,
+   FEAR-XS bf16 from ``fear_xs.npz`` unless named, each counted into
+   ``launches_by_path``: 16a the numpy scenario generator writes drift,
+   occlusion, pose and swap at seeds 7 and 13 (one track and 4 val
+   sequences of 24 frames each, 160×224) and drift again at 2× (320×448),
+   with no cv2 or pandas, its seconds printed; 16b ``dual_template_ablation``,
+   ``recovery_ablation`` (with the dual arms), ``gate_v2_ablation``,
+   ``occlusion_signal_probe``, ``letterbox_penalty`` (160×224 canvas, 2×
+   scenes), ``vot_recovery``, ``vot_unified``, ``tune_tracker`` (sequential
+   float32 and batched bf16, as the JAX tool), ``family_pareto`` (FEAR-XS,
+   -M and -L at their published widths) and ``quantized_quality`` (both
+   pairs exported on the card, K2 through ``fear_port::ir_block``) on those
+   roots, their rows printed, each launching K1 and K2; 16c the card against
+   the port on the CPU on witness roots (seed 7, two 12-frame sequences):
+   ``recovery_ablation`` and ``vot_recovery`` in float32 (AO, VOT accuracy and
+   EAO within 0.01, failures equal) and bfloat16 (0.02, failures within one),
+   and ``quantized_quality``'s float32 pair (0.01) and bfloat16 pair (0.02).
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -2716,6 +2734,189 @@ def _phase_tools(card, counters, lap, work: str, k2_phase6: dict):
     return launches
 
 
+# phase 16: the scenario suites at reduced counts (16a-b), and the CPU
+# witness (16c) at one scenario, one seed, two 12-frame sequences a family
+SCENARIO_SEEDS, SCENARIO_SEQUENCES, SCENARIO_FRAMES = (7, 13), 4, 24
+WITNESS_SEQUENCES, WITNESS_FRAMES = 2, 12
+# 16c, card against the port on the CPU: 9g's limits in float32 (AO and VOT
+# accuracy 0.01, failures equal), 9h's in bfloat16 (AO 0.02, failures within
+# one; VOT accuracy printed, held to no limit, as in 9h)
+SCENARIO_LIMITS = {"float32": {"ao": 0.01, "accuracy": 0.01, "eao": 0.01, "robustness_failures": 0},
+                   "bfloat16": {"ao": BF16_AO, "robustness_failures": BF16_VOT_FAILURES}}
+
+
+def _tool_rows(fn, counters, tag: str):
+    """A tool's ``run`` (``fn``) with its JSON lines echoed under ``tag`` →
+    (its records, the kernels' launches over the run, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    _zero(counters)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        recs = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            print(f"[{tag}] {line}", flush=True)
+    return recs, launches, seconds
+
+
+def _quiet(fn):
+    """``fn()`` with its printed lines dropped (16c's witnesses)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def _witness(rows_card, rows_cpu, keys, what: str, limits: dict) -> str:
+    """16c: the card's rows against the CPU's, matched by ``keys``, each
+    field of ``limits`` within its limit (AO, VOT accuracy, EAO and
+    failures are compared). → one line of the largest gaps."""
+    cpu = {tuple(r[k] for k in keys): r for r in rows_cpu if "summary" not in r}
+    card = [r for r in rows_card if "summary" not in r]
+    if sorted(cpu) != sorted(tuple(r[k] for k in keys) for r in card):
+        raise AssertionError(f"16c {what}: the card's rows {card} are not the CPU's {list(cpu.values())}")
+    gaps = {}
+    for r in card:
+        w = cpu[tuple(r[k] for k in keys)]
+        for k in ("ao", "accuracy", "eao", "robustness_failures"):
+            if k in r:
+                gaps[k] = max(gaps.get(k, 0.0), abs(r[k] - w[k]))
+    if any(gaps[k] > limits[k] for k in gaps if k in limits):
+        raise AssertionError(f"16c {what}: card vs CPU gaps {gaps}, limits {limits}: card {card}, "
+                             f"CPU {list(cpu.values())}")
+    return f"{what} " + ", ".join(f"{k} {v:.4f}" + (f" (<= {limits[k]})" if k in limits else "")
+                                  for k, v in gaps.items())
+
+
+def _phase_scenarios(card, counters, lap, work: str):
+    """Phase 16: the numpy scenario generator on the card host (16a), the
+    ten ablation and probe tools' ``run`` on the card, bf16, each launching
+    K1 and K2 (16b), and the card against the port on the CPU on the same
+    generated roots, float32 and bfloat16 (16c). → each tool's launches."""
+    import os
+
+    import torch
+
+    from feartracker_tpu_torch.ops.cuda.ir_block import ir_block_op_cuda
+    from feartracker_tpu_torch.tools import (dual_template_ablation, family_pareto, gate_v2_ablation,
+                                             letterbox_penalty, occlusion_signal_probe, quantized_quality,
+                                             recovery_ablation, tune_tracker, vot_recovery, vot_unified)
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import SCENARIOS, generate
+
+    # 16a: every scenario at 2 seeds, and drift again at 2× (letterbox_penalty's)
+    root = os.path.join(work, "scenarios")
+    n, frames, seeds = SCENARIO_SEQUENCES, SCENARIO_FRAMES, SCENARIO_SEEDS
+    t0 = time.perf_counter()
+    for scenario in SCENARIOS:
+        for seed in seeds:
+            generate(os.path.join(root, f"{scenario}_s{seed}"), tracks=1, frames=frames, val_sequences=n, seed=seed,
+                     appearance_drift=1.0 if scenario == "drift" else 0.0, scenario=scenario)
+    gen_1x = time.perf_counter() - t0
+    for seed in seeds:
+        generate(os.path.join(root, f"drift_s{seed}_x2"), tracks=1, frames=frames, val_sequences=n, seed=seed,
+                 size=(320, 448), obj_scale=2.0, appearance_drift=1.0, scenario="drift")
+    gen_all = time.perf_counter() - t0
+    if {"cv2", "pandas"} & set(sys.modules):
+        raise AssertionError(f"16a: the generator imported {sorted({'cv2', 'pandas'} & set(sys.modules))}")
+    frames_written = (len(SCENARIOS) + 1) * len(seeds) * (n + 1) * frames
+    print(f"[16a] numpy generator, no cv2 or pandas: {len(SCENARIOS)} scenarios x seeds {list(seeds)}, 1 track + "
+          f"{n} val sequences of {frames} frames each, 160x224, in {gen_1x:.1f} s; drift at obj_scale 2 "
+          f"(320x448) too: {frames_written} .npy frames in {gen_all:.1f} s", flush=True)
+    lap("16a")
+
+    # 16b: each tool's run on the card, bf16 (tune_tracker: JAX's float32
+    # sequential, bfloat16 batched), at reduced counts
+    kw = dict(seeds=seeds, sequences=n, frames=frames, root=root)
+    tune_root = os.path.join(root, f"pose_s{seeds[0]}", "got10k")
+    runs = {
+        "dual_template_ablation": lambda: dual_template_ablation.run(scenarios=("swap", "occlusion"), **kw),
+        "recovery_ablation": lambda: recovery_ablation.run(scenarios=("occlusion", "swap"), contexts=[3.0],
+                                                           with_dual=True, **kw),
+        "gate_v2_ablation": lambda: gate_v2_ablation.run(scenarios=SCENARIOS, **kw),
+        "occlusion_signal_probe": lambda: occlusion_signal_probe.run(scenarios=("occlusion", "pose", "swap"), **kw),
+        "letterbox_penalty": lambda: letterbox_penalty.run(scenarios=["drift"], scale=2.0, canvas_h=160,
+                                                           canvas_w=224, **kw),
+        # burn-in 5 of the tools' 10: the 24-frame sequences keep scored frames
+        "vot_recovery": lambda: vot_recovery.run(scenarios=["occlusion"], contexts=[3.0], burnin=5, **kw),
+        "vot_unified": lambda: vot_unified.run(scenarios=["occlusion"], burnin=5, **kw),
+        "tune_tracker": lambda: tune_tracker.run(tune_root, penalty_k=[0.062, 0.15], window=[0.38]),
+        "tune_tracker_batched": lambda: tune_tracker.run(tune_root, penalty_k=[0.062, 0.15], window=[0.38],
+                                                         batched=True, streams=n),
+        "family_pareto": lambda: family_pareto.run(scenarios=("swap", "pose"), **kw),
+        "quantized_quality": lambda: quantized_quality.run(export_dir=os.path.join(work, "export16"),
+                                                           scenarios=["drift"], seeds=seeds, seq_frames=frames,
+                                                           sequences=n, root=root),
+    }
+    launches = {}
+    for name, fn in runs.items():
+        ir_block_op_cuda.calls = 0
+        recs, got, seconds = _tool_rows(fn, counters, "16b")
+        launches[name] = got
+        if not (got["K1"] > 0 and got["K2"] > 0):
+            raise AssertionError(f"16b {name}: launches {got}; expected K1 and K2 each > 0")
+        if name == "quantized_quality" and not ir_block_op_cuda.calls > 0:
+            raise AssertionError(f"16b {name}: K2 never ran through the operator fear_port::ir_block")
+        if name == "occlusion_signal_probe":  # counts of update-eligible frames, and APCE
+            per = [r for r in recs if "eligible" in r]
+            aos = [q for r in per for c in ("apce_good", "apce_bad") if r[c] for q in r[c].values()]
+            if not (per and sum(r["eligible"] for r in per) > 0 and all(r["good"] + r["bad"] == r["eligible"]
+                                                                        for r in per)):
+                raise AssertionError(f"16b {name}: {per}")
+        else:
+            aos = [r[k] for r in recs for k in ("ao", "mixed_ao", "accuracy") if k in r]
+            if not aos or not all(0.0 <= a <= 1.0 for a in aos):
+                raise AssertionError(f"16b {name}: AO/accuracy {aos}")
+        line = (f"{name} {len(recs)} lines, K1 {got['K1']} / K2 {got['K2']}"
+                + (f" (operator {ir_block_op_cuda.calls})" if name == "quantized_quality" else "") + f", {seconds:.1f} s")
+        what = "APCE quantiles" if name == "occlusion_signal_probe" else "AO/accuracy"
+        print(f"[16b] {line}; {what} {min(aos):.4f}-{max(aos):.4f} [{card}]", flush=True)
+    lap("16b")
+
+    # 16c: card against the port on the CPU, one family of tools at a time
+    wroot = os.path.join(work, "witness")
+    wkw = dict(seeds=[seeds[0]], sequences=WITNESS_SEQUENCES, frames=WITNESS_FRAMES, root=wroot)
+    lines = []
+    for dtype_name, limits in SCENARIO_LIMITS.items():
+        dtype = getattr(torch, dtype_name)
+        rows = {}
+        for device in ("cuda", "cpu"):
+            rows[device] = (
+                _quiet(lambda: recovery_ablation.run(scenarios=["swap"], contexts=[3.0], dtype=dtype, device=device,
+                                                     **wkw)),
+                _quiet(lambda: vot_recovery.run(scenarios=["occlusion"], contexts=[3.0], skip=2, burnin=3,
+                                                dtype=dtype, device=device, **wkw)))
+        lines.append(_witness(rows["cuda"][0], rows["cpu"][0], ("mode", "scenario", "seed"),
+                              f"{dtype_name} batched (recovery_ablation)", limits))
+        lines.append(_witness(rows["cuda"][1], rows["cpu"][1], ("mode", "scenario", "seed"),
+                              f"{dtype_name} VOT (vot_recovery)", limits))
+        if not any(r.get("robustness_failures", 0) > 0 for r in rows["cuda"][1]):
+            raise AssertionError(f"16c: no VOT failure on the occlusion witness to compare: {rows['cuda'][1]}")
+    # the card's pair is 16b's export; graphs run where they were exported
+    qrows = {device: _quiet(lambda: quantized_quality.run(export_dir=os.path.join(work, "export16" if device == "cuda"
+                                                                                  else "export16_cpu"),
+                                                          scenarios=["swap"], seeds=[seeds[0]],
+                                                          seq_frames=WITNESS_FRAMES, sequences=WITNESS_SEQUENCES,
+                                                          root=wroot, device=device))
+             for device in ("cuda", "cpu")}
+    for path, dtype_name in (("fp32_export", "float32"), ("quantized_export", "bfloat16")):
+        lines.append(_witness([r for r in qrows["cuda"] if r.get("path") == path],
+                              [r for r in qrows["cpu"] if r.get("path") == path], ("scenario", "seed", "path"),
+                              f"{dtype_name} exported pair ({path})", SCENARIO_LIMITS[dtype_name]))
+    print(f"[16c] card vs CPU on one seed, {WITNESS_SEQUENCES} x {WITNESS_FRAMES} frames: " + "; ".join(lines)
+          + f" [{card}]", flush=True)
+    lap("16c")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2962,11 +3163,12 @@ def main() -> int:
         loop_launches, loop_val = _phase_loop(card, counters, lap, step_alone_ms)
         parallel_launches = _phase_parallel(card, counters, lap, staged, step_alone_ms, loop_val, track_ms)
         tool_launches = _phase_tools(card, counters, lap, work, {"ms": k2_ms[256], "plain_ms": k2_plain[256]})
+        scenario_launches = _phase_scenarios(card, counters, lap, work)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
                "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches,
-               **parallel_launches, **tool_launches}
+               **parallel_launches, **tool_launches, **scenario_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

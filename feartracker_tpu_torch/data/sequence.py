@@ -59,7 +59,8 @@ class SequenceDataset:
 
 class GOT10kDataset(SequenceDataset):
     """GOT-10k layout: root/{subset}/GOT-10k_..._{id}/{*.jpg, groundtruth.txt}
-    with a list.txt index."""
+    with a list.txt index; a sequence without ``.jpg`` frames takes its
+    ``*.npy`` frames (``tools/make_synthetic_dataset.py``'s)."""
 
     name = "got10k"
 
@@ -75,7 +76,8 @@ class GOT10kDataset(SequenceDataset):
             )
         for seq in seq_names:
             seq_dir = os.path.join(base, seq)
-            files = sorted(glob.glob(os.path.join(seq_dir, "*.jpg")))
+            files = sorted(glob.glob(os.path.join(seq_dir, "*.jpg"))) or sorted(
+                glob.glob(os.path.join(seq_dir, "*.npy")))
             gt_path = os.path.join(seq_dir, "groundtruth.txt")
             if not files or not os.path.exists(gt_path):
                 continue

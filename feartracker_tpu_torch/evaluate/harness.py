@@ -22,6 +22,20 @@ from feartracker_tpu_torch.models.fear_net import build_family_model
 from feartracker_tpu_torch.tracker.runtime import ScanTracker
 
 DEMO_BBOX = (163.0, 53.0, 45.0, 174.0)  # the demo's default initial box
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}  # a tool's --dtype
+
+
+def load_model(weights_path: str = PACKAGED_FEAR_XS, model_name: str = "fear_xs", towernum: int = 2):
+    """(float32 family model with the weights loaded, weights_provenance).
+    ``weights_path`` is an ``.npz`` archive or a bare zoo name
+    ("fear_xs_gate"); provenance is "fear_xs" when the packaged
+    ``fear_xs.npz`` loaded, else the weights file's basename. A load failure
+    raises: there is no random-weights fallback."""
+    weights_path = resolve_weights(weights_path)
+    model = build_family_model(model_name, towernum=towernum)
+    load_fear_net(model, variables_from_npz(weights_path))
+    same = os.path.exists(PACKAGED_FEAR_XS) and os.path.samefile(weights_path, PACKAGED_FEAR_XS)
+    return model, "fear_xs" if same else os.path.basename(weights_path)
 
 
 def build_scan_tracker(
@@ -32,18 +46,10 @@ def build_scan_tracker(
     towernum: int = 2,
     **tracker_kw,
 ) -> Tuple[ScanTracker, str]:
-    """(ScanTracker, weights_provenance). ``weights_path`` is an ``.npz``
-    archive or a bare zoo name ("fear_xs_gate"); ``model_name`` picks the
-    family trunk; ``tracker_kw`` go to :class:`ScanTracker` (e.g.
-    ``dynamic_template``, ``update_mode``, ``gate_params``). Provenance is
-    "fear_xs" when the packaged ``fear_xs.npz`` loaded, else the weights
-    file's basename. A load failure raises: there is no random-weights
-    fallback."""
-    weights_path = resolve_weights(weights_path)
-    model = build_family_model(model_name, towernum=towernum)
-    load_fear_net(model, variables_from_npz(weights_path))
-    same = os.path.exists(PACKAGED_FEAR_XS) and os.path.samefile(weights_path, PACKAGED_FEAR_XS)
-    provenance = "fear_xs" if same else os.path.basename(weights_path)
+    """(ScanTracker, weights_provenance) over :func:`load_model`'s model;
+    ``tracker_kw`` go to :class:`ScanTracker` (e.g. ``dynamic_template``,
+    ``update_mode``, ``gate_params``)."""
+    model, provenance = load_model(weights_path, model_name, towernum)
     return ScanTracker(model, dtype=dtype, device=device, **tracker_kw), provenance
 
 
@@ -51,6 +57,17 @@ def bench_device() -> torch.device:
     """Where the bench and the throughput tools run: the card, unless
     ``BENCH_DEVICE`` names another device (``cpu`` in the tests)."""
     return torch.device(os.environ.get("BENCH_DEVICE", "cuda"))
+
+
+def tool_device(name=None) -> torch.device:
+    """Where a tool runs: its ``--device`` if given, else
+    :func:`bench_device`. The card on a host without one raises: no tool
+    carries on on the CPU."""
+    device = torch.device(name) if name else bench_device()
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"asked for {device}, but torch.cuda.is_available() is False on this host "
+                           "(pass --device cpu to run on the CPU)")
+    return device
 
 
 def sync(device) -> None:

@@ -22,6 +22,7 @@ import time
 import torch
 
 from feartracker_tpu_torch.evaluate.harness import (
+    DTYPES,
     bench_device,
     build_scan_tracker,
     device_line,
@@ -33,7 +34,6 @@ from feartracker_tpu_torch.models.fear_net import build_family_model
 from feartracker_tpu_torch.tracker.runtime import ScanTracker
 
 TOWERNUM = {"fear_xs": 2, "fear_m": 2, "fear_l": 3}
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def seeded_model(name: str, seed: int = 0):

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from feartracker_tpu_torch.evaluate.harness import (
+    DTYPES,
     bench_device,
     build_scan_tracker,
     device_line,
@@ -40,8 +41,6 @@ from feartracker_tpu_torch.evaluate.harness import (
 )
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
 from feartracker_tpu_torch.tools.make_npy_dataset import render_clip
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 CHECK_SEED = 20  # clip s of the check is rendered from CHECK_SEED + s

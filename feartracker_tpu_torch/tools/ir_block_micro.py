@@ -27,13 +27,11 @@ import time
 import numpy as np
 import torch
 
-from feartracker_tpu_torch.evaluate.harness import bench_device, device_line
+from feartracker_tpu_torch.evaluate.harness import DTYPES, bench_device, device_line
 from feartracker_tpu_torch.evaluate.profiling import ir_block_bound, time_ms
 from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block, pack_block
 from feartracker_tpu_torch.ops.fused_trunk import plain_ir_block
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def block_walk(specs=FEAR_XS_TRUNK):

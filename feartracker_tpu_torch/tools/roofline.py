@@ -59,6 +59,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from feartracker_tpu_torch.evaluate.harness import (
+    DTYPES,
     bench_device,
     build_scan_tracker,
     device_line,
@@ -69,7 +70,6 @@ from feartracker_tpu_torch.evaluate.harness import (
 )
 from feartracker_tpu_torch.evaluate.profiling import BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 aten = torch.ops.aten
 CONVOLUTIONS = (aten.convolution, aten._convolution)
 BATCHED = (aten.bmm, aten.baddbmm)

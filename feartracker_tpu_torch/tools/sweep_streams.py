@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from feartracker_tpu_torch.evaluate.harness import (
+    DTYPES,
     bench_device,
     build_scan_tracker,
     device_line,
@@ -31,8 +32,6 @@ from feartracker_tpu_torch.evaluate.harness import (
     synthetic_streams,
     timed_track_calls,
 )
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def main(argv=None) -> None:

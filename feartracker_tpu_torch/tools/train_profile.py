@@ -34,7 +34,7 @@ import torch
 
 from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net, variables_from_npz
 from feartracker_tpu_torch.core import box_coder as bc
-from feartracker_tpu_torch.evaluate.harness import device_line, sync
+from feartracker_tpu_torch.evaluate.harness import DTYPES, device_line, sync
 from feartracker_tpu_torch.evaluate.profiling import BF16_FLOPS, F32_FLOPS
 from feartracker_tpu_torch.models.fbnet import TINY_TRUNK
 from feartracker_tpu_torch.models.fear_net import FEARNet, build_family_model
@@ -48,7 +48,6 @@ from feartracker_tpu_torch.train.step import (
 from feartracker_tpu_torch.utils import constants as C
 
 H100_PEAK_FLOPS = {torch.bfloat16: BF16_FLOPS, torch.float32: F32_FLOPS}
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # (template side, search side, box coder) per model; "tiny" is the tests' size
 GEOMETRY = {
     "tiny": (32, 64, bc.BoxCoderSpec(score_size=8, total_stride=8, instance_size=64)),

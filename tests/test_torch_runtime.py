@@ -153,7 +153,7 @@ def test_port_imports_no_jax_or_reference():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(modules) >= 58
+    assert len(modules) >= 102
     # the deployment surfaces: weight formats, export, demo, plots and report
     assert {f"feartracker_tpu_torch.{m}" for m in (
         "convert.protowire", "convert.coreml", "convert.fear_weights", "convert.lightning", "convert.export",
@@ -174,6 +174,11 @@ def test_port_imports_no_jax_or_reference():
     assert {f"feartracker_tpu_torch.tools.{m}" for m in (
         "recovery_throughput", "roofline", "fused_trunk_bench", "ir_block_micro", "loader_throughput",
         "export_weights")} <= set(modules)
+    # the scenario generator, its rasterisers, and the ablation and probe tools
+    assert {f"feartracker_tpu_torch.{m}" for m in (
+        "utils.raster", "tools.make_synthetic_dataset", "tools.dual_template_ablation", "tools.recovery_ablation",
+        "tools.gate_v2_ablation", "tools.occlusion_signal_probe", "tools.letterbox_penalty", "tools.vot_recovery",
+        "tools.vot_unified", "tools.tune_tracker", "tools.family_pareto", "tools.quantized_quality")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
