@@ -203,7 +203,33 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    the port on the CPU on witness roots (seed 7, two 12-frame sequences):
    ``recovery_ablation`` and ``vot_recovery`` in float32 (AO, VOT accuracy and
    EAO within 0.01, failures equal) and bfloat16 (0.02, failures within one),
-   and ``quantized_quality``'s float32 pair (0.01) and bfloat16 pair (0.02).
+   and ``quantized_quality``'s float32 pair (0.01) and bfloat16 pair (0.02);
+17. the dataset makers and the training drivers
+   (``feartracker_tpu_torch/tools``), each through its ``run`` on the card
+   host, which has no cv2 or pandas, each counted into ``launches_by_path``:
+   17a ``make_class_dataset`` (12 classes × 8 images, 128²) and
+   ``make_annotations`` over a numpy generator's GOT-10k tree (``.npy``
+   frames) and hand-written COCO JSON and ImageNet-VID XML layouts (rows and
+   frame shapes checked; no cv2 or pandas imported); 17b ``pretrain_trunk``
+   of the FEAR-XS trunk on 17a's classes, 128², B=32, one epoch (loss
+   finite, every exported encoder array transferred into FEAR-XS by
+   ``transfer_variables``, launches 0/0); 17c the eight drivers at full
+   width with cut depth (epochs, samples, tracks and arms, never widths;
+   staged batches and device augmentations): ``train_run`` (2 epochs, then 1
+   resumed: the step count continues), ``pretrain_chain`` (three arms),
+   ``family_train`` (FEAR-XS scratch, FEAR-M warm-started, FEAR-L scratch),
+   ``warm_start_comparison``, ``synthetic_e2e``, ``train_template_gate``,
+   ``train_feature_gate`` (one seed a scenario, 2 sequences of 24 frames) and
+   ``train_flagship`` (the JAX tool's smoke budget, the export and the
+   quality gate), each one's K1/K2 launches equal to its validation and
+   rollout schedule (K1 once an update or batched step; K2 once a fused
+   block a step or update, and again an ``init`` or refresh); 17d the card
+   against the port on the CPU, float32 with TF32 off, each side from the
+   same initial values: the template gate's logit after 4 Adam steps on the
+   same batches (1e-3), ``pretrain_trunk``'s per-epoch loss at lr 1e-5 (rtol
+   1e-3), the feature-gate rollout's boxes (1 px) and ``train_mlp`` on the
+   card's observations at 100 epochs (AUC within 0.005, parameters 1e-4;
+   the tool's 3000 epochs printed).
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -2917,7 +2943,317 @@ def _phase_scenarios(card, counters, lap, work: str):
     return launches
 
 
+# -- 17: the dataset makers and the training drivers ---------------------------
+
+DRIVER_BATCH = 8  # the drivers' train batch where cut: the loader, not the step, sets a step's time here
+GATE_LOGIT_ATOL = 1e-3  # 17d: the template gate's logit after 4 Adam steps, card against CPU, float32
+PRETRAIN_LOSS_RTOL = 1e-3  # 17d: pretrain_trunk's per-epoch loss, card against CPU
+# 17d's pretraining runs at lr 1e-5: at the tool's 1e-3, Adam turns each
+# gradient that is rounding noise into a full ±lr step, and FEAR-XS's
+# classifier parts from itself on the CPU alone (8 against 1 thread: 1.2%
+# after 6 steps, 10% after 12), so no two devices can be held to it there
+PRETRAIN_WITNESS_LR = 1e-5
+MLP_AUC_ATOL = 0.005  # 17d: train_mlp's AUC on the same observations, card against CPU
+MLP_PARAM_ATOL = 1e-4  # 17d: train_mlp's parameters at MLP_WITNESS_EPOCHS
+# the MLP fits separable data: past a few hundred epochs its weights grow and
+# a 1e-7 change of the inputs moves them by 0.9 (of 33.6) on the CPU, so the
+# parameters are held at 100 epochs and the tool's 3000 are printed
+MLP_WITNESS_EPOCHS = 100
+ROLLOUT_BOX_PX = 1.0  # 17d: the float32 rollout's boxes, card against CPU (phase 9g's limit)
+
+
+def _annotation_layouts(root: str):
+    """17a's hand-written COCO-2017 instances JSON and ImageNet-VID XML
+    layouts. → (COCO root, VID root)."""
+    import os
+
+    coco = os.path.join(root, "coco")
+    os.makedirs(os.path.join(coco, "annotations"), exist_ok=True)
+    with open(os.path.join(coco, "annotations", "instances_train2017.json"), "w") as fh:
+        json.dump({"images": [{"id": 7, "file_name": "000007.jpg", "width": 100, "height": 80},
+                              {"id": 9, "file_name": "000009.jpg", "width": 64, "height": 64}],
+                   "annotations": [{"id": 1, "image_id": 7, "bbox": [10, 12, 30, 25], "iscrowd": 0},
+                                   {"id": 2, "image_id": 7, "bbox": [50, 5, 20, 20], "iscrowd": 0},
+                                   {"id": 3, "image_id": 9, "bbox": [0, 0, 10, 10], "iscrowd": 1},
+                                   {"id": 4, "image_id": 9, "bbox": [5, 5, 0, 7], "iscrowd": 0}]}, fh)
+    vid = os.path.join(root, "vid")
+    seq_dir = os.path.join(vid, "Annotations", "VID", "train", "a", "ILSVRC2015_train_00001000")
+    os.makedirs(seq_dir, exist_ok=True)
+    frames = {0: [(0, 0, 10, 10, 30, 20), (1, 0, 50, 40, 20, 20)], 1: [(0, 1, 12, 11, 30, 20)],
+              2: [(0, 0, 14, 12, 30, 20), (1, 0, 55, 42, 20, 20)]}
+    for f, objs in frames.items():
+        body = "".join(f"<object><trackid>{t}</trackid><occluded>{o}</occluded><bndbox><xmin>{x}</xmin>"
+                       f"<ymin>{y}</ymin><xmax>{x + w}</xmax><ymax>{y + h}</ymax></bndbox></object>"
+                       for t, o, x, y, w, h in objs)
+        with open(os.path.join(seq_dir, f"{f:06d}.xml"), "w") as fh:
+            fh.write(f"<annotation><size><width>120</width><height>90</height></size>{body}</annotation>")
+    return coco, vid
+
+
+def _val_lengths(got10k_root: str, cap: int = 10**9, subset: str = "val") -> list:
+    """The frames a validation or evaluation tracks in each sequence."""
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+
+    ds = GOT10kDataset(got10k_root, subset)
+    return [min(len(ds[i][0]), len(ds[i][1]), cap) for i in range(len(ds))]
+
+
+def _n_fused(model_name: str) -> int:
+    from feartracker_tpu_torch.models.fbnet import TRUNKS
+
+    return sum(s.expansion > 1 for s in TRUNKS[model_name])
+
+
+def _sequential_launches(lengths, n_fused: int) -> dict:
+    """``FEARTracker`` over sequences of n frames: an ``initialize`` (K2 once
+    a fused block) and n - 1 updates (K1 once, K2 once a fused block)."""
+    return {"K1": sum(n - 1 for n in lengths), "K2": n_fused * sum(lengths)}
+
+
+def _batched_launches(lengths, streams: int, n_fused: int, refresh: bool = False) -> dict:
+    """``ScanTracker`` over groups of ``streams`` sequences: an ``init`` and a
+    step a frame up to the group's longest (K1 once, K2 once a fused block,
+    and once more on a dual-template refresh, every step at interval 1)."""
+    k1 = k2 = 0
+    for g in range(0, len(lengths), streams):
+        steps = max(lengths[g:g + streams]) - 1
+        k1 += steps
+        k2 += n_fused * (1 + steps * (2 if refresh else 1))
+    return {"K1": k1, "K2": k2}
+
+
+def _sum_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in ("K1", "K2")}
+
+
+def _phase_drivers(card, counters, lap, work: str):
+    """Phase 17: the dataset makers (17a) and classification pretraining
+    (17b) on the card host with no cv2 or pandas, the eight training
+    drivers' ``run`` on the card at full width with cut depth (17c, each
+    one's K1/K2 launches equal to its validation and rollout schedule), and
+    the card against the port on the CPU in float32 (17d). → each step's
+    launches."""
+    import itertools
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.convert.load import transfer_variables, variables_from_npz, variables_of
+    from feartracker_tpu_torch.data.loader import BatchLoader
+    from feartracker_tpu_torch.models.fear_net import build_family_model
+    from feartracker_tpu_torch.tools import (family_train, make_annotations, make_class_dataset, pretrain_chain,
+                                             pretrain_trunk, synthetic_e2e, train_feature_gate, train_flagship,
+                                             train_run, train_template_gate, warm_start_comparison)
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import SCENARIOS, generate
+
+    t17 = time.perf_counter()
+    launches = {}
+
+    # 17a: the dataset makers, numpy and the standard library only
+    cls_root = os.path.join(work, "classes")
+    recs, launches["make_class_dataset"], seconds = _tool_rows(
+        lambda: make_class_dataset.run(cls_root, per_class=8, size=128, seed=0), counters, "17a")
+    if recs[0]["images"] != 96:
+        raise AssertionError(f"17a make_class_dataset: {recs}")
+    ann = os.path.join(work, "annotations")
+    generate(os.path.join(ann, "got10k_npy"), tracks=1, frames=12, val_sequences=3, seed=5)
+    coco, vid = _annotation_layouts(ann)
+    made = {}
+    for dataset, root, subset in (("got10k", os.path.join(ann, "got10k_npy", "got10k"), "val"),
+                                  ("coco", coco, "train"), ("ilsvrc", vid, "train")):
+        out = os.path.join(ann, f"{dataset}.csv")
+        recs, got, _ = _tool_rows(lambda: make_annotations.run(dataset, root, out, subset=subset), counters, "17a")
+        made[dataset] = (recs[0]["rows"], recs[0]["frame_shapes"])
+        launches[f"make_annotations_{dataset}"] = got
+    want = {"got10k": (36, ["[224, 160]"]), "coco": (2, ["[100, 80]"]), "ilsvrc": (5, ["[120, 90]"])}
+    if made != want:
+        raise AssertionError(f"17a make_annotations: rows and frame shapes {made}, expected {want}")
+    if {"cv2", "pandas"} & set(sys.modules):
+        raise AssertionError(f"17a: the dataset makers imported {sorted({'cv2', 'pandas'} & set(sys.modules))}")
+    print(f"[17a] make_class_dataset 12 classes x 8 images, 128x128 .npy, in {seconds:.1f} s; make_annotations "
+          f"rows and frame shapes {made}; no cv2 or pandas imported", flush=True)
+    lap("17a")
+
+    # 17b: classification pretraining of the FEAR-XS trunk, float32
+    npz = os.path.join(work, "fear_xs_trunk.npz")
+    rec, got, seconds = _tool_rows(lambda: pretrain_trunk.run(cls_root, "fear_xs", npz, epochs=1, batch_size=32,
+                                                              image_size=128, seed=0, device="cuda"),
+                                   counters, "17b")
+    launches["pretrain_trunk"] = got
+    loaded = variables_from_npz(npz)
+    _, report = transfer_variables(loaded, variables_of(build_family_model("fear_xs")))
+    loss = rec["history"][-1]["loss"]
+    if not (math.isfinite(loss) and got == {"K1": 0, "K2": 0} and sorted(report["transferred"]) == sorted(loaded)
+            and not report["skipped_shape"] and not report["unused"]):
+        raise AssertionError(f"17b pretrain_trunk: loss {loss}, launches {got}, transfer "
+                             f"{ {k: len(v) for k, v in report.items()} } of {len(loaded)} arrays")
+    print(f"[17b] pretrain_trunk FEAR-XS 128x128 B=32, {rec['steps']} steps: loss {loss:.4f}, {len(loaded)} encoder "
+          f"arrays, every one transferred into FEAR-XS ({len(report['missing'])} leaves kept at init); launches "
+          f"{got}; {seconds:.1f} s [{card}]", flush=True)
+    lap("17b")
+
+    # 17c: the drivers on the card, FEAR-XS bf16 unless named, cut depth
+    cut = {"batch_size": {"train": DRIVER_BATCH, "val": 1}, "train_percent": 2, "num_workers": 8}
+    nf_xs = _n_fused("fear_xs")
+    paths = {name: os.path.join(work, name) for name in (
+        "train_run", "pretrain_chain", "family_train", "warm_start_comparison", "synthetic_e2e",
+        "train_template_gate", "train_feature_gate", "train_flagship")}
+    generate(os.path.join(paths["train_run"], "data"), tracks=4, frames=16, val_sequences=2, seed=11,
+             size=(288, 384))
+    generate(os.path.join(paths["synthetic_e2e"], "data"), tracks=4, frames=16, val_sequences=2, seed=0)
+
+    def train_run_schedule():
+        lengths = _val_lengths(os.path.join(paths["train_run"], "data", "got10k"), 12)
+        first = [_sequential_launches(lengths[:1], nf_xs)] + [_sequential_launches(lengths, nf_xs)] * 2
+        resumed = [_sequential_launches(lengths[:1], nf_xs), _sequential_launches(lengths, nf_xs)]
+        return _sum_launches(*first, *resumed)
+
+    def family_schedule():
+        lengths = _val_lengths(os.path.join(paths["family_train"], "track", "got10k"), 8)
+        return _sum_launches(*(_sequential_launches(lengths, _n_fused(m)) for m in ("fear_xs", "fear_m", "fear_l")))
+
+    def e2e_schedule():
+        root = os.path.join(paths["synthetic_e2e"], "data", "got10k")
+        lengths, nf = _val_lengths(root, 24), _n_fused("fear_tiny")  # the AO runs' and validation's cap
+        return _sum_launches(*[_sequential_launches(lengths, nf)] * 3, _sequential_launches(lengths[:1], nf))
+
+    def feature_gate_schedule():
+        return _sum_launches(*(_batched_launches(_val_lengths(os.path.join(paths["train_feature_gate"], f"{s}_s51",
+                                                                           "got10k")), 2, nf_xs, refresh=True)
+                               for s in SCENARIOS))
+
+    def flagship_schedule():
+        val = _val_lengths(os.path.join(paths["train_flagship"], "corpus", "val_all"), 24)
+        gate = _val_lengths(os.path.join(paths["train_flagship"], "quality_gate", "got10k"))
+        one_gate = _sum_launches(_sequential_launches(gate, nf_xs), _batched_launches(gate, 3, nf_xs))
+        return _sum_launches(_batched_launches(val[:1], 16, nf_xs), _batched_launches(val, 16, nf_xs),
+                             one_gate, one_gate)
+
+    drivers = {
+        "train_run": (lambda: train_run.run(os.path.join(paths["train_run"], "data"), epochs=2, resume_epochs=1,
+                                            device_augs=True, device="cuda", overrides=cut),
+                      train_run_schedule),
+        "pretrain_chain": (lambda: pretrain_chain.run(epochs=1, batch=DRIVER_BATCH, num_samples=16, tracks=4,
+                                                      track_frames=6, per_class=8, pretrain_epochs=1,
+                                                      work=paths["pretrain_chain"], device="cuda", device_augs=True),
+                           lambda: _sum_launches(*[_sequential_launches(_val_lengths(os.path.join(
+                               paths["pretrain_chain"], "track", "got10k"), 8), nf_xs)] * 3)),
+        "family_train": (lambda: family_train.run(epochs=1, batch=DRIVER_BATCH, num_samples=16, tracks=4,
+                                                  track_frames=6, arms=("xs_scratch", "m_warmstart", "l_scratch"),
+                                                  work=paths["family_train"], device="cuda", device_augs=True),
+                         family_schedule),
+        "warm_start_comparison": (lambda: warm_start_comparison.run(epochs=1, tracks=4, frames=12, val_sequences=2,
+                                                                    work=paths["warm_start_comparison"],
+                                                                    device="cuda", device_augs=True),
+                                  lambda: _sum_launches(*[_sequential_launches(_val_lengths(os.path.join(
+                                      paths["warm_start_comparison"], "data", "got10k"), 16),
+                                      _n_fused("fear_tiny"))] * 2)),
+        "synthetic_e2e": (lambda: synthetic_e2e.run(os.path.join(paths["synthetic_e2e"], "data"), epochs=2,
+                                                    device="cuda", device_augs=True),
+                          e2e_schedule),
+        "train_template_gate": (lambda: train_template_gate.run(tracks=2, frames=16, epochs=1, samples_per_scenario=8,
+                                                                batch=DRIVER_BATCH, work=paths["train_template_gate"],
+                                                                device="cuda", device_augs=True, num_workers=8),
+                                lambda: {"K1": 0, "K2": 0}),
+        "train_feature_gate": (lambda: train_feature_gate.run(scenarios=SCENARIOS, train_seeds=(51,), frames=24,
+                                                              sequences=2, work=paths["train_feature_gate"],
+                                                              device="cuda"),
+                               feature_gate_schedule),
+        "train_flagship": (lambda: train_flagship.run(work=paths["train_flagship"], epochs=1, num_samples=16,
+                                                      tracks=3, frames=8, per_class=8, pretrain_epochs=1,
+                                                      device="cuda", device_augs=True,
+                                                      overrides={"num_workers": 8}),
+                           flagship_schedule),
+    }
+    records = {}
+    for name, (fn, schedule) in drivers.items():
+        recs, got, seconds = _tool_rows(fn, counters, "17c")
+        want = schedule()
+        if got != want:
+            raise AssertionError(f"17c {name}: launches {got}, the validation and rollout schedule gives {want}")
+        launches[name], records[name] = got, recs
+        print(f"[17c] {name}: {len(recs)} records, K1 {got['K1']} / K2 {got['K2']} as scheduled, {seconds:.1f} s "
+              f"[{card}]", flush=True)
+    checks = {
+        "train_run": records["train_run"][-1].get("resume_continuity") is True,
+        "pretrain_chain": sorted(records["pretrain_chain"][-1]["summary"]) == ["cls_pretrain", "recovered", "scratch"],
+        "family_train": sorted(records["family_train"][-1]["summary"]) == ["l_scratch", "m_warmstart", "xs_scratch"],
+        "warm_start_comparison": len(records["warm_start_comparison"]) == 3,
+        "synthetic_e2e": records["synthetic_e2e"][-1]["steps"] > 0,
+        "train_template_gate": math.isfinite(records["train_template_gate"][-1]["gate_logit"]),
+        "train_feature_gate": records["train_feature_gate"][0]["collected"] == len(SCENARIOS) * 2 * 23,
+        "train_flagship": "summary" in records["train_flagship"][-1],
+    }
+    losses = [r["loss"] for rs in records.values() for r in rs if "loss" in r]
+    if not all(checks.values()) or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"17c: checks {checks}, losses {losses}")
+    flag = records["train_flagship"][-1]["summary"]
+    print(f"[17c] resume continuity {records['train_run'][-1]}; every loss finite ({len(losses)}); flagship smoke "
+          f"AO sequential {flag['repo_sequential_ao']} / {flag['ref_sequential_ao']} (trained / fear_xs), batched "
+          f"{flag['repo_batched_ao']} / {flag['ref_batched_ao']}", flush=True)
+    lap("17c")
+
+    # 17d: card against the port on the CPU, float32 (TF32 off), each side
+    # from the same initial values
+    gate_root = os.path.join(paths["train_template_gate"], "swap")
+    dataset = train_template_gate.build_dataset([gate_root], 4 * DRIVER_BATCH, 0, device_augs=True)
+    loader = BatchLoader(dataset, DRIVER_BATCH, shuffle=True, num_workers=8, seed=0)
+    batches = list(itertools.islice(train_template_gate.device_batches(loader, "cpu", True, 0), 4))
+    logit = {}
+    for device in ("cuda", "cpu"):
+        model = train_template_gate.frozen_model("fear_xs", device)
+        step = train_template_gate.make_gate_step(model, 0.05, mixed=False)
+        for b in batches:
+            step({k: v.to(device) for k, v in b.items()})
+        logit[device] = float(model.template_gate.detach()[0])
+    gate_gap = abs(logit["cuda"] - logit["cpu"])
+    hist = {device: _quiet(lambda: pretrain_trunk.run(cls_root, "fear_xs", os.path.join(work, f"trunk_{device}.npz"),
+                                                      epochs=2, batch_size=16, image_size=128,
+                                                      lr=PRETRAIN_WITNESS_LR, seed=0, device=device))["history"]
+            for device in ("cuda", "cpu")}
+    loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist["cuda"], hist["cpu"]))
+    witness = os.path.join(work, "feature_gate_witness")
+    roll = {device: train_feature_gate.collect_rollouts(SCENARIOS, (51,), 24, 2, 1.0, witness, dtype=torch.float32,
+                                                        device=device)
+            for device in ("cuda", "cpu")}
+    box_px = float(np.abs(roll["cuda"][5] - roll["cpu"][5]).max())
+    obs_err = float(np.abs(roll["cuda"][0] - roll["cpu"][0]).max())
+    obs, vis, iou = roll["cuda"][:3]
+    labels = ((vis >= 0.7) & (iou >= 0.5)).astype(np.float32)
+    mlp = {(device, epochs): train_feature_gate.train_mlp(obs, labels, 8, epochs, 3e-2, 0, device=device)
+           for epochs in (MLP_WITNESS_EPOCHS, 3000) for device in ("cuda", "cpu")}
+
+    def mlp_gaps(epochs):
+        card_mlp, cpu_mlp = mlp[("cuda", epochs)], mlp[("cpu", epochs)]
+        return (max(abs(card_mlp[1][s]["auc"] - cpu_mlp[1][s]["auc"]) for s in ("train", "holdout")),
+                max(float(np.abs(card_mlp[0][k] - cpu_mlp[0][k]).max()) for k in cpu_mlp[0]),
+                " / ".join(f"{m[1]['train']['auc']}, {m[1]['holdout']['auc']}" for m in (card_mlp, cpu_mlp)))
+
+    auc_gap, param_gap, aucs = mlp_gaps(MLP_WITNESS_EPOCHS)
+    full_auc_gap, full_param_gap, full_aucs = mlp_gaps(3000)
+    if not (gate_gap <= GATE_LOGIT_ATOL and loss_gap <= PRETRAIN_LOSS_RTOL and box_px <= ROLLOUT_BOX_PX
+            and auc_gap <= MLP_AUC_ATOL and param_gap <= MLP_PARAM_ATOL):
+        raise AssertionError(f"17d: gate logit {logit}, pretrain losses {hist}, rollout boxes {box_px} px, "
+                             f"MLP at {MLP_WITNESS_EPOCHS} epochs: AUC (train, holdout) card / CPU {aucs}, "
+                             f"params {param_gap}")
+    print(f"[17d] card vs CPU, float32: template gate logit after 4 Adam steps {logit['cuda']:+.6f} / "
+          f"{logit['cpu']:+.6f}, |gap| {gate_gap:.2e} (<= {GATE_LOGIT_ATOL}); pretrain_trunk at lr "
+          f"{PRETRAIN_WITNESS_LR}, per-epoch loss rtol {loss_gap:.2e} (<= {PRETRAIN_LOSS_RTOL}; "
+          f"{[round(h['loss'], 5) for h in hist['cuda']]}); feature-gate rollout of {len(obs)} frames: boxes "
+          f"{box_px:.4f} px (<= {ROLLOUT_BOX_PX}), observations max|err| {obs_err:.2e}; the MLP on the card's "
+          f"observations at {MLP_WITNESS_EPOCHS} epochs: AUC (train, holdout) card / CPU {aucs}, |gap| "
+          f"{auc_gap:.4f} (<= {MLP_AUC_ATOL}), params max|err| {param_gap:.2e} (<= {MLP_PARAM_ATOL}); at the "
+          f"tool's 3000: AUC {full_aucs}, |gap| {full_auc_gap:.4f}, params max|err| {full_param_gap:.2e} [{card}]",
+          flush=True)
+    lap("17d")
+    print(f"[17] phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3164,11 +3500,13 @@ def main() -> int:
         parallel_launches = _phase_parallel(card, counters, lap, staged, step_alone_ms, loop_val, track_ms)
         tool_launches = _phase_tools(card, counters, lap, work, {"ms": k2_ms[256], "plain_ms": k2_plain[256]})
         scenario_launches = _phase_scenarios(card, counters, lap, work)
-    print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all", flush=True)
+        driver_launches = _phase_drivers(card, counters, lap, work)
+    print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all; the whole script "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
                "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches,
-               **parallel_launches, **tool_launches, **scenario_launches}
+               **parallel_launches, **tool_launches, **scenario_launches, **driver_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

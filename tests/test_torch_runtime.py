@@ -135,8 +135,8 @@ def test_provenance_and_load_failure(tmp_path):
 
 def test_port_imports_no_jax_or_reference():
     """Every port module imports without jax, flax, optax, orbax, the JAX
-    package, cv2, matplotlib, pandas, PyYAML, tensorboardX or tensorboard:
-    the H100 host has none of them."""
+    package, the root ``tools`` package, cv2, matplotlib, pandas, PyYAML,
+    tensorboardX or tensorboard: the H100 host has none of them."""
     modules = []
     for root, _, files in os.walk(os.path.join(REPO, "feartracker_tpu_torch")):
         for f in files:
@@ -148,7 +148,8 @@ def test_port_imports_no_jax_or_reference():
         f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu', 'cv2', 'matplotlib',\n"
-        "                              'pandas', 'yaml', 'optax', 'orbax', 'tensorboardX', 'tensorboard')]\n"
+        "                              'pandas', 'yaml', 'optax', 'orbax', 'tensorboardX', 'tensorboard',\n"
+        "                              'tools')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
@@ -179,6 +180,11 @@ def test_port_imports_no_jax_or_reference():
         "utils.raster", "tools.make_synthetic_dataset", "tools.dual_template_ablation", "tools.recovery_ablation",
         "tools.gate_v2_ablation", "tools.occlusion_signal_probe", "tools.letterbox_penalty", "tools.vot_recovery",
         "tools.vot_unified", "tools.tune_tracker", "tools.family_pareto", "tools.quantized_quality")} <= set(modules)
+    # the dataset makers and the training drivers
+    assert {f"feartracker_tpu_torch.tools.{m}" for m in (
+        "make_annotations", "make_class_dataset", "pretrain_trunk", "warm_start_comparison", "synthetic_e2e",
+        "train_run", "pretrain_chain", "family_train", "train_template_gate", "train_feature_gate",
+        "train_flagship")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
