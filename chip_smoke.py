@@ -229,7 +229,24 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    same batches (1e-3), ``pretrain_trunk``'s per-epoch loss at lr 1e-5 (rtol
    1e-3), the feature-gate rollout's boxes (1 px) and ``train_mlp`` on the
    card's observations at 100 epochs (AUC within 0.005, parameters 1e-4;
-   the tool's 3000 epochs printed).
+   the tool's 3000 epochs printed);
+18. the JAX trainer's Orbax checkpoints on the card host, which has no
+   orbax, tensorstore or zstandard (``tests/fixtures/orbax_fear_xs``: the
+   JAX ``CheckpointManager``'s save of ``fear_xs.npz`` with a fresh Adam
+   state at step 1234, epoch 3): 18a the fixture read in Python and numpy
+   through the experiment dir, the ``checkpoints`` root and
+   ``last/state``, every array bit-equal to ``fear_xs.npz`` (each read's
+   seconds, at most 30, the MB read, whether ``zstandard`` is importable,
+   unused); 18b ``build_scan_tracker`` from the fixture dir, bf16 S=128
+   T=16: ``init`` + one ``track`` bit-equal to the archive-built tracker's,
+   K1 16 and K2 13·17 launches (``launches_by_path["orbax"]``); 18c the
+   port's ``Trainer`` with ``resume=true`` on a copy of the fixture, B=8
+   over 12c's ``.npy`` clips, 2 steps: step 1234, epoch 3 from
+   ``meta.json``, the lr from the injected hyperparameter, finite losses;
+   then 12a's float32 step from the restored state, card against CPU at
+   12a's tolerances; 18d ``warp_affine_linear_u8``, ``rescale_crop`` and
+   ``get_subwindow_tracking`` on the card for 32 seeded boxes: bytes equal
+   to the CPU's.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -1652,9 +1669,18 @@ def _stat_error(got: dict, ref: dict) -> float:
     return err
 
 
-def _phase_train_f32(card, dev):
+def _opt_to(opt, device, dtype):
+    """An optimizer state's tensors on ``device``, floating ones in ``dtype``."""
+    if isinstance(opt, dict):
+        return {k: _opt_to(v, device, dtype) for k, v in opt.items()}
+    return opt.to(device, dtype) if opt.is_floating_point() else opt.to(device)
+
+
+def _phase_train_f32(card, dev, model=None, opt_state=None, tag="12a"):
     """12a: one float32 Adam step of FEAR-XS at B=8, card against CPU, and
-    both against the same gradient in float64 on the CPU."""
+    both against the same gradient in float64 on the CPU; from ``model``
+    and ``opt_state`` where given (18c: a state restored from the JAX
+    trainer's Orbax checkpoint), else ``fear_xs.npz`` and a fresh state."""
     import copy
 
     import torch
@@ -1665,7 +1691,8 @@ def _phase_train_f32(card, dev):
     from feartracker_tpu_torch.train.step import make_loss_and_grads, params_of
 
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
-    model, _ = build_model("fear_xs")
+    if model is None:
+        model, _ = build_model("fear_xs")
     batch = synthetic_train_batch(8, 128, 256, BoxCoderSpec(), "cpu", seed=12)
     res = {}
     for name, d, dt in (("f64", "cpu", torch.float64), ("cpu", "cpu", torch.float32), ("card", dev, torch.float32)):
@@ -1673,7 +1700,7 @@ def _phase_train_f32(card, dev):
         net = copy.deepcopy(model).to(d, dt)
         tx = build_optimizer({"name": "adam", "lr": 1e-4})
         params = params_of(net)
-        opt = tx.init(params)
+        opt = tx.init(params) if opt_state is None else _opt_to(opt_state, d, dt)
         total, _, _, grads = make_loss_and_grads()(net, {k: v.to(d, dt) for k, v in batch.items()})
         with torch.no_grad():
             updates, opt = tx.update(grads, opt, {k: p.detach() for k, p in params.items()})
@@ -1688,7 +1715,7 @@ def _phase_train_f32(card, dev):
     card_all, card_own, _ = _grad_errors(gg, g64)
     cpu_all, cpu_own, _ = _grad_errors(gc, g64)
     stat_err = _stat_error(sg, sc)
-    print(f"[12a] FEAR-XS f32 Adam step B=8 256²/128², card vs CPU: loss {lg:.6f} vs {lc:.6f} (rel {loss_err:.2e}, "
+    print(f"[{tag}] FEAR-XS f32 Adam step B=8 256²/128², card vs CPU: loss {lg:.6f} vs {lc:.6f} (rel {loss_err:.2e}, "
           f"rtol {TRAIN_LOSS_RTOL}); BatchNorm statistics rel {stat_err:.2e} (rtol {TRAIN_STATS_RTOL}); "
           f"gradients ({len(gc)} tensors, {zero} analytically zero) card vs CPU {err_all:.2e} of the gradient's "
           f"max, {err_own:.2e} of each tensor's own; against float64 on the CPU: card {card_all:.2e} / "
@@ -3252,6 +3279,160 @@ def _phase_drivers(card, counters, lap, work: str):
     return launches
 
 
+ORBAX_FIXTURE = ("tests", "fixtures", "orbax_fear_xs")  # a JAX trainer's checkpoint of fear_xs.npz, step 1234
+ORBAX_DECODE_S = 30.0  # 18a: the most one read of the fixture may take on the card host's CPU
+ORBAX_CROPS = 32  # 18d: seeded boxes through the warp and the subwindow crop
+
+
+def _phase_orbax(card, counters, lap, work: str):
+    """Phase 18: the JAX trainer's Orbax checkpoint read on the card host,
+    which has no orbax, tensorstore or zstandard (18a), tracked from (18b)
+    and resumed by the port's ``Trainer`` (18c); the host crops on the card
+    (18d). → the Orbax-built tracker's launches."""
+    import importlib.util
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.convert.load import flatten_variables, load_variables, variables_from_npz
+    from feartracker_tpu_torch.convert.orbax import find_orbax_state, read_checkpoint
+    from feartracker_tpu_torch.data.crops import get_subwindow_tracking, rescale_crop
+    from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+    from feartracker_tpu_torch.ops.resize import warp_affine_linear_u8
+    from feartracker_tpu_torch.tools.make_npy_dataset import write_npy_dataset
+    from feartracker_tpu_torch.train.checkpoint import CheckpointManager
+    from feartracker_tpu_torch.train.loop import Trainer
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state
+    from feartracker_tpu_torch.train.summary import read_events, scalars
+
+    t18 = time.perf_counter()
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), *ORBAX_FIXTURE)
+    want = variables_from_npz("fear_xs")
+
+    def same(got):
+        return sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes() for k in want)
+
+    # 18a: the experiment dir, the checkpoints root and last/state, in Python and numpy
+    reads = {}
+    for form, path in (("experiment", fixture), ("checkpoints", os.path.join(fixture, "checkpoints")),
+                       ("last/state", os.path.join(fixture, "checkpoints", "last", "state"))):
+        t0 = time.perf_counter()
+        tree, nbytes = read_checkpoint(find_orbax_state(path))
+        seconds = time.perf_counter() - t0
+        got = flatten_variables({"params": tree["params"], "batch_stats": tree["batch_stats"]})
+        if not (same(got) and int(tree["step"]) == 1234):
+            raise AssertionError(f"18a {form}: the variables differ from fear_xs.npz or step {tree['step']} != 1234")
+        reads[form] = (seconds, nbytes)
+    if not same(load_variables(fixture)):
+        raise AssertionError("18a: load_variables(<experiment dir>) differs from fear_xs.npz")
+    slowest = max(s for s, _ in reads.values())
+    if slowest > ORBAX_DECODE_S:
+        raise AssertionError(f"18a: a read took {slowest:.1f} s > {ORBAX_DECODE_S} s")
+    print(f"[18a] the JAX trainer's Orbax checkpoint of FEAR-XS read in Python and numpy through "
+          f"{', '.join(f'{k} ({s:.2f} s)' for k, (s, _) in reads.items())}: {len(want)} arrays bit-equal to "
+          f"fear_xs.npz, step 1234; {reads['experiment'][1] / 1e6:.2f} MB read a time; zstandard importable "
+          f"{importlib.util.find_spec('zstandard') is not None} (not used) [{card}]", flush=True)
+    lap("18a")
+
+    # 18b: the bench's shape from the Orbax dir and from the archive
+    S, T = 128, 16
+    f0, chunk, boxes = synthetic_streams(S, T, seed=1, device="cuda")
+    outs, counts = {}, {}
+    for name, weights in (("orbax", fixture), ("npz", "fear_xs")):
+        tracker, _ = build_scan_tracker(weights, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        _zero(counters)
+        state = tracker.init(f0, boxes)
+        k2_init = counters["K2"].launches
+        state, outs[name] = tracker.track(state, chunk)
+        torch.cuda.synchronize()
+        counts[name] = (_read(counters), k2_init)
+        del tracker, state
+    n_fused = counts["npz"][1]
+    if counts["orbax"] != counts["npz"] or counts["orbax"] != ({"K1": T, "K2": n_fused * (T + 1)}, n_fused):
+        raise AssertionError(f"18b launch counts {counts}; expected K1 {T}, K2 {n_fused} at init + {n_fused}*{T}")
+    differ = [k for k in outs["npz"] if not torch.equal(outs["orbax"][k], outs["npz"][k])]
+    if differ:
+        raise AssertionError(f"18b: outputs {differ} differ between the Orbax-built and the archive-built tracker")
+    print(f"[18b] build_scan_tracker(<Orbax dir>) bf16 S={S} T={T}: init + one track bit-equal to fear_xs.npz's "
+          f"({len(outs['npz'])} outputs); launches {counts['orbax'][0]} (K2 {counts['orbax'][1]} at init) [{card}]",
+          flush=True)
+    lap("18b")
+
+    # 18c: the port's Trainer resumes the JAX experiment, on a copy
+    exp = os.path.join(work, "orbax_exp")
+    shutil.copytree(fixture, os.path.join(exp, "JAX_RUN"))
+    data = os.path.join(work, "orbax_data")
+    write_npy_dataset(os.path.join(data, "got10k"))
+    cfg = _loop_config(data, exp, "JAX_RUN", ["resume=true", "batch_size.train=8", "train_percent=2",
+                                              "max_epochs=4", "scheduler.warmup_steps=0", "sanity_steps=0"])
+    trainer = Trainer(cfg)
+    seen = {}
+    restore_last = trainer.ckpt.restore_last
+
+    def spy(state):
+        state = restore_last(state)
+        seen.update(step=state.step, lr=float(state.opt_state["lr"]), count=int(state.opt_state["count"]))
+        return state
+
+    trainer.ckpt.restore_last = spy
+    _zero(counters)
+    t0 = time.perf_counter()
+    trainer.fit()
+    fit_s = time.perf_counter() - t0
+    losses = scalars(read_events(os.path.join(trainer.exp_dir, "logs")))["train/loss"]
+    if not (seen == {"step": 1234, "lr": float(np.float32(1e-4)), "count": 0} and trainer.resumed_epoch == 3
+            and trainer.state.step == 1236 and [s for s, _ in losses] == [1235, 1236]
+            and all(np.isfinite(v) for _, v in losses)):
+        raise AssertionError(f"18c: restored {seen}, epoch {trainer.resumed_epoch}, step {trainer.state.step}, "
+                             f"losses {losses}")
+    print(f"[18c] Trainer resume=true on the JAX experiment: step {seen['step']}, epoch {trainer.resumed_epoch} "
+          f"(meta.json), lr {seen['lr']:.1e} (the injected hyperparameter), Adam count {seen['count']}; bf16 B=8, "
+          f"steps 1235-1236 losses {', '.join(f'{v:.4f}' for _, v in losses)}; launches {_read(counters)}; fit "
+          f"{fit_s:.1f} s [{card}]", flush=True)
+    tx = build_optimizer({"name": "adam", "lr": 1e-4})
+    restored = CheckpointManager(os.path.join(fixture, "checkpoints"), optimizer=tx).restore_last(
+        create_train_state(FEARNet(), tx, device="cpu"))
+    _phase_train_f32(card, torch.device("cuda"), restored.model, restored.opt_state, tag="18c")
+    lap("18c")
+
+    # 18d: the host crops on the card, against the CPU
+    rng = np.random.RandomState(18)
+    yy, xx = np.mgrid[0:256, 0:480]
+    frame = np.clip(np.sin(xx / 9.0)[..., None] * 90 + np.cos(yy / 7.0)[..., None] * 60 + 128
+                    + rng.randn(256, 480, 3) * 20, 0, 255).astype(np.uint8)
+    card_frame = torch.from_numpy(frame).cuda()
+    avg = np.mean(frame, axis=(0, 1))
+    warp_equal = sub_equal = 0
+    for _ in range(ORBAX_CROPS):
+        box = np.array([rng.uniform(-60, 480), rng.uniform(-60, 256), rng.uniform(4, 200), rng.uniform(4, 200)])
+        pad = tuple(rng.uniform(0, 255, 3))
+        a, b = 126 / box[2], 126 / box[3]
+        m = np.array([[a, 0, -a * box[0]], [0, b, -b * box[1]]])
+        got = warp_affine_linear_u8(card_frame, m, (127, 127), pad).cpu().numpy()
+        warp_equal += np.array_equal(got, warp_affine_linear_u8(torch.from_numpy(frame), m, (127, 127), pad).numpy())
+        warp_equal += np.array_equal(rescale_crop(card_frame, box, 127, pad)[0].cpu().numpy(),
+                                     rescale_crop(frame, box, 127, pad)[0])
+        side = int(rng.randint(20, 400))
+        got, info = get_subwindow_tracking(card_frame, box, 127, side, avg)
+        ref, ref_info = get_subwindow_tracking(frame, box, 127, side, avg)
+        sub_equal += np.array_equal(got.cpu().numpy(), ref) and info == ref_info
+    if warp_equal != 2 * ORBAX_CROPS or sub_equal != ORBAX_CROPS:
+        raise AssertionError(f"18d: bytes equal to the CPU's for {warp_equal} of {2 * ORBAX_CROPS} warps and "
+                             f"{sub_equal} of {ORBAX_CROPS} subwindows")
+    print(f"[18d] warp_affine_linear_u8 and rescale_crop ({2 * ORBAX_CROPS}) and get_subwindow_tracking "
+          f"({ORBAX_CROPS}) on a 480x256 frame on the card: bytes equal to the CPU's for every seeded box [{card}]",
+          flush=True)
+    lap("18d")
+    print(f"[18] phase 18 in {time.perf_counter() - t18:.1f} s", flush=True)
+    return {"orbax": counts["orbax"][0]}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3501,12 +3682,13 @@ def main() -> int:
         tool_launches = _phase_tools(card, counters, lap, work, {"ms": k2_ms[256], "plain_ms": k2_plain[256]})
         scenario_launches = _phase_scenarios(card, counters, lap, work)
         driver_launches = _phase_drivers(card, counters, lap, work)
+        orbax_launches = _phase_orbax(card, counters, lap, work)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all; the whole script "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
                "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches,
-               **parallel_launches, **tool_launches, **scenario_launches, **driver_launches}
+               **parallel_launches, **tool_launches, **scenario_launches, **driver_launches, **orbax_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

@@ -10,7 +10,9 @@ package's variables with '/'-joined keys, and :func:`load_fear_net` fills a
 * ``.ckpt``: a reference PyTorch-Lightning checkpoint
   (:mod:`feartracker_tpu_torch.convert.lightning`);
 * anything else: the reference's CoreML ``.mlmodel`` export
-  (:mod:`feartracker_tpu_torch.convert.fear_weights`).
+  (:mod:`feartracker_tpu_torch.convert.fear_weights`);
+* a directory: a training checkpoint of the JAX trainer (Orbax), read in
+  Python and numpy by :mod:`feartracker_tpu_torch.convert.orbax`.
 
 The archives are flat ``{"params/<flax path>/<leaf>": array,
 "batch_stats/<flax path>/<leaf>": array}`` files, read with numpy alone. The
@@ -25,9 +27,11 @@ port's modules carry the Flax names, so each key maps mechanically:
 * the scalar params ``adjust``, ``bias`` (1,1,1,4), ``cls_scale`` and
   ``template_gate`` keep their names and shapes.
 
-An optax Adam state's moments (``mu``, ``nu``: trees shaped as ``params``)
-cross the same map onto the port optimizer's state
-(:func:`load_adam_state`), so that training can go on from a JAX state.
+An optax state of the JAX ``build_optimizer`` chain crosses the same map
+onto the port optimizer's state (:func:`optimizer_state_from_jax`): the
+moments (``mu``/``nu`` or ``trace``, trees shaped as ``params``) by
+parameter name, the counts and the injected learning rate as they are, so
+that training goes on from a JAX state.
 """
 
 from __future__ import annotations
@@ -156,19 +160,18 @@ def load_variables(path: str, channels: int = 256, towernum: int = 2,
                    trust_pickle: bool = False) -> Dict[str, np.ndarray]:
     """The flat variables dict of any weight source (see the module
     docstring), dispatched as the JAX package's ``load_variables``:
-    a bare zoo name or ``.npz``, a ``.ckpt``, else a CoreML ``.mlmodel``.
-    ``channels`` / ``towernum`` shape the ``.ckpt`` and ``.mlmodel``
-    importers; ``trust_pickle`` lets a ``.ckpt`` that holds more than
-    tensors and plain values be unpickled in full (see
-    ``lightning.load_lightning_state_dict``). A directory (an Orbax
-    checkpoint of the JAX trainer) raises ``ValueError``: the port reads no
-    Orbax."""
+    a bare zoo name or ``.npz``, a directory (an Orbax checkpoint of the
+    JAX trainer: its state dir, ``checkpoints`` root, experiment dir or
+    managed step dir, as ``convert/orbax.py:load_orbax_variables`` resolves
+    them), a ``.ckpt``, else a CoreML ``.mlmodel``. ``channels`` /
+    ``towernum`` shape the ``.ckpt`` and ``.mlmodel`` importers;
+    ``trust_pickle`` lets a ``.ckpt`` that holds more than tensors and plain
+    values be unpickled in full (see ``lightning.load_lightning_state_dict``)."""
     path = resolve_weights(path)
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory, an Orbax training checkpoint of the JAX package, which the port does not "
-            "read: convert it to an .npz with `python tools/export_weights.py --weights_path <dir> --out <file>.npz`"
-            " (reading Orbax checkpoints is ROADMAP.md Queue 1 item 4)")
+        from feartracker_tpu_torch.convert.orbax import load_orbax_variables
+
+        return flatten_variables(load_orbax_variables(path))
     if path.endswith(".ckpt"):
         from feartracker_tpu_torch.convert.lightning import load_from_lightning
 
@@ -194,21 +197,106 @@ def _torch_array(key: str, arr: Any) -> np.ndarray:
     return arr
 
 
+def _moments(tree: Any) -> Dict[str, torch.Tensor]:
+    """A tree shaped as ``params`` (nested or flat) → float32 tensors keyed
+    by the port's parameter names, in the port's layout."""
+    flat = tree if all("/" in k for k in tree) else flatten_variables(tree)
+    return {torch_key("params/" + k): torch.tensor(_torch_array(k, v)) for k, v in flat.items()}
+
+
+def _scalar(value: Any, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(np.asarray(value).item(), dtype=dtype)
+
+
+def _hyperparams_state(tree: Any) -> Any:
+    """The injected-hyperparameters state anywhere in a restored optax
+    state, found as ``feartracker_tpu/train/optim.py:_hyperparams_state``
+    finds it (the chain's wrappers move it)."""
+    if isinstance(tree, dict):
+        if "hyperparams" in tree:
+            return tree
+        children = list(tree.values())
+    elif isinstance(tree, (list, tuple)):
+        children = list(tree)
+    else:
+        return None
+    for child in children:
+        found = _hyperparams_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def optimizer_state_from_jax(opt_tree: Any, optimizer) -> Dict[str, Any]:
+    """The port optimizer's state (``train/optim.py``: ``lr``,
+    ``count``/``mu``/``nu`` or ``trace``, ``warmup_count``,
+    ``notfinite_count``/``last_finite``/``total_notfinite``) from the optax
+    state of the JAX ``build_optimizer`` chain with the same config, as an
+    Orbax restore returns it (namedtuples as dicts, tuples as lists) or as
+    numpy trees of the same shape.
+
+    ``optimizer`` is the port's ``Optimizer``; its rule, warmup, clip and
+    skip say where each part of the chain sits:
+    ``apply_if_finite(chain(clip, chain(inject_hyperparams(rule),
+    scale_by_schedule)))``, each wrapper present only when configured.
+    Raises ``ValueError`` when the tree is not that chain's state. The
+    tensors are on the CPU; ``TrainState.load_state_dict`` copies them onto
+    the state's device."""
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            raise ValueError(f"optax state is not the {optimizer.name} chain of this config "
+                             f"(warmup {optimizer.warmup}, clip {optimizer.clip}, skip {optimizer.skip}): {what}")
+
+    out: Dict[str, Any] = {}
+    node = opt_tree
+    if optimizer.skip > 0:
+        need(isinstance(node, dict) and {"notfinite_count", "last_finite", "total_notfinite", "inner_state"}
+             <= set(node), "no apply_if_finite state")
+        out.update(notfinite_count=_scalar(node["notfinite_count"], torch.int32),
+                   last_finite=_scalar(node["last_finite"], torch.bool),
+                   total_notfinite=_scalar(node["total_notfinite"], torch.int32))
+        node = node["inner_state"]
+    if optimizer.clip > 0:
+        need(isinstance(node, (list, tuple)) and len(node) == 2 and node[0] is None,
+             "no clip_by_global_norm state")
+        node = node[1]
+    if optimizer.warmup > 0:
+        need(isinstance(node, (list, tuple)) and len(node) == 2 and isinstance(node[1], dict)
+             and "count" in node[1], "no warmup schedule state")
+        out["warmup_count"] = _scalar(node[1]["count"], torch.int32)
+        node = node[0]
+    inject = _hyperparams_state(opt_tree)
+    need(inject is not None and inject is node, "the injected hyperparameters sit elsewhere")
+    out["lr"] = _scalar(inject["hyperparams"]["learning_rate"], torch.float32)
+    rule = inject["inner_state"][0]
+    if optimizer.name == "sgd":
+        need(isinstance(rule, dict) and "trace" in rule, "no momentum trace")
+        out["trace"] = _moments(rule["trace"])
+    else:
+        need(isinstance(rule, dict) and {"count", "mu", "nu"} <= set(rule), "no Adam moments")
+        out.update(count=_scalar(rule["count"], torch.int32), mu=_moments(rule["mu"]), nu=_moments(rule["nu"]))
+    return out
+
+
 def load_adam_state(opt_state: Dict[str, Any], mu: Any, nu: Any, count: Any) -> Dict[str, Any]:
     """Fill the port optimizer's Adam state (``build_optimizer({"name":
     "adam"})``'s ``mu``, ``nu``, ``count``) in place from an optax
     ``ScaleByAdamState``'s ``mu`` and ``nu`` (trees shaped as ``params``,
-    nested or flat) and ``count``. Raises ``KeyError`` unless the moments
-    cover the state's parameters exactly."""
-    for name, tree in (("mu", mu), ("nu", nu)):
-        flat = tree if all("/" in k for k in tree) else flatten_variables(tree)
+    nested or flat) and ``count``, through :func:`optimizer_state_from_jax`.
+    Raises ``KeyError`` unless the moments cover the state's parameters
+    exactly."""
+    from feartracker_tpu_torch.train.optim import build_optimizer
+
+    tree = {"hyperparams": {"learning_rate": opt_state["lr"].item()},
+            "inner_state": [{"count": np.asarray(count), "mu": mu, "nu": nu}, None]}
+    got = optimizer_state_from_jax(tree, build_optimizer({"name": "adam"}))
+    for name in ("mu", "nu"):
         dst = opt_state[name]
-        got = {torch_key("params/" + k): k for k in flat}
-        if set(got) != set(dst):
-            raise KeyError(f"{name} does not match the optimizer state: {sorted(set(got) ^ set(dst))}")
-        for tkey, fkey in got.items():
-            dst[tkey].copy_(torch.tensor(_torch_array(fkey, flat[fkey])))
-    opt_state["count"].fill_(int(np.asarray(count)))
+        if set(got[name]) != set(dst):
+            raise KeyError(f"{name} does not match the optimizer state: {sorted(set(got[name]) ^ set(dst))}")
+        for k, v in got[name].items():
+            dst[k].copy_(v)
+    opt_state["count"].fill_(int(got["count"]))
     return opt_state
 
 

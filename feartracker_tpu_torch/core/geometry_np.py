@@ -1,10 +1,18 @@
 """Host bbox algebra in numpy, copied from ``feartracker_tpu/core/geometry.py``
-with the reference's int and rounding semantics: the host tracker's crop
-windows, rescale and clamp, and the evaluation protocols' IoU. All boxes are
-``[x, y, w, h]``."""
+with the reference's int and rounding semantics (``python2round``, ``int()``
+truncation): the host tracker's crop windows, rescale and clamp, the
+evaluation protocols' IoU, and the SiamFC-lineage helpers of the
+reference's ``utils/utils.py``. All boxes are ``[x, y, w, h]``.
+
+:func:`transform_bbox` is ``cv2.transform`` of the box's corners without
+cv2: a diagonal map (off-diagonal terms within ``DBL_EPSILON``, as cv2
+tests) computes ``fma(m00, x, m02)``, any other ``fma(m00, x, m01·y) +
+m02``, each fused multiply-add rounded once, as cv2's x86 build computes
+them (held against cv2 in the tests)."""
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -62,6 +70,122 @@ def handle_empty_bbox(bbox: np.ndarray, min_bbox: int = 3) -> np.ndarray:
     bbox[2] = max(bbox[2], min_bbox)
     bbox[3] = max(bbox[3], min_bbox)
     return bbox
+
+
+def limit(radius):
+    """max(r, 1/r): the scale and ratio penalties' term."""
+    return np.maximum(radius, 1.0 / radius)
+
+
+def squared_size(w, h):
+    """SiamFC's context size sqrt((w + p)(h + p)), p = (w + h) / 2."""
+    pad = (w + h) * 0.5
+    return np.sqrt((w + pad) * (h + pad))
+
+
+def python2round(x: float) -> float:
+    """Round half away from zero, as Python 2's ``round`` did (the crop side
+    of the SiamFC lineage); Python 3 and numpy round half to even."""
+    if round(x + 1) - round(x) != 1:
+        return x + abs(x) / x * 0.5
+    return round(x)
+
+
+def bbox_to_center(bbox: BBox) -> np.ndarray:
+    """xywh → xc,yc,w,h, truncated to int."""
+    return np.array([bbox[0] + bbox[2] / 2, bbox[1] + bbox[3] / 2, bbox[2], bbox[3]]).astype("int")
+
+
+def xywh_to_xyxy(bbox: np.ndarray) -> np.ndarray:
+    out = np.asarray(bbox, dtype=np.float64).copy()
+    out[..., 2] = out[..., 0] + out[..., 2]
+    out[..., 3] = out[..., 1] + out[..., 3]
+    return out
+
+
+def crop_context_window(bbox: BBox, context: float) -> Tuple[np.ndarray, int]:
+    """The integer window :func:`extend_bbox` selects for a search crop, and
+    its side."""
+    ctx = extend_bbox(np.asarray(bbox), context)
+    return ctx, int(ctx[2])
+
+
+def bbox_from_cxy_wh(position: np.ndarray, size: np.ndarray) -> np.ndarray:
+    """Centre + size → xywh, with x and y floored at 0."""
+    return np.array(
+        [
+            max(0.0, position[0] - size[0] / 2),
+            max(0.0, position[1] - size[1] / 2),
+            float(size[0]),
+            float(size[1]),
+        ]
+    )
+
+
+def position_from_bbox(bbox: BBox) -> np.ndarray:
+    """xywh → centre point."""
+    x, y, w, h = bbox
+    return np.array([x + w / 2, y + h / 2])
+
+
+def get_side_with_context(bbox: BBox, context_amount: float) -> float:
+    """SiamFC's context side: sqrt((w + p)(h + p)), p = c·(w + h), rounded
+    (half to even) and at least 1."""
+    w, h = bbox[2], bbox[3]
+    wc = w + context_amount * (w + h)
+    hc = h + context_amount * (w + h)
+    return max(round(np.sqrt(wc * hc)), 1)
+
+
+def get_points(bbox: BBox) -> np.ndarray:
+    """A box's corners as (4, 1, 2) float64 points, ``cv2.transform``'s
+    layout: top-left, bottom-left, bottom-right, top-right."""
+    return (
+        np.array(
+            [
+                [bbox[0], bbox[1]],
+                [bbox[0], bbox[1] + bbox[3]],
+                [bbox[0] + bbox[2], bbox[1] + bbox[3]],
+                [bbox[0] + bbox[2], bbox[1]],
+            ]
+        )
+        .reshape((-1, 1, 2))
+        .astype("float64")
+    )
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """a·b + c rounded once (Python 3.12 has no ``math.fma``)."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _transform_points(pts: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """``cv2.transform(pts, m)`` of (N, 1, 2) float64 points by a 2×3
+    float64 map (see the module docstring)."""
+    eps = np.finfo(np.float64).eps
+    diag = abs(m[0, 1]) <= eps and abs(m[1, 0]) <= eps
+    out = np.empty_like(pts)
+    for i, (x, y) in enumerate(pts[:, 0].tolist()):
+        for r, v in ((0, x), (1, y)):
+            if diag:
+                out[i, 0, r] = _fma(m[r, r], v, m[r, 2])
+            else:
+                out[i, 0, r] = _fma(m[r, 0], x, m[r, 1] * y) + m[r, 2]
+    return out
+
+
+def transform_bbox(bbox: BBox, mapping: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """A box through a 2×3 affine map (or its inverse), as the corners'
+    ``cv2.transform``: the top-left and the bottom-right corner's offset,
+    truncated to int."""
+    mapping = np.asarray(mapping, np.float64)
+    if inverse:
+        full = np.concatenate([mapping, np.array([[0.0, 0.0, 1.0]])], axis=0)
+        mapping = np.linalg.pinv(full)[:2]
+    pts = _transform_points(get_points(bbox), mapping)
+    x, y = pts[0, 0]
+    w, h = pts[2, 0] - pts[0, 0]
+    return np.array([x, y, w, h]).astype("int")
 
 
 def center_to_bbox(center: BBox) -> np.ndarray:

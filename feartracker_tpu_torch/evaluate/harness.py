@@ -15,8 +15,8 @@ import torch
 from feartracker_tpu_torch.convert.load import (
     PACKAGED_FEAR_XS,
     load_fear_net,
+    load_variables,
     resolve_weights,
-    variables_from_npz,
 )
 from feartracker_tpu_torch.models.fear_net import build_family_model
 from feartracker_tpu_torch.tracker.runtime import ScanTracker
@@ -27,13 +27,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}  # a tool's --dt
 
 def load_model(weights_path: str = PACKAGED_FEAR_XS, model_name: str = "fear_xs", towernum: int = 2):
     """(float32 family model with the weights loaded, weights_provenance).
-    ``weights_path`` is an ``.npz`` archive or a bare zoo name
-    ("fear_xs_gate"); provenance is "fear_xs" when the packaged
-    ``fear_xs.npz`` loaded, else the weights file's basename. A load failure
-    raises: there is no random-weights fallback."""
+    ``weights_path`` is anything ``convert/load.py:load_variables`` reads:
+    an ``.npz`` archive, a bare zoo name ("fear_xs_gate"), an Orbax
+    checkpoint of the JAX trainer (a directory), a ``.ckpt`` or an
+    ``.mlmodel``; provenance is "fear_xs" when the packaged ``fear_xs.npz``
+    loaded, else the weights path's basename. A load failure raises: there
+    is no random-weights fallback."""
     weights_path = resolve_weights(weights_path)
     model = build_family_model(model_name, towernum=towernum)
-    load_fear_net(model, variables_from_npz(weights_path))
+    load_fear_net(model, load_variables(weights_path, towernum=towernum))
     same = os.path.exists(PACKAGED_FEAR_XS) and os.path.samefile(weights_path, PACKAGED_FEAR_XS)
     return model, "fear_xs" if same else os.path.basename(weights_path)
 

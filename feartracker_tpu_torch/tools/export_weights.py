@@ -4,13 +4,14 @@ counterpart of ``tools/export_weights.py``.
 ``--weights_path`` takes every source ``convert/load.py:load_variables``
 reads (an ``.npz`` or a bare zoo name, a reference Lightning ``.ckpt``, a
 CoreML ``.mlmodel``; by default ``$FEAR_WEIGHTS`` or the packaged
-``fear_xs.npz``), and also a training checkpoint of the port
+``fear_xs.npz``; an Orbax checkpoint of the JAX trainer, read in Python
+and numpy), and also a training checkpoint of the port
 (``train/checkpoint.py``: a step or ``last/`` directory, or its
 ``state.pt``), whose model is mapped as ``convert/load.py:variables_of``
-maps a model: the port's counterpart of JAX reading its own trainer's Orbax
-directory. Any other directory is refused, as ``load_variables`` refuses it.
-The archive holds JAX's flat keys (``params/...``, ``batch_stats/...``), as
-JAX's ``save_npz`` writes them, and loads in both packages.
+maps a model. Any other directory raises ``load_variables``'s
+``FileNotFoundError``, which lists the Orbax paths it tried. The archive
+holds JAX's flat keys (``params/...``, ``batch_stats/...``), as JAX's
+``save_npz`` writes them, and loads in both packages.
 
     python -m feartracker_tpu_torch.tools.export_weights --weights_path runs/exp/checkpoints/last --out exp.npz
 """

@@ -3,10 +3,10 @@ in the bench's protocol shape (warmup, then timed chunk calls on frames
 already on the device, the best of the repeats). The counterpart of
 ``tools/family_bench.py``.
 
-Throughput does not depend on the weights, and no trained FEAR-M or FEAR-L
-weights exist: those two run a seeded random init (torch's generator,
-seed 0), labelled ``"random"``; FEAR-XS runs ``fear_xs.npz`` as the anchor
-of the same run.
+Throughput does not depend on the weights: FEAR-M and FEAR-L run a seeded
+random init (torch's generator, seed 0), labelled ``"random"``, although
+trained weights of both ship (``fear_m_repo.npz``, ``fear_l_repo.npz``);
+FEAR-XS runs ``fear_xs.npz`` as the anchor of the same run.
 
     python -m feartracker_tpu_torch.tools.family_bench --models fear_xs,fear_m,fear_l \\
         --streams 128 --chunk 64 --warmup 3 --timed 10 --repeats 2

@@ -1,8 +1,8 @@
 """Top-k training checkpoints, the counterpart of
-``feartracker_tpu/train/checkpoint.py`` without Orbax (the card host has
-none): each checkpoint is a ``torch.save`` of the train state's dicts of
-tensors (model parameters and BatchNorm statistics, the optimizer's state,
-the step), read back with ``weights_only=True``.
+``feartracker_tpu/train/checkpoint.py``: each checkpoint the port writes
+is a ``torch.save`` of the train state's dicts of tensors (model parameters
+and BatchNorm statistics, the optimizer's state, the step), read back with
+``weights_only=True``.
 
 Layout, as the JAX manager's: ``<dir>/<step>/`` for a ranked checkpoint
 (``state.pt`` and ``metrics.json``), ``<dir>/last/`` for the last one
@@ -10,9 +10,17 @@ Layout, as the JAX manager's: ``<dir>/<step>/`` for a ranked checkpoint
 ``best_fn`` with ``max_to_keep``: the ``max_to_keep`` best monitored values
 stay; between equal values the later step ranks higher.
 
-Reading the JAX trainer's Orbax directories is not ported: convert one to
-an ``.npz`` with ``tools/export_weights.py`` and load it with
-``convert/load.py``.
+The JAX trainer's own checkpoints in the same directory are read too, so a
+run of the JAX package resumes on the card: where a ``state.pt`` is absent,
+:meth:`CheckpointManager.restore_last` reads the Orbax save in
+``last/state/`` and :meth:`CheckpointManager.restore` the one in
+``<step>/default/`` (``convert/orbax.py``, Python and numpy alone), mapped
+onto the port's state by ``convert/load.py`` (the weights as
+``load_fear_net`` maps them, the optax state by
+``optimizer_state_from_jax``, which needs the manager's ``optimizer``).
+The JAX run's ranked steps (``<step>/metrics/metrics``) rank beside the
+port's. Where both a ``state.pt`` and an Orbax save are present, the
+``state.pt`` wins.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
+ORBAX_METRICS = os.path.join("metrics", "metrics")  # the JAX manager's ranked steps
 
 
 def _atomic_save(obj: Any, path: str) -> None:
@@ -48,7 +57,11 @@ class CheckpointManager:
         max_to_keep: int = 3,
         metric_mode: str = "max",
         save_last: bool = True,
+        optimizer=None,
     ):
+        """``optimizer`` (the port's ``Optimizer``) is needed only to
+        restore a JAX Orbax state: it says where each part of the optax
+        chain sits."""
         if metric_mode not in ("max", "min"):
             raise ValueError(f"metric_mode must be 'max' or 'min', got {metric_mode!r}")
         self.directory = os.path.abspath(directory)
@@ -56,6 +69,7 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.metric_mode = metric_mode
         self.save_last = save_last
+        self.optimizer = optimizer
         self._last_dir = os.path.join(self.directory, "last")
         self._ranked: List[Tuple[int, float]] = self._scan()
 
@@ -63,10 +77,12 @@ class CheckpointManager:
         """(step, monitor) of the ranked checkpoints already on disk."""
         found = []
         for name in os.listdir(self.directory):
-            path = os.path.join(self.directory, name, METRICS_FILE)
-            if name.isdigit() and os.path.exists(path):
-                with open(path) as fh:
-                    found.append((int(name), float(json.load(fh)["monitor"])))
+            for metrics in (METRICS_FILE, ORBAX_METRICS):
+                path = os.path.join(self.directory, name, metrics)
+                if name.isdigit() and os.path.exists(path):
+                    with open(path) as fh:
+                        found.append((int(name), float(json.load(fh)["monitor"])))
+                    break
         return sorted(found)
 
     def _sorted(self) -> List[Tuple[int, float]]:
@@ -76,7 +92,8 @@ class CheckpointManager:
         return sorted(self._ranked, key=lambda sm: (sign * sm[1], sm[0]))
 
     def has_last(self) -> bool:
-        return os.path.exists(os.path.join(self._last_dir, STATE_FILE))
+        return (os.path.exists(os.path.join(self._last_dir, STATE_FILE))
+                or os.path.exists(os.path.join(self._last_dir, "state", "_METADATA")))
 
     def save(self, step: int, state, monitor: Optional[float], extra: Optional[Dict[str, Any]] = None) -> None:
         """Save 'last' always (when ``save_last``); rank the step among the
@@ -119,10 +136,29 @@ class CheckpointManager:
         ranked = self._sorted()
         return ranked[-1][0] if ranked else None
 
-    @staticmethod
-    def _load(path: str, state_like):
-        d = torch.load(path, map_location="cpu", weights_only=True)
-        return state_like.load_state_dict(d)
+    def _load(self, directory: str, orbax_item: str, state_like):
+        path = os.path.join(directory, STATE_FILE)
+        if os.path.exists(path):
+            return state_like.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+        orbax_dir = os.path.join(directory, orbax_item)
+        if not os.path.exists(os.path.join(orbax_dir, "_METADATA")):
+            raise FileNotFoundError(f"no checkpoint in {directory}: neither {STATE_FILE} nor an Orbax "
+                                    f"{orbax_item}/")
+        return self._load_orbax(orbax_dir, state_like)
+
+    def _load_orbax(self, path: str, state_like):
+        """A JAX ``TrainState`` saved by Orbax → ``state_like``, in place."""
+        from feartracker_tpu_torch.convert.load import load_fear_net, optimizer_state_from_jax
+        from feartracker_tpu_torch.convert.orbax import read_orbax_tree
+
+        if self.optimizer is None:
+            raise ValueError(f"restoring the JAX Orbax state {path} needs the optimizer: "
+                             "CheckpointManager(..., optimizer=build_optimizer(config))")
+        tree = read_orbax_tree(path)
+        opt_state = optimizer_state_from_jax(tree["opt_state"], self.optimizer)
+        load_fear_net(state_like.model, {"params": tree["params"], "batch_stats": tree["batch_stats"]})
+        return state_like.load_state_dict({"model": state_like.model.state_dict(), "opt_state": opt_state,
+                                           "step": int(tree["step"])})
 
     def restore(self, state_like, step: Optional[int] = None):
         """Load the ``step`` checkpoint (the best one by default) into
@@ -130,7 +166,7 @@ class CheckpointManager:
         step = self.best_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no ranked checkpoint in {self.directory}")
-        return self._load(os.path.join(self.directory, str(int(step)), STATE_FILE), state_like)
+        return self._load(os.path.join(self.directory, str(int(step))), "default", state_like)
 
     def restore_last(self, state_like):
-        return self._load(os.path.join(self._last_dir, STATE_FILE), state_like)
+        return self._load(self._last_dir, "state", state_like)

@@ -4,7 +4,11 @@ with per-step metric logging and best/worst-batch mosaics, online-tracking
 validation over real sequences (the sequential ``FEARTracker``, or
 ``ScanTracker`` with ``val_batched``: K1 and K2 run there), plateau LR,
 early stopping, top-k checkpoints, resume from ``last``, per-epoch dataset
-resampling and the dynamic frame-offset curriculum.
+resampling and the dynamic frame-offset curriculum. ``resume`` also goes on
+from an experiment folder that the JAX ``Trainer`` wrote: its Orbax
+``last/state`` gives the weights, the optimizer's state, the step and the
+injected learning rate, and ``last/meta.json`` the epoch
+(``train/checkpoint.py``).
 
 Where PyTorch's idiom differs:
 
@@ -173,6 +177,7 @@ class Trainer:
             os.path.join(self.exp_dir, config.get("checkpoint_dir", "checkpoints")),
             max_to_keep=int(config.get("save_top_k", 3)),
             metric_mode=config.get("metric_mode", "max"),
+            optimizer=self.tx,  # maps a JAX run's Orbax state on resume
         )
         self._writer = None
 

@@ -13,9 +13,9 @@
   disk; the wrong-architecture refusal.
 * A ``.ckpt`` is read weights-only: Lightning's hyper-parameter dict
   loads, any other object is refused unless the caller opts in.
-* ``load_variables`` dispatches as JAX's does, and a directory (an Orbax
-  checkpoint) raises; the default weights lie inside the checkout unless
-  ``$FEAR_WEIGHTS`` names others.
+* ``load_variables`` dispatches as JAX's does (a directory, an Orbax
+  checkpoint, is ``tests/test_torch_orbax.py``'s); the default weights lie
+  inside the checkout unless ``$FEAR_WEIGHTS`` names others.
 """
 
 import json
@@ -381,11 +381,6 @@ def test_load_variables_dispatch_matches_jax(tmp_path, monkeypatch):
     want = L.flatten_variables(jload.load_variables("fear_xs_gate"))
     _assert_same_flat(L.load_variables("fear_xs_gate"), want)
     _assert_same_flat(L.load_variables(os.path.join(os.path.dirname(L.PACKAGED_FEAR_XS), "fear_xs_gate.npz")), want)
-
-
-def test_load_variables_refuses_a_directory(tmp_path):
-    with pytest.raises(ValueError, match=r"tools/export_weights\.py.*Queue 1 item 4"):
-        L.load_variables(str(tmp_path))
 
 
 def test_default_weights_path(tmp_path, monkeypatch):

@@ -14,7 +14,8 @@ the JAX package:
   its first batch equals JAX's pipeline's on the same ``.npy`` root;
 * ``tools/export_weights``: ``fear_xs.npz`` through it equals JAX's
   ``save_npz``; a port checkpoint's archive loads in JAX and gives the port
-  model's features; an Orbax-like directory is refused;
+  model's features; an Orbax-like directory without a state raises the
+  Orbax reader's ``FileNotFoundError``;
 * the device timer and the card's peaks live in ``evaluate/profiling.py``,
   and ``chip_smoke.py`` resolves to them."""
 
@@ -418,7 +419,7 @@ def test_export_refuses_an_orbax_like_directory(tmp_path):
     orbax = tmp_path / "orbax" / "100"
     orbax.mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(ValueError, match="Orbax"):
+    with pytest.raises(FileNotFoundError, match="no Orbax state found"):
         export_weights.main(["--weights_path", str(orbax), "--out", str(tmp_path / "x.npz")])
     assert not (tmp_path / "x.npz").exists()
 
