@@ -246,7 +246,25 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    then 12a's float32 step from the restored state, card against CPU at
    12a's tolerances; 18d ``warp_affine_linear_u8``, ``rescale_crop`` and
    ``get_subwindow_tracking`` on the card for 32 seeded boxes: bytes equal
-   to the CPU's.
+   to the CPU's;
+19. JPEG and the host augmentations on the card host, which has no cv2:
+   19a the codec (``csrc/jpeg.cpp``, built with g++ at first use) against
+   the committed sha256s of cv2's bytes (``tests/fixtures/jpeg``): its
+   encodes of seeded frames (``fixture_frame``) and its decodes of eleven
+   cv2-made files (progressive, restart, 4:4:4, 4:2:2, 4:4:0, gray, 1x1,
+   EXIF 6), and the ms of a 1280x720 4:2:0 q95 decode and encode on one
+   core; 19b ``Trainer.fit`` at the default ``device_augs: false`` (host
+   augmentations, 8 loader threads, B=32, 2 epochs x 3 steps) over a JPEG
+   GOT-10k tree of 1280x720 frames that the port's generator writes there
+   with ``--format jpg``, validated by ``FEARTracker`` over the JPEG frames:
+   K1/K2 launches equal to the validation schedule, the loader alone's ms a
+   batch, the mosaics mined and logged; 19c the GOT-10k OPE protocol over
+   that tree's JPEG val sequences and over ``.npy`` frames of the same
+   decoded pixels: every result equal; 19d 64 normal-mode items with each
+   host transform forced on in turn against the digests of the JAX
+   package's items made with cv2 (``tests/fixtures/host_items.json``):
+   byte-equal, ISONoise's (whose noise follows numpy's float std) at worst
+   within 1e-3 of each image's mean.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -782,9 +800,8 @@ def _track_clip(tracker, frames, box):
 
 
 def _protocol_suite(seqs, name: str = "synthetic"):
-    """An in-memory GOT-10k-like dataset of decoded frames (the card host
-    cannot decode the ``.jpg`` files that ``GOT10kDataset`` globs;
-    ``read_img`` passes arrays through)."""
+    """An in-memory GOT-10k-like dataset of decoded frames (``read_img``
+    passes arrays through)."""
     from feartracker_tpu_torch.data.sequence import SequenceDataset
 
     class InMemory(SequenceDataset):
@@ -3433,6 +3450,336 @@ def _phase_orbax(card, counters, lap, work: str):
     return {"orbax": counts["orbax"][0]}
 
 
+# phase 19: the card host's image input and output, which has no cv2
+JPEG_FIXTURES = ("tests", "fixtures", "jpeg")  # cv2-made JPEGs and the sha256s of cv2's bytes
+HOST_ITEMS = ("tests", "fixtures", "host_items.json")  # 19d's item digests, made on the CPU with cv2
+# the transforms of both host pipelines, each forced on in turn for 19d
+PHOTOMETRIC = ("Blur", "MotionBlur", "MedianBlur", "GaussianBlur", "GlassBlur", "GaussNoise", "ImageCompression",
+               "ISONoise", "MultiplicativeNoise", "RandomRain", "RandomShadow", "Downscale")
+TRACKING = ("ToGray", "ToSepia", "CLAHE", "RandomBrightnessContrast", "Emboss", "RandomGamma",
+            "HueSaturationValue", "RGBShift", "Equalize", "ColorJitter", "RandomToneCurve")
+HOST_ITEM_COUNT = 64
+# ISONoise draws its noise from the float32 std of the image's lightness,
+# a numpy reduction whose last bits may differ between numpy builds: its
+# items are held to the mean of each image within this much of the CPU's
+# (normalised units; one grey level is 0.017) where their bytes differ
+ISO_MEAN_ATOL = 1e-3
+HOSTAUG_STEPS, HOSTAUG_EPOCHS, HOSTAUG_WORKERS = 3, 2, 8
+HOSTAUG_FRAME_HW = (720, 1280)  # a GOT-10k frame's size
+HOST_CODEC_REPS = 20
+
+
+def fixture_frame(seed: int, h: int, w: int, gray: bool = False):
+    """A seeded frame from integer draws alone, so the same bytes on every
+    host: 16-pixel colour cells plus noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cells = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3))
+    img = np.repeat(np.repeat(cells, 16, 0), 16, 1)[:h, :w]
+    img = np.clip(img + rng.randint(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(img[..., 0]) if gray else img
+
+
+# (seed, h, w, quality, gray) of 19a's encoder checks
+ENCODE_CASES = [(0, 720, 1280, 95, False), (1, 33, 17, 50, False), (2, 128, 128, 75, False), (3, 256, 256, 100, False),
+                (4, 1, 1, 95, False), (5, 99, 101, 90, False), (6, 41, 29, 90, True), (7, 256, 256, 95, True)]
+
+
+def host_item_tree(root: str) -> str:
+    """19d's JPEG tree: 4 tracks of 6 seeded 240x320 frames (``fixture_frame``),
+    encoded by the port at quality 95, and ``train.csv`` naming them; → the
+    CSV's path."""
+    import csv
+    import os
+
+    from feartracker_tpu_torch.data.jpeg import encode_jpeg
+
+    os.makedirs(root, exist_ok=True)
+    rows = []
+    for t in range(4):
+        for f in range(6):
+            img = fixture_frame(1000 + 10 * t + f, 240, 320)
+            x, y, w, h = 40 + 9 * f + 20 * t, 50 + 5 * f, 60 + 4 * t, 70
+            img[y:y + h, x:x + w] = (200, 60 + 40 * t, 90)
+            name = f"t{t}_f{f}.jpg"
+            with open(os.path.join(root, name), "wb") as fh:
+                fh.write(encode_jpeg(img, 95))
+            rows.append({"sequence_id": f"s{t}", "track_id": f"t{t}", "frame_index": f, "img_path": name,
+                         "bbox": str([x, y, w, h]), "frame_shape": "[320, 240]", "dataset": "host",
+                         "presence": 1, "near_corner": 0})
+    path = os.path.join(root, "train.csv")
+    with open(path, "w", newline="") as fh:
+        writer = csv.DictWriter(fh, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return path
+
+
+def forced_item_digests(dataset_cls, aug, root: str) -> list:
+    """19d's items: ``HOST_ITEM_COUNT`` normal-mode items of ``dataset_cls``
+    over ``host_item_tree(root)``, item i with transform i of the 23 (mod
+    23) forced on and the rest off, ``aug`` the augmentations module of the
+    dataset's own package; → per item (transform, sha256 of every field,
+    mean of each image array)."""
+    import hashlib
+
+    import numpy as np
+
+    csv_path = host_item_tree(root)
+    cfg = {"root": root, "name": "host", "sizes": dict(TRAIN_SIZES), "regression_weight_label_size": 16,
+           "sampling": {"type": "track", "data_path": csv_path, "negative_ratio": 0.0, "frame_offset": 3,
+                        "num_samples": 16, "clip_range": True}}
+    ds = dataset_cls(cfg, {"score_size": 16, "total_stride": 16}, seed=19)
+    names = PHOTOMETRIC + TRACKING
+    out = []
+    for i in range(HOST_ITEM_COUNT):
+        name = names[i % len(names)]
+        forced = aug.OneOf([getattr(aug, name)()], p=1.0)
+        photometric = name in PHOTOMETRIC
+        ds.photometric = aug.Compose([forced] if photometric else [])
+        ds.paired_color = aug.PairedCompose([] if photometric else [forced])
+        item = ds[i % len(ds)]
+        h = hashlib.sha256()
+        means = {}
+        for k in sorted(item):
+            v = item[k]
+            h.update(k.encode())
+            if isinstance(v, np.ndarray):
+                h.update(f"{v.dtype}{v.shape}".encode())
+                h.update(np.ascontiguousarray(v).tobytes())
+                if v.ndim == 3:
+                    means[k] = float(v.astype(np.float64).mean())
+            else:
+                h.update(repr(v).encode())
+        out.append({"transform": name, "index": i % len(ds), "sha256": h.hexdigest(), "means": means})
+    return out
+
+
+def _sha(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(bytes(data)).hexdigest()
+
+
+def _phase_host_io(card, counters, lap, work: str):
+    """Phase 19: JPEG and the host augmentations on the card host, which
+    has no cv2: the codec against cv2's bytes (19a), the default training
+    configuration over a JPEG tree (19b), the GOT-10k protocol over JPEG
+    against ``.npy`` frames of the same pixels (19c) and the forced-transform
+    items against the CPU's (19d), with cv2 blocked in the process. → each
+    path's launches."""
+    import importlib.util
+    import os
+
+    t19 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cv2_present = importlib.util.find_spec("cv2") is not None
+    earlier = sys.modules.pop("cv2", None)
+    sys.modules["cv2"] = None  # an import of cv2 raises for the rest of the phase
+    try:
+        return _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19)
+    finally:
+        del sys.modules["cv2"]
+        if earlier is not None:
+            sys.modules["cv2"] = earlier
+
+
+def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.data import augmentations as aug
+    from feartracker_tpu_torch.data.dataset import SiameseTrackingDataset
+    from feartracker_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from feartracker_tpu_torch.data.loader import BatchLoader
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
+    from feartracker_tpu_torch.train import loop as L
+    from feartracker_tpu_torch.train.loop import Trainer
+    from feartracker_tpu_torch.train.summary import read_events, scalars
+
+    # 19a: the codec against cv2's bytes, made on the CPU with cv2
+    with open(os.path.join(here, *JPEG_FIXTURES, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    enc_bad = [c for c in manifest["encode"] if _sha(encode_jpeg(fixture_frame(c["seed"], c["h"], c["w"], c["gray"]),
+                                                                  c["quality"])) != c["sha256"]]
+    dec_bad = []
+    for c in manifest["decode"]:
+        img = decode_jpeg(os.path.join(here, *JPEG_FIXTURES, c["file"]))
+        if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
+            dec_bad.append(c["file"])
+    if enc_bad or dec_bad:
+        raise AssertionError(f"19a: encodes differ from cv2's for {enc_bad}; decodes for {dec_bad}")
+    frame = fixture_frame(0, 720, 1280)
+    data = encode_jpeg(frame, 95)
+    for _ in range(3):
+        decode_jpeg(data)
+    enc_ms, dec_ms = [], []
+    for _ in range(HOST_CODEC_REPS):
+        t0 = time.perf_counter()
+        encode_jpeg(frame, 95)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        decode_jpeg(data)
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[19a] JPEG codec (csrc/jpeg.cpp, g++) on the card host, cv2 installed {cv2_present}, blocked in the "
+          f"process for the phase: "
+          f"{len(manifest['encode'])} seeded encodes and {len(manifest['decode'])} cv2-made files ("
+          f"{', '.join(c['kind'] for c in manifest['decode'])}) byte-equal to cv2's; 1280x720 4:2:0 q95 "
+          f"({len(data) / 1e3:.0f} kB) decode p50 {statistics.median(dec_ms):.2f} ms, encode p50 "
+          f"{statistics.median(enc_ms):.2f} ms on one core [{card}]", flush=True)
+    lap("19a")
+
+    # 19b: the default training configuration (host augmentations) over a
+    # JPEG tree that the port's generator writes here
+    data_root = os.path.join(work, "hostaug_data")
+    t0 = time.perf_counter()
+    generate(os.path.join(data_root, "got10k"), tracks=8, frames=12, val_sequences=2, seed=19,
+             size=HOSTAUG_FRAME_HW, fmt="jpg")  # 96 rows: 3 batches of 32 an epoch
+    os.rename(os.path.join(data_root, "got10k", "got10k", "val"), os.path.join(data_root, "got10k", "val"))
+    gen_s = time.perf_counter() - t0
+    exp = os.path.join(work, "hostaug_exp")
+    cfg = _loop_config(data_root, exp, "HOSTAUG", [
+        "device_augs=false", f"num_workers={HOSTAUG_WORKERS}", f"train_percent={HOSTAUG_STEPS}",
+        f"max_epochs={HOSTAUG_EPOCHS}", "sanity_steps=0", "max_val_samples=12"])
+    if cfg["device_augs"] or cfg["batch_size"]["train"] != 32:
+        raise AssertionError(f"19b: device_augs {cfg['device_augs']}, B {cfg['batch_size']['train']}")
+    trainer = Trainer(cfg)
+    trainer.setup_data()
+    trainer.val_datasets = [GOT10kDataset(os.path.join(data_root, "got10k"), "val")]
+    # the loader alone, as 12c times it: host ms a batch over an epoch's batches
+    alone = BatchLoader(trainer.train_dataset, 32, num_workers=HOSTAUG_WORKERS, seed=0)
+    t0 = time.perf_counter()
+    n_alone = sum(1 for _ in alone)
+    host_ms = (time.perf_counter() - t0) * 1e3 / n_alone
+    loader_ms = []
+    plain_iter = L.BatchLoader.__iter__
+
+    def timed_iter(self):  # the time to make each batch, as the step waits for it
+        it = plain_iter(self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            loader_ms.append((time.perf_counter() - t0) * 1e3)
+            yield b
+
+    mined = []
+    miner_update = trainer.miner.update
+
+    def spy(score, batch, outputs):
+        before = (trainer.miner.best_mosaic, trainer.miner.worst_mosaic)
+        miner_update(score, batch, outputs)
+        after = (trainer.miner.best_mosaic, trainer.miner.worst_mosaic)
+        mined.extend(m for m, b in zip(after, before) if m is not None and m is not b)
+
+    trainer.miner.update = spy
+    lengths = _val_lengths(os.path.join(data_root, "got10k"), 12)
+    nf = _n_fused("fear_xs")
+    schedule = _sum_launches(*[_sequential_launches(lengths, nf)] * HOSTAUG_EPOCHS)
+    L.BatchLoader.__iter__ = timed_iter
+    try:
+        _zero(counters)
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        L.BatchLoader.__iter__ = plain_iter
+    got = _read(counters)
+    losses = scalars(read_events(os.path.join(trainer.exp_dir, "logs")))["train/loss"]
+    events = read_events(os.path.join(trainer.exp_dir, "logs"))
+    images = sorted({v["tag"] for e in events for v in e.get("summary", ()) if "image" in v})
+    if got != schedule or len(losses) != HOSTAUG_STEPS * HOSTAUG_EPOCHS or not all(np.isfinite(v) for _, v in losses):
+        raise AssertionError(f"19b: launches {got} against the validation schedule {schedule}; losses {losses}")
+    if not mined or any(m.dtype != np.uint8 or m.ndim != 3 for m in mined):
+        raise AssertionError(f"19b: {len(mined)} mosaics mined")
+    print(f"[19b] Trainer.fit at the default device_augs=false: host augmentations on {HOSTAUG_WORKERS} loader "
+          f"threads, B=32 bf16, {HOSTAUG_EPOCHS} epochs x {HOSTAUG_STEPS} steps over a JPEG GOT-10k tree written "
+          f"here by make_synthetic_dataset --format jpg ({HOSTAUG_FRAME_HW[1]}x{HOSTAUG_FRAME_HW[0]}, 8 tracks + 2 "
+          f"val sequences of 12 frames, {gen_s:.1f} s): losses {', '.join(f'{v:.4f}' for _, v in losses)}; "
+          f"launches {got} = the validation schedule (FEARTracker over the JPEG frames, {lengths} frames a "
+          f"sequence); loader alone {host_ms:.0f} ms a batch over {n_alone} batches (12c's staged .npy path: "
+          f"679-721 ms); in the fit, each batch's wait {', '.join(f'{v:.0f}' for v in loader_ms)} ms; {len(mined)} mosaics "
+          f"mined ({mined[0].shape[1]}x{mined[0].shape[0]}), logged as {images}; fit {fit_s:.1f} s [{card}]",
+          flush=True)
+    lap("19b")
+
+    # 19c: the GOT-10k protocol over the JPEG frames and over .npy frames
+    # of the same decoded pixels
+    npy_root = os.path.join(work, "hostaug_npy")
+    val_dir = os.path.join(data_root, "got10k", "val")
+    for seq in sorted(os.listdir(val_dir)):
+        src = os.path.join(val_dir, seq)
+        if not os.path.isdir(src):
+            continue
+        dst = os.path.join(npy_root, "val", seq)
+        os.makedirs(dst, exist_ok=True)
+        for f in os.listdir(src):
+            if f.endswith(".jpg"):
+                np.save(os.path.join(dst, f[:-4] + ".npy"), decode_jpeg(os.path.join(src, f)))
+            else:
+                with open(os.path.join(src, f), "rb") as a, open(os.path.join(dst, f), "wb") as b:
+                    b.write(a.read())
+    with open(os.path.join(val_dir, "list.txt"), "rb") as a, open(os.path.join(npy_root, "val", "list.txt"), "wb") as b:
+        b.write(a.read())
+    ao, counts = {}, {}
+    for name, root in (("jpg", os.path.join(data_root, "got10k")), ("npy", npy_root)):
+        ds = GOT10kDataset(root, "val")
+        if not all(f.endswith("." + name) for i in range(len(ds)) for f in ds[i][0]):
+            raise AssertionError(f"19c: the {name} dataset lists other frames")
+        tracker = _fear_tracker("cuda", torch.float32)
+        _zero(counters)
+        ao[name] = evaluate_tracker(tracker, ds)
+        torch.cuda.synchronize()
+        counts[name] = _read(counters)
+    full = _val_lengths(os.path.join(data_root, "got10k"))
+    want = _sequential_launches(full, nf)
+    if ao["jpg"] != ao["npy"] or counts["jpg"] != want or counts["npy"] != want:
+        raise AssertionError(f"19c: JPEG {ao['jpg']} {counts['jpg']} against .npy {ao['npy']} {counts['npy']}; "
+                             f"schedule {want}")
+    print(f"[19c] GOT-10k OPE (FEARTracker FEAR-XS f32) over the {len(full)} JPEG val sequences and over .npy "
+          f"frames of the same decoded pixels: every result equal (AO {ao['jpg']['ao']:.6f}, SR50 "
+          f"{ao['jpg']['sr50']:.4f}, per sequence {ao['jpg']['per_sequence']}); launches {counts['jpg']} each, = the "
+          f"schedule [{card}]", flush=True)
+    lap("19c")
+
+    # 19d: forced-transform items against the CPU's digests
+    with open(os.path.join(here, *HOST_ITEMS)) as fh:
+        want_items = json.load(fh)["items"]
+    t0 = time.perf_counter()
+    got_items = forced_item_digests(SiameseTrackingDataset, aug, os.path.join(work, "host_items"))
+    items_s = time.perf_counter() - t0
+    equal, near, bad = 0, [], []
+    for g, w in zip(got_items, want_items):
+        if g["transform"] != w["transform"] or g["index"] != w["index"]:
+            raise AssertionError(f"19d: item order {g['transform']} {g['index']} against {w['transform']}")
+        if g["sha256"] == w["sha256"]:
+            equal += 1
+        elif g["transform"] == "ISONoise" and g["means"].keys() == w["means"].keys() and all(
+                abs(g["means"][k] - w["means"][k]) <= ISO_MEAN_ATOL for k in w["means"]):
+            near.append(max(abs(g["means"][k] - w["means"][k]) for k in w["means"]))
+        else:
+            bad.append(g["transform"])
+    if bad or len(got_items) != len(want_items):
+        raise AssertionError(f"19d: items of {bad} differ from the CPU's")
+    print(f"[19d] {len(got_items)} normal-mode items (256/128 crops of the 240x320 JPEG tree), each with one of the "
+          f"{len(PHOTOMETRIC) + len(TRACKING)} host transforms forced on: {equal} byte-equal to the CPU's (cv2 and "
+          f"JAX's items there); ISONoise items off by numpy's float std: {len(near)}"
+          f"{f' (image means within {max(near):.1e} <= {ISO_MEAN_ATOL})' if near else ''}; {items_s:.1f} s on "
+          f"one thread [{card}]", flush=True)
+    lap("19d")
+    print(f"[19] phase 19 in {time.perf_counter() - t19:.1f} s", flush=True)
+    return {"host_train": got, "host_ope": _sum_launches(counts["jpg"], counts["npy"])}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -3683,12 +4030,14 @@ def main() -> int:
         scenario_launches = _phase_scenarios(card, counters, lap, work)
         driver_launches = _phase_drivers(card, counters, lap, work)
         orbax_launches = _phase_orbax(card, counters, lap, work)
+        host_launches = _phase_host_io(card, counters, lap, work)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all; the whole script "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)
     by_path = {"static": launches, "dual": dual_launches, **pool_launches, **seq_launches,
                "static_scan_unroll_16": graph_launches, **deploy_launches, **train_launches, **loop_launches,
-               **parallel_launches, **tool_launches, **scenario_launches, **driver_launches, **orbax_launches}
+               **parallel_launches, **tool_launches, **scenario_launches, **driver_launches, **orbax_launches,
+               **host_launches}
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it

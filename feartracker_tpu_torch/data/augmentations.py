@@ -1,7 +1,9 @@
-"""Host image augmentations (numpy + cv2), the counterpart of
+"""Host image augmentations in numpy, the counterpart of
 ``feartracker_tpu/data/augmentations.py``: the same transforms, the same
-``np.random.RandomState`` draws in the same order, so that an item equals
-the JAX package's bit for bit where cv2 exists.
+``np.random.RandomState`` draws in the same order, and the same bytes: the
+cv2 calls of the JAX package are ``utils/cv_host.py``'s twins, the JPEG
+round trip is ``data/jpeg.py``'s codec and the crop warp is
+``ops/resize.py``'s, all equal to OpenCV 5.0. No cv2 is needed.
 
 * ``photometric_augmentations()``: blur / noise / weather / downscale,
   applied independently to template and search crops;
@@ -10,9 +12,7 @@ the JAX package's bit for bit where cv2 exists.
 
 Every transform separates ``sample_params(rng)`` from ``apply(img,
 params)`` so that a group of images can share one draw. All take uint8 RGB
-HWC images. cv2 is imported at the first apply, not with this module: a
-dataset builds both pipelines at construction, on hosts without cv2 too
-(the card host, where training runs the device augmentations instead).
+HWC images.
 """
 
 from __future__ import annotations
@@ -21,18 +21,11 @@ import math
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
-
-class _LazyCV2:
-    """``cv2``, imported at its first use."""
-
-    def __getattr__(self, name):
-        import cv2
-
-        return getattr(cv2, name)
-
-
-cv2 = _LazyCV2()
+from feartracker_tpu_torch.data.jpeg import jpeg_roundtrip
+from feartracker_tpu_torch.ops.resize import warp_affine_linear_u8
+from feartracker_tpu_torch.utils import cv_host, raster
 
 
 class Transform:
@@ -109,7 +102,7 @@ class Blur(Transform):
         return {"k": int(rng.randint(3, 8) | 1)}
 
     def apply(self, img, params):
-        return cv2.blur(img, (params["k"], params["k"]))
+        return cv_host.blur(img, params["k"])
 
 
 class MotionBlur(Transform):
@@ -122,10 +115,10 @@ class MotionBlur(Transform):
         k = params["k"]
         kernel = np.zeros((k, k), np.float32)
         kernel[k // 2, :] = 1.0
-        m = cv2.getRotationMatrix2D((k / 2 - 0.5, k / 2 - 0.5), params["angle"], 1.0)
-        kernel = cv2.warpAffine(kernel, m, (k, k))
+        m = cv_host.rotation_matrix_2d((k / 2 - 0.5, k / 2 - 0.5), params["angle"], 1.0)
+        kernel = cv_host.warp_affine_f32(kernel, m, (k, k))
         kernel /= max(kernel.sum(), 1e-6)
-        return cv2.filter2D(img, -1, kernel)
+        return cv_host.filter2d(img, kernel)
 
 
 class MedianBlur(Transform):
@@ -133,7 +126,7 @@ class MedianBlur(Transform):
         return {"k": int(rng.randint(3, 8) | 1)}
 
     def apply(self, img, params):
-        return cv2.medianBlur(img, params["k"])
+        return cv_host.median_blur(img, params["k"])
 
 
 class GaussianBlur(Transform):
@@ -141,7 +134,7 @@ class GaussianBlur(Transform):
         return {"k": int(rng.randint(3, 8) | 1)}
 
     def apply(self, img, params):
-        return cv2.GaussianBlur(img, (params["k"], params["k"]), 0)
+        return cv_host.gaussian_blur(img, params["k"])
 
 
 class GlassBlur(Transform):
@@ -158,8 +151,8 @@ class GlassBlur(Transform):
         xx, yy = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
         mapx = np.clip(xx + params["dx"][:h, :w], 0, w - 1)
         mapy = np.clip(yy + params["dy"][:h, :w], 0, h - 1)
-        out = cv2.remap(img, mapx, mapy, cv2.INTER_LINEAR)
-        return cv2.GaussianBlur(out, (3, 3), 0)
+        out = cv_host.remap_linear(img, mapx, mapy)
+        return cv_host.gaussian_blur(out, 3)
 
 
 # --- noise family ------------------------------------------------------------
@@ -187,8 +180,7 @@ class ImageCompression(Transform):
         return {"q": int(rng.randint(self.lo, self.hi + 1))}
 
     def apply(self, img, params):
-        ok, enc = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, params["q"]])
-        return cv2.imdecode(enc, cv2.IMREAD_COLOR) if ok else img
+        return jpeg_roundtrip(img, params["q"])
 
 
 class ISONoise(Transform):
@@ -201,14 +193,14 @@ class ISONoise(Transform):
 
     def apply(self, img, params):
         r = np.random.RandomState(params["seed"])
-        hls = cv2.cvtColor(img, cv2.COLOR_RGB2HLS).astype(np.float32)
+        hls = cv_host.rgb2hls(img).astype(np.float32)
         stddev = hls[..., 1].std()
         luminance_noise = r.poisson(max(stddev * params["intensity"] * 255, 1e-3), hls.shape[:2])
         color_noise = r.normal(0, params["color_shift"] * 360 * params["intensity"], hls.shape[:2])
         hls[..., 0] = (hls[..., 0] + color_noise) % 360
         hls[..., 1] += luminance_noise * (params["intensity"] / 255.0)
         hls[..., 1] = np.clip(hls[..., 1], 0, 255)
-        return cv2.cvtColor(hls.astype(np.uint8), cv2.COLOR_HLS2RGB)
+        return cv_host.hls2rgb(hls.astype(np.uint8))
 
 
 class MultiplicativeNoise(Transform):
@@ -239,8 +231,8 @@ class RandomRain(Transform):
             x, y = int(x % w), int(y % h)
             x2 = np.clip(x + params["slant"], 0, w - 1)
             y2 = np.clip(y + params["length"], 0, h - 1)
-            cv2.line(out, (x, y), (int(x2), int(y2)), (200, 200, 200), 1)
-        return cv2.blur(out, (3, 3))
+            cv_host.line(out, (x, y), (int(x2), int(y2)), (200, 200, 200))
+        return cv_host.blur(out, 3)
 
 
 class RandomShadow(Transform):
@@ -251,8 +243,9 @@ class RandomShadow(Transform):
         return {"poly": poly, "alpha": rng.uniform(0.3, 0.6)}
 
     def apply(self, img, params):
-        mask = np.zeros(img.shape[:2], np.uint8)
-        cv2.fillPoly(mask, [params["poly"].astype(np.int32)], 255)
+        mask = np.zeros(img.shape[:2] + (1,), np.uint8)
+        raster.fill_poly(mask, params["poly"].astype(np.int32), (255,))
+        mask = mask[..., 0]
         out = img.astype(np.float32)
         out[mask > 0] *= 1.0 - params["alpha"]
         return _u8(out)
@@ -271,8 +264,8 @@ class Downscale(Transform):
     def apply(self, img, params):
         h, w = img.shape[:2]
         s = params["scale"]
-        small = cv2.resize(img, (max(1, int(w * s)), max(1, int(h * s))), interpolation=cv2.INTER_NEAREST)
-        return cv2.resize(small, (w, h), interpolation=cv2.INTER_NEAREST)
+        small = raster.resize_nearest(img, (max(1, int(w * s)), max(1, int(h * s))))
+        return raster.resize_nearest(small, (w, h))
 
 
 # --- color family ------------------------------------------------------------
@@ -280,8 +273,7 @@ class Downscale(Transform):
 
 class ToGray(Transform):
     def apply(self, img, params):
-        g = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
-        return cv2.cvtColor(g, cv2.COLOR_GRAY2RGB)
+        return cv_host.gray2rgb(cv_host.rgb2gray(img))
 
 
 class ToSepia(Transform):
@@ -302,10 +294,9 @@ class CLAHE(Transform):
         return {"clip": rng.uniform(1.0, self.clip_limit)}
 
     def apply(self, img, params):
-        lab = cv2.cvtColor(img, cv2.COLOR_RGB2LAB)
-        clahe = cv2.createCLAHE(clipLimit=params["clip"], tileGridSize=(8, 8))
-        lab[..., 0] = clahe.apply(lab[..., 0])
-        return cv2.cvtColor(lab, cv2.COLOR_LAB2RGB)
+        lab = cv_host.rgb2lab(img)
+        lab[..., 0] = cv_host.clahe(lab[..., 0], params["clip"], 8)
+        return cv_host.lab2rgb(lab)
 
 
 class RandomBrightnessContrast(Transform):
@@ -323,7 +314,7 @@ class Emboss(Transform):
     def apply(self, img, params):
         s = params["strength"]
         kernel = np.array([[-1 - s, 0 - s, 0], [0 - s, 1, 0 + s], [0, 0 + s, 1 + s]], np.float32)
-        embossed = cv2.filter2D(img, -1, kernel)
+        embossed = cv_host.filter2d(img, kernel)
         a = params["alpha"]
         return _u8(img.astype(np.float32) * (1 - a) + embossed.astype(np.float32) * a)
 
@@ -334,7 +325,7 @@ class RandomGamma(Transform):
 
     def apply(self, img, params):
         table = (np.linspace(0, 1, 256) ** params["gamma"] * 255).astype(np.uint8)
-        return cv2.LUT(img, table)
+        return cv_host.lut(img, table)
 
 
 class HueSaturationValue(Transform):
@@ -346,11 +337,11 @@ class HueSaturationValue(Transform):
         }
 
     def apply(self, img, params):
-        hsv = cv2.cvtColor(img, cv2.COLOR_RGB2HSV).astype(np.float32)
+        hsv = cv_host.rgb2hsv(img).astype(np.float32)
         hsv[..., 0] = (hsv[..., 0] + params["h"]) % 180
         hsv[..., 1] = np.clip(hsv[..., 1] + params["s"], 0, 255)
         hsv[..., 2] = np.clip(hsv[..., 2] + params["v"], 0, 255)
-        return cv2.cvtColor(hsv.astype(np.uint8), cv2.COLOR_HSV2RGB)
+        return cv_host.hsv2rgb(hsv.astype(np.uint8))
 
 
 class RGBShift(Transform):
@@ -365,7 +356,7 @@ class Equalize(Transform):
     def apply(self, img, params):
         out = img.copy()
         for c in range(3):
-            out[..., c] = cv2.equalizeHist(img[..., c])
+            out[..., c] = cv_host.equalize_hist(img[..., c])
         return out
 
 
@@ -382,10 +373,10 @@ class ColorJitter(Transform):
         out = img.astype(np.float32) * params["brightness"]
         mean = out.mean()
         out = (out - mean) * params["contrast"] + mean
-        hsv = cv2.cvtColor(_u8(out), cv2.COLOR_RGB2HSV).astype(np.float32)
+        hsv = cv_host.rgb2hsv(_u8(out)).astype(np.float32)
         hsv[..., 1] = np.clip(hsv[..., 1] * params["saturation"], 0, 255)
         hsv[..., 0] = (hsv[..., 0] + params["hue"] * 180) % 180
-        return cv2.cvtColor(hsv.astype(np.uint8), cv2.COLOR_HSV2RGB)
+        return cv_host.hsv2rgb(hsv.astype(np.uint8))
 
 
 class RandomToneCurve(Transform):
@@ -396,7 +387,7 @@ class RandomToneCurve(Transform):
         s = params["scale"]
         x = np.linspace(0, 1, 256)
         curve = np.clip(x + s * np.sin(x * np.pi), 0, 1)
-        return cv2.LUT(img, (curve * 255).astype(np.uint8))
+        return cv_host.lut(img, (curve * 255).astype(np.uint8))
 
 
 # --- geometric crop transform ------------------------------------------------
@@ -430,14 +421,14 @@ class BBoxCropWithOffsets:
     @staticmethod
     def affine_crop(image: np.ndarray, bbox, out_size: int) -> np.ndarray:
         """``warpAffine`` of the window onto ``out_size``², scale
-        (out−1)/size, constant zero border."""
+        (out−1)/size, constant zero border. The map is axis-aligned, so
+        ``warp_affine_linear_u8`` gives cv2's bytes."""
         b = [float(v) for v in bbox]
         a = (out_size - 1) / b[2]
         c = (out_size - 1) / b[3]
         mapping = np.array([[a, 0, -a * b[0]], [0, c, -c * b[1]]], np.float64)
-        return cv2.warpAffine(
-            image, mapping, (out_size, out_size), borderMode=cv2.BORDER_CONSTANT, borderValue=0
-        )
+        out = warp_affine_linear_u8(torch.from_numpy(np.ascontiguousarray(image)), mapping, (out_size, out_size))
+        return out.numpy()
 
     def _transform_bbox(self, bbox, crop_bbox) -> Tuple[int, int, int, int]:
         """The object box in crop pixels, truncated to int."""

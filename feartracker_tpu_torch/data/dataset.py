@@ -38,6 +38,7 @@ from feartracker_tpu_torch.data.augmentations import (
 )
 from feartracker_tpu_torch.data.crops import get_extended_crop
 from feartracker_tpu_torch.data.device_augs import STAGED_SEARCH_BBOX_KEY, STAGED_SEARCH_KEY
+from feartracker_tpu_torch.data.jpeg import decode_jpeg
 from feartracker_tpu_torch.data.labels import get_regression_weight_label
 from feartracker_tpu_torch.data.samplers import SAMPLER_TYPES
 from feartracker_tpu_torch.utils import constants as C
@@ -47,21 +48,19 @@ from feartracker_tpu_torch.utils.image import normalize_imagenet_np as _normaliz
 def read_img(frame: Union[str, np.ndarray]) -> np.ndarray:
     """An RGB uint8 (H, W, 3) frame. A decoded ``np.ndarray`` passes through
     unchanged, so a dataset may hold frames in memory; a ``.npy`` path is
-    loaded with numpy; any other path is decoded with cv2, which is imported
-    here and only here."""
+    loaded with numpy; a ``.jpg``/``.jpeg`` path is decoded by
+    ``data/jpeg.py``, which gives ``cv2.imread``'s pixels on every host."""
     if isinstance(frame, np.ndarray):
         return frame
-    if frame.endswith(".npy"):
+    ext = os.path.splitext(frame)[1].lower()
+    if ext == ".npy":
         return np.load(frame)
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"reading {frame!r} needs cv2 (opencv), which is not installed; "
-                          "pass decoded frames as numpy arrays or .npy files instead") from e
-    img = cv2.imread(frame)
-    if img is None:
-        raise IOError(f"cannot read image {frame}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    if ext in (".jpg", ".jpeg"):
+        try:
+            return decode_jpeg(frame)
+        except (OSError, ValueError) as e:
+            raise IOError(f"cannot read image {frame}: {e}") from e
+    raise IOError(f"cannot read image {frame}: only .jpg, .jpeg and .npy frames are supported")
 
 
 class ImageCache:

@@ -15,9 +15,11 @@ the JAX generator, and the shapes are drawn by the port's cv2 twins
 (``tools/make_synthetic_dataset.py``), so every image equals the array the
 JAX tool hands to ``cv2.imwrite`` (in RGB where it holds BGR). Layout:
 ``<root>/<class_name>/<i:05d>.npy``, RGB uint8, which ``pretrain_trunk``
-reads.
+reads; with ``--format jpg``, ``<i:05d>.jpg``, the JAX tool's JPEG files
+byte for byte.
 
-    python -m feartracker_tpu_torch.tools.make_class_dataset --root /tmp/synth_cls --per_class 160 --size 128
+    python -m feartracker_tpu_torch.tools.make_class_dataset --root /tmp/synth_cls --per_class 160 --size 128 \
+        [--format jpg]
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import os
 
 import numpy as np
 
-from feartracker_tpu_torch.tools.make_synthetic_dataset import _draw_object, _textured_background
+from feartracker_tpu_torch.tools.make_synthetic_dataset import _draw_object, _textured_background, save_frame
 
 # colour families: (name, base RGB); intra-class jitter stays within ±40
 FAMILIES = [
@@ -40,8 +42,10 @@ FAMILIES = [
 SHAPES = [("rect", 0), ("ellipse", 1), ("triangle", 2)]
 
 
-def generate_classes(root: str, per_class: int = 160, size: int = 128, seed: int = 0, distractors: int = 2) -> list:
-    """Write len(FAMILIES)×len(SHAPES) classes; returns the class names."""
+def generate_classes(root: str, per_class: int = 160, size: int = 128, seed: int = 0, distractors: int = 2,
+                     fmt: str = "npy") -> list:
+    """Write len(FAMILIES)×len(SHAPES) classes of ``fmt`` (``npy`` or
+    ``jpg``) images; returns the class names."""
     rng = np.random.RandomState(seed)
     names = []
     for fam_name, base in FAMILIES:
@@ -63,14 +67,14 @@ def generate_classes(root: str, per_class: int = 160, size: int = 128, seed: int
                 h = w * rng.uniform(0.6, 1.4)
                 _draw_object(img, rng, rng.uniform(0.3 * size, 0.7 * size), rng.uniform(0.3 * size, 0.7 * size),
                              w, h, color, kind, angle=float(rng.uniform(0, 180)))
-                np.save(os.path.join(cls_dir, f"{i:05d}.npy"), img)
+                save_frame(os.path.join(cls_dir, f"{i:05d}.{fmt}"), img)
     return names
 
 
-def run(root: str, per_class: int = 160, size: int = 128, seed: int = 0) -> list:
+def run(root: str, per_class: int = 160, size: int = 128, seed: int = 0, fmt: str = "npy") -> list:
     """Generate the classes under ``root`` and print one JSON line. → [that
     record]."""
-    names = generate_classes(root, per_class, size, seed)
+    names = generate_classes(root, per_class, size, seed, fmt=fmt)
     rec = {"root": root, "classes": len(names), "per_class": per_class, "size": size, "images": len(names) * per_class}
     print(json.dumps(rec), flush=True)
     return [rec]
@@ -82,8 +86,10 @@ def main(argv=None):
     ap.add_argument("--per_class", type=int, default=160)
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--format", default="npy", choices=("npy", "jpg"),
+                    help="image files: lossless .npy, or the JAX tool's JPEG (quality 95)")
     args = ap.parse_args(argv)
-    run(args.root, args.per_class, args.size, args.seed)
+    run(args.root, args.per_class, args.size, args.seed, fmt=args.format)
 
 
 if __name__ == "__main__":

@@ -9,11 +9,12 @@ equals the JAX generator's; the shapes are drawn by cv2's rasterisers
 repeated in numpy (:mod:`feartracker_tpu_torch.utils.raster`) and the
 texture resized by the integer-exact ``INTER_LINEAR`` twin
 (:func:`feartracker_tpu_torch.ops.resize.resize_linear_u8`). Frames are RGB
-uint8 ``.npy`` files under the names the JAX generator gives its ``.jpg``:
-lossless, where the JAX roots hold JPEG.
+uint8 ``.npy`` files under the names the JAX generator gives its ``.jpg``
+(lossless), or with ``--format jpg`` the JAX generator's JPEG files byte for
+byte (``cv2.imwrite``'s quality 95, by :mod:`feartracker_tpu_torch.data.jpeg`).
 
     python -m feartracker_tpu_torch.tools.make_synthetic_dataset --root /tmp/synth --tracks 40 \\
-        --frames 24 --val_sequences 8 --scenario occlusion
+        --frames 24 --val_sequences 8 --scenario occlusion [--format jpg]
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from feartracker_tpu_torch.data.jpeg import encode_jpeg
 from feartracker_tpu_torch.data.sequence import GOT10kDataset
 from feartracker_tpu_torch.ops.resize import resize_linear_u8
 from feartracker_tpu_torch.utils.raster import (
@@ -92,8 +94,9 @@ def _draw_object(img, rng, cx, cy, w, h, color, kind, angle=0.0):
 
 def generate_track(rng, out_dir, track_id, n_frames, size=(160, 224), distractors=2,
                    appearance_drift=0.0, scenario="drift", obj_scale=1.0,
-                   presence_dropout=0.0):
-    """One track's frames saved under ``out_dir`` → its CSV rows. The
+                   presence_dropout=0.0, fmt="npy"):
+    """One track's frames saved under ``out_dir`` as ``fmt`` (``npy`` or
+    ``jpg``, see :func:`save_frame`) → its CSV rows. The
     arguments and the scenarios are the JAX generator's
     (``tools/make_synthetic_dataset.py:generate_track``): ``drift`` (a colour
     morph), ``occlusion`` (two occluder bars sweep over the object),
@@ -182,8 +185,8 @@ def generate_track(rng, out_dir, track_id, n_frames, size=(160, 224), distractor
                         cur_hi = max(cur_hi, hi)
                 total += cur_hi - cur_lo
                 visible *= 1.0 - total / max(float(bbox[2]), 1.0)
-        path = f"{track_id}_f{f:04d}.npy"
-        np.save(os.path.join(out_dir, path), img)
+        path = f"{track_id}_f{f:04d}.{fmt}"
+        save_frame(os.path.join(out_dir, path), img)
         near = int(bbox[0] <= 2 or bbox[1] <= 2 or bbox[0] + bbox[2] >= w - 2 or bbox[1] + bbox[3] >= h - 2)
         rows.append(
             dict(
@@ -196,14 +199,27 @@ def generate_track(rng, out_dir, track_id, n_frames, size=(160, 224), distractor
     return rows
 
 
+def save_frame(path: str, img: np.ndarray) -> None:
+    """An RGB uint8 frame: ``.npy`` by numpy, ``.jpg`` as ``cv2.imwrite`` of
+    its BGR twin writes it (quality 95)."""
+    if path.endswith(".npy"):
+        np.save(path, img)
+    elif path.endswith(".jpg"):
+        with open(path, "wb") as fh:
+            fh.write(encode_jpeg(img, 95))
+    else:
+        raise ValueError(f"save_frame: {path!r} is neither .npy nor .jpg")
+
+
 def generate(root, tracks=40, frames=24, val_sequences=8, seed=0, size=(160, 224),
              appearance_drift=0.0, scenario="drift", obj_scale=1.0,
-             presence_dropout=0.0):
+             presence_dropout=0.0, fmt="npy"):
     """``root/images`` + ``root/train.csv`` (``tracks`` tracks) and
     ``root/got10k/val`` (``val_sequences`` sequences with
     ``groundtruth.txt``, ``cover.label`` and ``list.txt``) → the CSV's path.
     ``presence_dropout`` applies to the train tracks only: val sequences are
-    scored frame by frame and keep the target visible."""
+    scored frame by frame and keep the target visible. ``fmt`` is the frames'
+    format, ``npy`` or ``jpg``."""
     rng = np.random.RandomState(seed)
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir, exist_ok=True)
@@ -211,7 +227,7 @@ def generate(root, tracks=40, frames=24, val_sequences=8, seed=0, size=(160, 224
     for t in range(tracks):
         rows += generate_track(rng, img_dir, f"track{t:04d}", frames, size=size,
                                appearance_drift=appearance_drift, scenario=scenario,
-                               obj_scale=obj_scale, presence_dropout=presence_dropout)
+                               obj_scale=obj_scale, presence_dropout=presence_dropout, fmt=fmt)
     csv_path = os.path.join(root, "train.csv")
     with open(csv_path, "w", newline="") as fh:
         writer = csv.DictWriter(fh, fieldnames=list(COLUMNS), lineterminator="\n")
@@ -227,10 +243,10 @@ def generate(root, tracks=40, frames=24, val_sequences=8, seed=0, size=(160, 224
         os.makedirs(seq_dir, exist_ok=True)
         vrows = generate_track(rng, seq_dir, seq, frames, size=size,
                                appearance_drift=appearance_drift, scenario=scenario,
-                               obj_scale=obj_scale)
+                               obj_scale=obj_scale, fmt=fmt)
         gt = []
         for i, r in enumerate(vrows):
-            os.replace(os.path.join(seq_dir, r["img_path"]), os.path.join(seq_dir, f"{i:08d}.npy"))
+            os.replace(os.path.join(seq_dir, r["img_path"]), os.path.join(seq_dir, f"{i:08d}.{fmt}"))
             gt.append(",".join(map(str, json.loads(r["bbox"]))))
         with open(os.path.join(seq_dir, "groundtruth.txt"), "w") as fh:
             fh.write("\n".join(gt))
@@ -282,11 +298,13 @@ def main(argv=None):
     p.add_argument("--presence_dropout", type=float, default=0.0,
                    help="per-frame probability a train frame omits the target "
                    "(presence=0 negative rows; val sequences unaffected)")
+    p.add_argument("--format", default="npy", choices=("npy", "jpg"),
+                   help="frame files: lossless .npy, or the JAX generator's JPEG (quality 95)")
     args = p.parse_args(argv)
     csv_path = generate(args.root, args.tracks, args.frames, args.val_sequences, args.seed,
                         size=(args.height, args.width), appearance_drift=args.appearance_drift,
                         scenario=args.scenario, obj_scale=args.obj_scale,
-                        presence_dropout=args.presence_dropout)
+                        presence_dropout=args.presence_dropout, fmt=args.format)
     print(f"wrote {csv_path} + val sequences under {args.root}/got10k/val")
 
 

@@ -1,8 +1,8 @@
 """Training callbacks, the counterpart of ``feartracker_tpu/train/callbacks.py``:
 early stopping, and best/worst batch mining with image mosaics for the
-event log. On the host, in numpy; ``cv2`` (which draws the mosaics) is
-imported inside :func:`batch_mosaic` only: the card host has none, and the
-loop mines no batches there (its device augmentations leave no host crops).
+event log. On the host, in numpy: the mosaics are drawn by
+``utils/cv_host.py``'s twins of cv2's rectangles and header text, so they
+equal the JAX package's without cv2.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 
 from feartracker_tpu_torch.core.grids import make_grid_np
 from feartracker_tpu_torch.utils import constants as C
+from feartracker_tpu_torch.utils import cv_host
 
 
 class EarlyStopping:
@@ -57,8 +58,6 @@ def batch_mosaic(
     """Template|search pairs of a host batch (numpy) with the predicted box
     (green) and the true box (red when absent, blue when present), one row
     each under a header with the batch's score → HWC uint8."""
-    import cv2
-
     gx, gy = make_grid_np(score_size, stride, instance_size)
     cls = np.asarray(outputs[C.TARGET_CLASSIFICATION_KEY])[..., 0]
     reg = np.asarray(outputs[C.TARGET_REGRESSION_LABEL_KEY])
@@ -72,20 +71,16 @@ def batch_mosaic(
         y2 = gy[r, c] + reg[i, r, c, 3]
         search = _denormalize(np.asarray(batch[C.TRACKER_TARGET_SEARCH_IMAGE_KEY][i]))
         template = _denormalize(np.asarray(batch[C.TRACKER_TARGET_TEMPLATE_IMAGE_KEY][i]))
-        search = cv2.rectangle(
-            search.copy(), (int(x1), int(y1)), (int(x2), int(y2)), (0, 250, 0), 2
-        )
+        search = cv_host.rectangle(search.copy(), (int(x1), int(y1)), (int(x2), int(y2)), (0, 250, 0), 2)
         gt = np.asarray(batch[C.TRACKER_TARGET_BBOX_KEY][i]).astype(int)
         visible = float(np.asarray(batch[C.TARGET_VISIBILITY_KEY][i]).ravel()[0]) != 0.0
         gt_color = (250, 0, 0) if visible else (0, 0, 250)
-        search = cv2.rectangle(search, (gt[0], gt[1]), (gt[0] + gt[2], gt[1] + gt[3]), gt_color, 2)
-        th = cv2.copyMakeBorder(
-            template, 0, search.shape[0] - template.shape[0], 0, 8, cv2.BORDER_CONSTANT, value=0
-        )
+        search = cv_host.rectangle(search, (gt[0], gt[1]), (gt[0] + gt[2], gt[1] + gt[3]), gt_color, 2)
+        th = np.pad(template, ((0, search.shape[0] - template.shape[0]), (0, 8), (0, 0)))
         rows.append(np.concatenate([th, search], axis=1))
     mosaic = np.concatenate(rows, axis=0)
     header = np.zeros((24, mosaic.shape[1], 3), np.uint8)
-    cv2.putText(header, f"batch score {score:.4f}", (4, 17), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 255, 255), 1)
+    cv_host.put_header_text(header, f"batch score {score:.4f}", (4, 17))
     return np.concatenate([header, mosaic], axis=0)
 
 

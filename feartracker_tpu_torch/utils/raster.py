@@ -28,6 +28,7 @@ Integer division truncates toward zero and ``>>`` floors, as in C++.
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -419,3 +420,80 @@ def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     xs = np.minimum(np.floor(np.arange(dst_w) * (1.0 / (dst_w / src_w))).astype(np.int64), src_w - 1)
     ys = np.minimum(np.floor(np.arange(dst_h) * (1.0 / (dst_h / src_h))).astype(np.int64), src_h - 1)
     return img[ys][:, xs]
+
+
+def _circle_filled(img: np.ndarray, cx: int, cy: int, radius: int, color) -> None:
+    """``Circle(..., fill=1)``: Bresenham's circle, filled by spans."""
+    h, w = img.shape[:2]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    inside = radius <= cx < w - radius and radius <= cy < h - radius
+
+    def hline(y, x1, x2):
+        img[y, x1:x2 + 1] = color
+
+    while dx >= dy:
+        y11, y12, y21, y22 = cy - dy, cy + dy, cy - dx, cy + dx
+        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
+        if inside:
+            hline(y11, x11, x12)
+            hline(y12, x11, x12)
+            hline(y21, x21, x22)
+            hline(y22, x21, x22)
+        elif x11 < w and x12 >= 0 and y21 < h and y22 >= 0:
+            x11, x12 = max(x11, 0), min(x12, w - 1)
+            if 0 <= y11 < h:
+                hline(y11, x11, x12)
+            if 0 <= y12 < h:
+                hline(y12, x11, x12)
+            if x21 < w and x22 >= 0:
+                x21, x22 = max(x21, 0), min(x22, w - 1)
+                if 0 <= y21 < h:
+                    hline(y21, x21, x22)
+                if 0 <= y22 < h:
+                    hline(y22, x21, x22)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = 0 if err <= 0 else -1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def _thick_line(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int], color, thickness: int,
+                flags: int) -> None:
+    """``ThickLine`` of XY_SHIFT points wider than 1, 8-connected: the convex
+    quadrilateral about the segment and a filled circle at each end that
+    ``flags`` names (1: start, 2: end)."""
+    dx = (p0[0] - p1[0]) / XY_ONE
+    dy = (p1[1] - p0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    thickness <<= XY_SHIFT - 1
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (thickness + odd * XY_ONE * 0.5) / math.sqrt(r)
+        dpx, dpy = _round_half_even(dy * r), _round_half_even(dx * r)
+        quad = [(p0[0] + dpx, p0[1] + dpy), (p0[0] - dpx, p0[1] - dpy),
+                (p1[0] - dpx, p1[1] - dpy), (p1[0] + dpx, p1[1] + dpy)]
+        _fill_convex_poly(img, quad, color, XY_SHIFT)
+    for i, p in enumerate((p0, p1)):
+        if flags & (i + 1):
+            _circle_filled(img, (p[0] + (XY_ONE >> 1)) >> XY_SHIFT, (p[1] + (XY_ONE >> 1)) >> XY_SHIFT,
+                           (thickness + (XY_ONE >> 1)) >> XY_SHIFT, color)
+
+
+def polyline(img: np.ndarray, pts: Sequence[Tuple[int, int]], closed: bool, color, thickness: int) -> None:
+    """``PolyLine`` of integer points (``cv2.polylines`` / the outline of
+    ``cv2.rectangle``), 8-connected, at ``thickness`` >= 1: a width-1 side
+    is ``Line`` between the rounded points, as ``ThickLine`` draws it."""
+    v = [(int(x) << XY_SHIFT, int(y) << XY_SHIFT) for x, y in pts]
+    flags = 2 + (not closed)
+    p0 = v[-1] if closed else v[0]
+    for p in v[(0 if closed else 1):]:
+        if thickness <= 1:
+            _line(img, (p0[0] + (XY_ONE >> 1)) >> XY_SHIFT, (p0[1] + (XY_ONE >> 1)) >> XY_SHIFT,
+                  (p[0] + (XY_ONE >> 1)) >> XY_SHIFT, (p[1] + (XY_ONE >> 1)) >> XY_SHIFT, color)
+        else:
+            _thick_line(img, p0, p, color, thickness, flags)
+        p0 = p
+        flags = 2

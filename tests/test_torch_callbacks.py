@@ -1,8 +1,13 @@
 """The port's training callbacks against the JAX package's on the same
 inputs: ``EarlyStopping``'s decisions on seeded metric sequences in both
 modes, ``BestWorstMiner``'s best and worst scores (NaN scores and NaN boxes
-skipped) and mosaics, and ``batch_mosaic``'s bytes. Exact: both sides are
-the same host numpy and cv2."""
+skipped) and mosaics, and ``batch_mosaic``'s bytes, also with cv2 blocked
+in the port's process. Exact: the port draws with ``utils/cv_host.py``'s
+twins of cv2, JAX with cv2."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -10,6 +15,8 @@ import pytest
 from feartracker_tpu.train import callbacks as J
 from feartracker_tpu_torch.train import callbacks as P
 from feartracker_tpu_torch.utils import constants as C
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("mode", ["max", "min"])
@@ -74,3 +81,36 @@ def test_best_worst_miner_matches_jax(mode):
     assert p.worst_mosaic.tobytes() == j.worst_mosaic.tobytes()
     p.reset()
     assert p.best_score is None and p.worst_mosaic is None
+
+
+def test_batch_mosaic_without_cv2_equals_jax(tmp_path):
+    """cv2 blocked in the port's process: the mosaics (rectangles, border,
+    header text) equal JAX's, drawn with cv2 here, byte for byte."""
+    pytest.importorskip("cv2")
+    cases = [(0, 0.123, {}), (1, -12.5, {}),
+             (2, 4321.0625, {"max_images": 2, "score_size": 8, "stride": 8, "instance_size": 64})]
+    inputs = {}
+    for i, (seed, _, _) in enumerate(cases):
+        batch, outputs = _batch(seed)
+        inputs.update({f"{i}/b/{k}": v for k, v in batch.items()})
+        inputs.update({f"{i}/o/{k}": v for k, v in outputs.items()})
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    code = (
+        "import sys; sys.modules['cv2'] = None\n"
+        "import numpy as np\n"
+        "from feartracker_tpu_torch.train import callbacks as P\n"
+        f"cases, d = {cases!r}, {str(tmp_path)!r}\n"
+        "z = np.load(d + '/inputs.npz')\n"
+        "got = {}\n"
+        "for i, (_, score, kw) in enumerate(cases):\n"
+        "    part = lambda t: {k.split('/', 2)[2]: z[k] for k in z.files if k.startswith(f'{i}/{t}/')}\n"
+        "    got[str(i)] = P.batch_mosaic(part('b'), part('o'), score, **kw)\n"
+        "np.savez(d + '/mosaics.npz', **got)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = np.load(tmp_path / "mosaics.npz")
+    for i, (seed, score, kw) in enumerate(cases):
+        batch, outputs = _batch(seed)
+        want = J.batch_mosaic(batch, outputs, score, **kw)
+        assert got[str(i)].shape == want.shape and got[str(i)].tobytes() == want.tobytes(), i

@@ -2,7 +2,8 @@
 the samplers' epoch lists and pairs (pandas there, none in the port), the
 dataset's items bit for bit in normal and staged modes (cv2 present here)
 and from ``.npy`` frames, the loader's batches and order under host
-sharding, the label encoders, and the dataset without cv2."""
+sharding, the label encoders, and the dataset's items with cv2 blocked in
+the port's process (the JAX side's made with cv2)."""
 
 import os
 import random
@@ -277,24 +278,39 @@ def test_negative_crops_and_context_equal_jax():
                                       jlabels.augment_context(ctx, 0.1, 0.3, 0.0, 0.2, b))
 
 
-def test_dataset_builds_and_stages_without_cv2(dataset_root):
-    """With cv2 blocked: a staged dataset over ``.npy`` frames builds and
-    yields items; the normal mode's augmentations need cv2 and say so."""
+def test_dataset_builds_and_stages_without_cv2(dataset_root, tmp_path):
+    """With cv2 blocked in the port's process: the normal mode over the JPEG
+    frames (the codec and the host augmentations), its dual-template variant
+    and the staged mode yield, over two epochs, the items that the JAX
+    dataset yields here with cv2."""
+    cfgs = {"normal": _config(dataset_root), "normal_dual": _config(dataset_root, dynamic_template=True),
+            "staged": _config(dataset_root, device_augs=True)}
+    out = tmp_path / "items.pkl"
     code = (
-        "import sys; sys.modules['cv2'] = None\n"
+        "import pickle, sys; sys.modules['cv2'] = None\n"
         "from feartracker_tpu_torch.data.dataset import SiameseTrackingDataset\n"
-        f"root = {str(dataset_root)!r}\n"
-        "cfg = lambda staged: {'root': root, 'name': 'syn', 'sizes': " + repr(SIZES) + ",\n"
-        "    'sampling': {'type': 'frame', 'data_path': root + '/train_npy.csv', 'negative_ratio': 0.3},\n"
-        "    'device_augs': staged}\n"
-        "item = SiameseTrackingDataset(cfg(True), {}, seed=1)[0]\n"
-        "assert item['STAGED_SEARCH'].shape == (512, 512, 3), item['STAGED_SEARCH'].shape\n"
-        "ds = SiameseTrackingDataset(cfg(False), {}, seed=1)\n"
-        "try:\n"
-        "    [ds[i] for i in range(len(ds))]\n"
-        "except ImportError:\n"
-        "    print('needs cv2')\n"
+        f"cfgs, tracker = {cfgs!r}, {TRACKER!r}\n"
+        "items = {}\n"
+        "for name, cfg in cfgs.items():\n"
+        "    ds = SiameseTrackingDataset(cfg, tracker, seed=3)\n"
+        "    items[name] = []\n"
+        "    for epoch in range(2):\n"
+        "        items[name].append([ds[i] for i in range(len(ds))])\n"
+        "        ds.resample()\n"
+        f"pickle.dump(items, open({str(out)!r}, 'wb'))\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "needs cv2"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    import pickle
+
+    with open(out, "rb") as fh:
+        got = pickle.load(fh)
+    for name, cfg in cfgs.items():
+        jds = JDataset(cfg, TRACKER, seed=3)
+        for epoch in range(2):
+            assert len(got[name][epoch]) == len(jds) == 10
+            for i in range(len(jds)):
+                _assert_items_equal(got[name][epoch][i], jds[i])
+            jds.resample()
+    assert got["staged"][0][0]["STAGED_SEARCH"].shape == (512, 512, 3)

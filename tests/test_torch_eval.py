@@ -127,7 +127,7 @@ def test_supervised_protocol_matches_jax(tmp_path, skip, burnin):
     n = 30
     files = []
     for i in range(n):
-        files.append(str(tmp_path / f"{i:03d}.png"))
+        files.append(str(tmp_path / f"{i:03d}.jpg"))  # the port reads JPEG and .npy frames
         cv2.imwrite(files[-1], np.zeros((8, 8, 3), np.uint8))
     rng = np.random.RandomState(skip)
     anno = np.concatenate([rng.rand(n, 2) * 20 + 10, np.full((n, 2), 10.0)], axis=1)
