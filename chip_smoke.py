@@ -264,7 +264,23 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    host transform forced on in turn against the digests of the JAX
    package's items made with cv2 (``tests/fixtures/host_items.json``):
    byte-equal, ISONoise's (whose noise follows numpy's float std) at worst
-   within 1e-3 of each image's mean.
+   within 1e-3 of each image's mean;
+20. the other frame formats, the demo's video and traces by op: 20a
+   ``data/imread.py`` (cv2 still blocked) against the sha256s of cv2's
+   pixels of the 36 committed ``tests/fixtures/images`` (PNG of every colour
+   type, Adam7, tRNS, eXIf; BMP 1-32 bits, RLE4/RLE8, top-down, OS/2;
+   P1-P6; CMYK, YCCK, 4:1:1, 1x4 and 3x2 sampling, block-smoothed
+   progressive JPEGs; a PNG named ``.JPEG``), TIFF/WebP/GIF refused by name,
+   and the decode ms of a 1280x720 PNG, BMP and CMYK JPEG on one core; 20b
+   19c's OPE over its val frames rewritten as PNG and as 24-bit BMP under
+   their ``.jpg`` names: every result equal to the ``.npy`` run, K1/K2 at the
+   schedule; 20c ``pretrain_trunk`` over an ImageFolder of mixed formats
+   (baseline, CMYK, YCCK, 4:1:1 JPEG, PNG, a PNG named ``.JPEG``, a BMP named
+   ``.jpg``): a finite loss, no K1/K2 launch; 20d the demo over an mp4 that
+   the host's cv2 writes (mp4v), mp4 out: its final box equal to
+   ``FEARTracker``'s over the decoded frames, K1/K2 one a frame; 20e phase
+   5c's trace through ``tools/parse_trace.py``: the top ten aten ops by
+   device ms.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -3450,7 +3466,9 @@ def _phase_orbax(card, counters, lap, work: str):
     return {"orbax": counts["orbax"][0]}
 
 
-# phase 19: the card host's image input and output, which has no cv2
+TRACE_5C = "chiprun_out/trace_static_track"  # phase 5c's trace, read by op in 20e
+
+# phase 19: the card host's image input and output, with cv2 blocked
 JPEG_FIXTURES = ("tests", "fixtures", "jpeg")  # cv2-made JPEGs and the sha256s of cv2's bytes
 HOST_ITEMS = ("tests", "fixtures", "host_items.json")  # 19d's item digests, made on the CPU with cv2
 # the transforms of both host pipelines, each forced on in turn for 19d
@@ -3562,13 +3580,15 @@ def _sha(data) -> str:
     return hashlib.sha256(bytes(data)).hexdigest()
 
 
-def _phase_host_io(card, counters, lap, work: str):
-    """Phase 19: JPEG and the host augmentations on the card host, which
-    has no cv2: the codec against cv2's bytes (19a), the default training
+def _phase_host_io(card, counters, lap, work: str, trace_dir: str):
+    """Phases 19 and 20, the card host's image input and output with cv2
+    blocked in the process wherever they read images. 19: JPEG and the host
+    augmentations: the codec against cv2's bytes (19a), the default training
     configuration over a JPEG tree (19b), the GOT-10k protocol over JPEG
     against ``.npy`` frames of the same pixels (19c) and the forced-transform
-    items against the CPU's (19d), with cv2 blocked in the process. → each
-    path's launches."""
+    items against the CPU's (19d). 20: the other frame formats (20a-c), the
+    demo over mp4 through the host's cv2 (20d) and phase 5c's trace by op
+    (20e). → each path's launches."""
     import importlib.util
     import os
 
@@ -3578,11 +3598,17 @@ def _phase_host_io(card, counters, lap, work: str):
     earlier = sys.modules.pop("cv2", None)
     sys.modules["cv2"] = None  # an import of cv2 raises for the rest of the phase
     try:
-        return _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19)
+        launches, ope = _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19)
+        t20 = time.perf_counter()
+        launches.update(_phase_formats(card, counters, lap, work, here, ope))
     finally:
         del sys.modules["cv2"]
         if earlier is not None:
             sys.modules["cv2"] = earlier
+    launches.update(_phase_video(card, counters, lap, work))
+    _phase_trace_ops(card, lap, trace_dir)
+    print(f"[20] phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
+    return launches
 
 
 def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
@@ -3777,7 +3803,260 @@ def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
           f"one thread [{card}]", flush=True)
     lap("19d")
     print(f"[19] phase 19 in {time.perf_counter() - t19:.1f} s", flush=True)
-    return {"host_train": got, "host_ope": _sum_launches(counts["jpg"], counts["npy"])}
+    return ({"host_train": got, "host_ope": _sum_launches(counts["jpg"], counts["npy"])},
+            {"ao": ao["npy"], "launches": want, "jpeg_root": os.path.join(data_root, "got10k"), "lengths": full})
+
+
+# phase 20: the other frame formats of cv2.imread, the demo's video and traces by op
+IMAGE_FIXTURES = ("tests", "fixtures", "images")  # seeded PNG/BMP/PNM/JPEG files and the sha256s of cv2's pixels
+CMYK_TIMING_FILE = "cmyk_1280x720.jpg"
+PRETRAIN_MIX = ("cmyk.jpg", "cmyk_progressive.jpg", "ycck.jpg", "s411.jpg", "png_named.JPEG")
+VIDEO_FRAMES = 30
+
+
+def bmp24(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a bottom-up 24-bit BMP (BITMAPINFOHEADER)."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    pitch = (3 * w + 3) & -4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
+def _decode_p50_ms(data: bytes, decode) -> float:
+    import statistics
+
+    for _ in range(3):
+        decode(data)
+    times = []
+    for _ in range(HOST_CODEC_REPS):
+        t0 = time.perf_counter()
+        decode(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _rewrite_tree(src_root: str, dst_root: str, encode) -> int:
+    """``src_root``'s val sequences with every ``.jpg`` frame decoded and
+    written back by ``encode`` under the same name (cv2 and the port pick
+    the decoder from the bytes); → frames written."""
+    import os
+    import shutil
+
+    from feartracker_tpu_torch.data.imread import imread
+
+    n = 0
+    for d, _, files in os.walk(os.path.join(src_root, "val")):
+        out = os.path.join(dst_root, os.path.relpath(d, src_root))
+        os.makedirs(out, exist_ok=True)
+        for f in files:
+            if f.endswith(".jpg"):
+                with open(os.path.join(out, f), "wb") as fh:
+                    fh.write(encode(imread(os.path.join(d, f))))
+                n += 1
+            else:
+                shutil.copyfile(os.path.join(d, f), os.path.join(out, f))
+    return n
+
+
+def _phase_formats(card, counters, lap, work: str, here: str, ope: dict) -> dict:
+    """Phase 20a-c, cv2 blocked: every image fixture against cv2's pixels
+    and 1280x720 decode ms (20a); phase 19c's OPE over its val frames
+    rewritten as PNG and as BMP (20b); ``pretrain_trunk`` over an ImageFolder
+    of mixed formats (20c). → each path's launches."""
+    import math
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.data.dataset import read_img
+    from feartracker_tpu_torch.data.imread import imread
+    from feartracker_tpu_torch.data.jpeg import encode_jpeg
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+    from feartracker_tpu_torch.tools import pretrain_trunk
+    from feartracker_tpu_torch.train.summary import encode_png
+
+    launches = {}
+    # 20a: the fixtures against cv2's pixels, made on the CPU with cv2
+    images = os.path.join(here, *IMAGE_FIXTURES)
+    with open(os.path.join(images, "manifest.json")) as fh:
+        manifest = json.load(fh)["decode"]
+    bad = []
+    for c in manifest:
+        img = read_img(os.path.join(images, c["file"]))
+        if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
+            bad.append(c["file"])
+    refused = {}
+    for name, data in (("TIFF", b"II*\x00" + bytes(12)), ("WebP", b"RIFF\x00\x00\x00\x00WEBPVP8 "),
+                       ("GIF", b"GIF89a" + bytes(10))):
+        try:
+            imread(data)
+        except IOError as e:
+            refused[name] = name in str(e)
+    if bad or not all(refused.values()) or len(refused) != 3:
+        raise AssertionError(f"20a: {bad} differ from cv2's pixels; refusals named {refused}")
+    frame = fixture_frame(0, 720, 1280)
+    with open(os.path.join(images, CMYK_TIMING_FILE), "rb") as fh:
+        cmyk = fh.read()
+    timing = {"PNG (zlib level 6, filter 0)": encode_png(frame), "BMP 24-bit": bmp24(frame),
+              "CMYK JPEG q75": cmyk}
+    ms = {k: _decode_p50_ms(v, imread) for k, v in timing.items()}
+    print(f"[20a] data/imread.py (PNG and BMP in numpy + csrc/imgcodecs.cpp, JPEG in csrc/jpeg.cpp), cv2 blocked: "
+          f"{len(manifest)} fixtures ({', '.join(c['kind'] for c in manifest)}) equal to cv2's pixels; TIFF, WebP "
+          f"and GIF raise IOError naming the format; 1280x720 decode p50 on one core "
+          f"{', '.join(f'{k} ({len(timing[k]) / 1e3:.0f} kB) {v:.2f} ms' for k, v in ms.items())} [{card}]",
+          flush=True)
+    lap("20a")
+
+    # 20b: phase 19c's OPE over its val frames rewritten as PNG and as BMP
+    nf = _n_fused("fear_xs")
+    results = {}
+    for fmt, encode in (("png", encode_png), ("bmp", bmp24)):
+        root = os.path.join(work, f"formats_{fmt}")
+        n = _rewrite_tree(ope["jpeg_root"], root, encode)
+        ds = GOT10kDataset(root, "val")
+        with open(ds[0][0][0], "rb") as fh:
+            head = fh.read(8)
+        if not head.startswith(b"\x89PNG" if fmt == "png" else b"BM"):
+            raise AssertionError(f"20b: the {fmt} tree holds {head!r}")
+        tracker = _fear_tracker("cuda", torch.float32)
+        _zero(counters)
+        ao = evaluate_tracker(tracker, ds)
+        torch.cuda.synchronize()
+        results[fmt] = (ao, _read(counters), n)
+        launches[f"formats_ope_{fmt}"] = results[fmt][1]
+        shutil.rmtree(root)
+    for fmt, (ao, got, n) in results.items():
+        if ao != ope["ao"] or got != ope["launches"]:
+            raise AssertionError(f"20b: {fmt} AO {ao} launches {got} against .npy {ope['ao']} {ope['launches']}")
+    print(f"[20b] GOT-10k OPE (FEARTracker FEAR-XS f32) over phase 19c's {len(ope['lengths'])} val sequences "
+          f"({results['png'][2]} frames) rewritten as PNG (train/summary.py:encode_png) and as 24-bit BMP under their "
+          f".jpg names: every result equal to the run over .npy (AO {ope['ao']['ao']:.6f}); launches "
+          f"{results['png'][1]} and {results['bmp'][1]}, = the schedule [{card}]", flush=True)
+    lap("20b")
+
+    # 20c: pretrain_trunk over an ImageFolder of mixed formats, the JAX tool's suffixes
+    folder = os.path.join(work, "mixed_formats")
+    for k in range(2):
+        cls = os.path.join(folder, f"class{k}")
+        os.makedirs(cls)
+        img = fixture_frame(200 + k, 96, 128)
+        files = {"baseline.jpg": encode_jpeg(img, 90), "plain.png": encode_png(img),
+                 "bmp_named.jpg": bmp24(img[::-1])}
+        for name in PRETRAIN_MIX:
+            with open(os.path.join(images, name), "rb") as fh:
+                files[name] = fh.read()
+        for name, data in files.items():
+            with open(os.path.join(cls, f"{k}_{name}"), "wb") as fh:
+                fh.write(data)
+    n_images = len(pretrain_trunk.list_image_folder(folder)[0])
+    rec, got, seconds = _tool_rows(lambda: pretrain_trunk.run(folder, "fear_xs", os.path.join(work, "mixed.npz"),
+                                                              epochs=1, batch_size=4, image_size=64, seed=0,
+                                                              device="cuda"), counters, "20c")
+    launches["pretrain_mixed_formats"] = got
+    loss = rec["history"][-1]["loss"]
+    if n_images != 16 or not math.isfinite(loss) or got != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"20c pretrain_trunk: {n_images} images, loss {loss}, launches {got}")
+    print(f"[20c] pretrain_trunk FEAR-XS 64x64 B=4 over {n_images} images of 2 classes (baseline JPEG, CMYK and "
+          f"progressive CMYK JPEG, YCCK, 4:1:1, PNG, a PNG named .JPEG, a BMP named .jpg): {rec['steps']} steps, "
+          f"loss {loss:.4f}; launches {got}; {seconds:.1f} s [{card}]", flush=True)
+    lap("20c")
+    if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
+        raise AssertionError("20a-c imported cv2")
+    return launches
+
+
+def _phase_video(card, counters, lap, work: str) -> dict:
+    """Phase 20d: the demo over an mp4 that the host's cv2 writes (mp4v),
+    with an mp4 out, against ``FEARTracker`` over the frames cv2 decodes from
+    it. → its launches."""
+    import contextlib
+    import io
+    import os
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch import demo
+    from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS
+    from feartracker_tpu_torch.utils.video import read_video, video_fps, write_video
+
+    frames, boxes = _render_clip(20, VIDEO_FRAMES)
+    clip, out = os.path.join(work, "clip.mp4"), os.path.join(work, "tracked.mp4")
+    write_video(clip, list(frames), fps=30.0)
+    decoded = read_video(clip)
+    if decoded.shape != np.asarray(frames).shape or video_fps(clip) != 30.0:
+        raise AssertionError(f"20d: wrote {np.asarray(frames).shape}, read back {decoded.shape} at "
+                             f"{video_fps(clip)} fps")
+    drift = np.abs(decoded.astype(int) - np.asarray(frames, int)).mean()
+    box = [int(v) for v in boxes[0]]
+    want = _track_clip(_fear_tracker("cuda", torch.float32), list(decoded), np.array(box))[0][-1]
+    argv = ["--device", "cuda", "--weights_path", PACKAGED_FEAR_XS, "--video_path", clip, "--output_path", out,
+            "--initial_bbox", *map(str, box)]
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        demo.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _read(counters)
+    final = [line for line in printed.getvalue().splitlines() if line.startswith("final bbox")]
+    tracked = read_video(out)
+    n = VIDEO_FRAMES
+    nf = _n_fused("fear_xs")
+    want_final = list(map(int, want))
+    if (got != {"K1": n - 1, "K2": nf * n} or final != [f"final bbox: {want_final}"]
+            or tracked.shape != decoded.shape):
+        raise AssertionError(f"20d: launches {got}, printed {final} against {want_final}, out {tracked.shape}")
+    print(f"[20d] demo --device cuda over a {n}-frame {decoded.shape[2]}x{decoded.shape[1]} mp4 written by the "
+          f"host's cv2 {cv2.__version__} (mp4v, FFMPEG; mean |decoded - rendered| {drift:.2f} grey levels), mp4 out "
+          f"({tracked.shape[0]} frames read back): final bbox {final[0].split(': ')[1]} == FEARTracker's over the "
+          f"decoded frames; launches {got}; {seconds:.1f} s [{card}]", flush=True)
+    lap("20d")
+    return {"demo_mp4": got}
+
+
+def _phase_trace_ops(card, lap, trace_dir: str) -> None:
+    """Phase 20e: phase 5c's trace through ``tools/parse_trace.py``: the top
+    ten aten ops by device ms, with their input shapes and merged by name
+    (the rows of no aten op named by kernel); both whole tables go to
+    ``<trace_dir>/parse_trace.txt``."""
+    import collections
+    import os
+
+    from feartracker_tpu_torch.tools.parse_trace import format_tables, load_trace, summarize
+
+    sm = summarize(load_trace(os.path.join(trace_dir, "trace.json")))
+    mapped = sum(ms for label, ms in sm["by_op"] if not label.startswith("(no aten op)"))
+    if not sm["rows"] or not mapped:
+        raise AssertionError(f"20e: {sm['rows']} device rows, {mapped} ms of them linked to an aten op")
+    with open(os.path.join(trace_dir, "parse_trace.txt"), "w") as fh:
+        fh.write(format_tables(sm, top=10**6) + "\n")
+    by_name = collections.Counter()
+    for label, ms in sm["by_op"]:
+        by_name[label if label.startswith("(no aten op)") else label.split(" ")[0]] += ms
+    total = sm["total_ms"]
+
+    def row(label, ms):
+        return f"{label} {ms:.2f} ms ({100 * ms / total:.1f}%)"
+
+    print(f"[20e] phase 5c's trace by aten op (tools/parse_trace.py; whole tables in {trace_dir}/parse_trace.txt): "
+          f"{total:.2f} ms device time in {sm['rows']} rows, {mapped:.2f} ms ({100 * mapped / total:.1f}%) launched "
+          f"inside an aten op; top 10 by op and input shapes: " + "; ".join(row(*r) for r in sm["by_op"][:10])
+          + "; top 10 by op: " + "; ".join(row(*r) for r in by_name.most_common(10))
+          + "; top 5 by kernel: " + "; ".join(row(*r) for r in sm["by_kernel"][:5]) + f" [{card}]", flush=True)
+    lap("20e")
 
 
 def main() -> int:
@@ -3942,7 +4221,7 @@ def main() -> int:
     track_ms = (time.perf_counter() - t0) * 1e3 / reps
     print(f"[5] slice bf16 S={S} T={T}: launches {launches} over init + 1 track; finite outputs; "
           f"{track_ms:.2f} ms/track, {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)
-    br = _trace_breakdown(lambda: tracker.track(state, chunk), "chiprun_out/trace_static_track")
+    br = _trace_breakdown(lambda: tracker.track(state, chunk), TRACE_5C)
     if br:
         print(f"[5c] one traced track call, S={S} T={T} bf16: device busy {br['busy_ms']:.2f} of {br['span_ms']:.2f} "
               f"ms (idle {100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies, "
@@ -4030,7 +4309,7 @@ def main() -> int:
         scenario_launches = _phase_scenarios(card, counters, lap, work)
         driver_launches = _phase_drivers(card, counters, lap, work)
         orbax_launches = _phase_orbax(card, counters, lap, work)
-        host_launches = _phase_host_io(card, counters, lap, work)
+        host_launches = _phase_host_io(card, counters, lap, work, TRACE_5C)
     print(f"[time] wall seconds per phase {laps}, {sum(laps.values()):.1f} s in all; the whole script "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
     # the graphed static path: one track call of the K=16 graphs (10a)

@@ -2,12 +2,15 @@
 // drives it (cv2.imdecode / cv2.imencode), with a plain C interface for
 // ctypes (feartracker_tpu_torch/data/jpeg.py builds and binds it).
 //
-// Decode: baseline, extended and progressive Huffman, 8-bit; 1 or 3
-// components at sampling factors 1-2; restart intervals; APPn/COM skipped.
+// Decode: baseline, extended and progressive Huffman, 8-bit; 1, 3 or 4
+// components at sampling factors 1-4; restart intervals; APPn/COM skipped.
 // The output follows libjpeg's defaults: JDCT_ISLOW (jidctint.c), fancy
-// (triangular) upsampling (jdsample.c) and the fixed-point YCbCr->RGB
-// tables (jdcolor.c); a gray file comes out as three equal channels. The
-// EXIF orientation is returned, not applied: the binding applies it.
+// (triangular) upsampling at exact 2:1 ratios and replication at the others
+// (jdsample.c), block smoothing of progressive files (jdcoefct.c) and the
+// fixed-point YCbCr->RGB tables (jdcolor.c); a gray file comes out as three
+// equal channels; CMYK and YCCK come out as OpenCV turns libjpeg's CMYK
+// into BGR. The EXIF orientation is returned, not applied: the binding
+// applies it.
 //
 // Encode: what cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, q]) writes:
 // JFIF APP0, DQT per table (jpeg_set_quality), SOF0, the four standard DHTs,
@@ -241,8 +244,7 @@ struct Decoder {
     if (precision != 8) fail(std::to_string(precision) + "-bit JPEG is not supported (8-bit only)");
     if (H == 0) fail("a height set by a DNL marker is not supported");
     if (W == 0) fail("JPEG of zero width");
-    if (ncomp == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
-    if (ncomp != 1 && ncomp != 3) fail(std::to_string(ncomp) + "-component JPEG is not supported");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(std::to_string(ncomp) + "-component JPEG is not supported");
     comps.resize(ncomp);
     for (int i = 0; i < ncomp; i++) {
       Component& c = comps[i];
@@ -252,7 +254,6 @@ struct Decoder {
       c.v = hv & 15;
       c.tq = u8();
       if (c.h < 1 || c.v < 1 || c.h > 4 || c.v > 4) fail("bad sampling factor");
-      if (c.h > 2 || c.v > 2) fail("sampling factor above 2 is not supported");
       if (c.tq > 3) fail("bad quantization table index");
     }
     progressive = marker == 0xC2;
@@ -272,8 +273,8 @@ struct Decoder {
       c.dh = (int)(((long)H * c.v + vmax - 1) / vmax);
       c.bw = (c.dw + 7) / 8;
       c.bh = (c.dh + 7) / 8;
-      c.bw_pad = ncomp == 1 ? c.bw : mcux * c.h;
-      c.bh_pad = ncomp == 1 ? c.bh : mcuy * c.v;
+      c.bw_pad = mcux * c.h;  // whole MCUs, as libjpeg's coefficient arrays
+      c.bh_pad = mcuy * c.v;
       c.coef.assign((size_t)c.bw_pad * c.bh_pad * 64, 0);
       for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
@@ -326,6 +327,11 @@ struct Decoder {
       c->ta = t & 15;
       if (c->td > 3 || c->ta > 3) fail("bad Huffman table index");
       sc.push_back(c);
+    }
+    if (ns > 1) {  // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (auto* c : sc) blocks += c->h * c->v;
+      if (blocks > 10) fail("sampling factors too large for an interleaved scan (more than 10 blocks an MCU)");
     }
     int Ss = u8(), Se = u8(), A = u8();
     int Ah = A >> 4, Al = A & 15;
@@ -716,6 +722,16 @@ void upsample(const uint8_t* p, int ps, int dw, int dh, int rh, int rv, int W, i
     }
     return;
   }
+  if (rh != 2 || rv != 2) {
+    // int_upsample: libjpeg-turbo is fancy only at exact 2:1 ratios (h2v1,
+    // h1v2, h2v2); every other integral ratio replicates
+    for (int y = 0; y < H; y++) {
+      const uint8_t* in = p + (size_t)(y / rv) * ps;
+      uint8_t* o = out + (size_t)y * W;
+      for (int c = 0; c < W; c++) o[c] = in[c / rh];
+    }
+    return;
+  }
   // 2 x 2
   std::vector<int> colsum((size_t)dw);
   for (int y = 0; y < H; y++) {
@@ -767,6 +783,128 @@ struct YccTables {
 
 const YccTables kYcc;
 
+// jdcoefct.c (libjpeg-turbo >= 2.1) block smoothing of a progressive file
+// whose first AC coefficients were not all refined to full precision: each
+// coefficient still zero among the first nine AC ones is estimated from the
+// DC values of a 5x5 neighbourhood of blocks (and the DC itself too where no
+// AC coefficient was read at all). The estimates feed the IDCT only.
+
+// the natural positions of zigzag coefficients 0-9
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+bool smoothing_ok(const Decoder& dec) {
+  bool useful = false;
+  for (const auto& c : dec.comps) {
+    if (!c.latched) return false;  // no quantization table latched
+    for (int k = 0; k < 10; k++)
+      if (c.qt[kSmoothPos[k]] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;  // DC not yet known
+    for (int k = 1; k < 10; k++)
+      if (c.coef_bits[k] != 0) useful = true;
+  }
+  return useful;
+}
+
+// pred = round(num / (q << 8)) towards zero, clamped below 2^Al for a
+// coefficient whose Al low bits are still unknown
+inline int16_t estimate(int64_t num, int64_t q, int Al) {
+  int64_t pred = num >= 0 ? ((q << 7) + num) / (q << 8) : ((q << 7) - num) / (q << 8);
+  if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+  return (int16_t)(num >= 0 ? pred : -pred);
+}
+
+void smooth_idct(Component& c, int total_imcu_rows, uint8_t* plane, int ps) {
+  const int* cb = c.coef_bits;
+  bool change_dc = true;
+  for (int k = 1; k < 10; k++) change_dc = change_dc && cb[k] == -1;
+  const int64_t Q00 = c.qt[0], Q01 = c.qt[1], Q10 = c.qt[8], Q20 = c.qt[16], Q11 = c.qt[9], Q02 = c.qt[2];
+  const int64_t Q03 = c.qt[3], Q12 = c.qt[10], Q21 = c.qt[17], Q30 = c.qt[24];
+  const int last_col = c.bw - 1;
+  int16_t ws[64];
+  for (int r = 0; r < total_imcu_rows; r++) {
+    int block_rows = c.v;
+    if (r == total_imcu_rows - 1) {
+      block_rows = c.bh % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    // libjpeg-turbo's row clamps, its own arithmetic included: in the last
+    // iMCU row they stop at the last real block row, above it at the padded ones
+    int image_block_rows = block_rows * total_imcu_rows;
+    for (int br = 0; br < block_rows; br++) {
+      int ibr = r * block_rows + br, row = r * c.v + br;
+      int rows[5];
+      rows[2] = row;
+      rows[1] = ibr > 0 ? row - 1 : row;
+      rows[0] = ibr > 1 ? row - 2 : rows[1];
+      rows[3] = ibr < image_block_rows - 1 ? row + 1 : row;
+      rows[4] = ibr < image_block_rows - 2 ? row + 2 : rows[3];
+      for (int bx = 0; bx <= last_col; bx++) {
+        // DC01..DC25: rows[0..4] x columns bx-2..bx+2, clamped to the row
+        int DC[26];
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 5; j++) {
+            int col = bx + j - 2;
+            col = col < 0 ? 0 : (col > last_col ? last_col : col);
+            DC[1 + 5 * i + j] = c.block(rows[i], col)[0];
+          }
+        memcpy(ws, c.block(row, bx), sizeof(ws));
+        int Al;
+        if ((Al = cb[1]) != 0 && ws[1] == 0) {
+          int64_t num = Q00 * (change_dc ? (-DC[1] - DC[2] + DC[4] + DC[5] - 3 * DC[6] + 13 * DC[7] - 13 * DC[9] +
+                                            3 * DC[10] - 3 * DC[11] + 38 * DC[12] - 38 * DC[14] + 3 * DC[15] -
+                                            3 * DC[16] + 13 * DC[17] - 13 * DC[19] + 3 * DC[20] - DC[21] - DC[22] +
+                                            DC[24] + DC[25])
+                                         : (-7 * DC[11] + 50 * DC[12] - 50 * DC[14] + 7 * DC[15]));
+          ws[1] = estimate(num, Q01, Al);
+        }
+        if ((Al = cb[2]) != 0 && ws[8] == 0) {
+          int64_t num = Q00 * (change_dc ? (-DC[1] - 3 * DC[2] - 3 * DC[3] - 3 * DC[4] - DC[5] - DC[6] + 13 * DC[7] +
+                                            38 * DC[8] + 13 * DC[9] - DC[10] + DC[16] - 13 * DC[17] - 38 * DC[18] -
+                                            13 * DC[19] + DC[20] + DC[21] + 3 * DC[22] + 3 * DC[23] + 3 * DC[24] +
+                                            DC[25])
+                                         : (-7 * DC[3] + 50 * DC[8] - 50 * DC[18] + 7 * DC[23]));
+          ws[8] = estimate(num, Q10, Al);
+        }
+        if ((Al = cb[3]) != 0 && ws[16] == 0) {
+          int64_t num = Q00 * (change_dc ? (DC[3] + 2 * DC[7] + 7 * DC[8] + 2 * DC[9] - 5 * DC[12] - 14 * DC[13] -
+                                            5 * DC[14] + 2 * DC[17] + 7 * DC[18] + 2 * DC[19] + DC[23])
+                                         : (-DC[3] + 13 * DC[8] - 24 * DC[13] + 13 * DC[18] - DC[23]));
+          ws[16] = estimate(num, Q20, Al);
+        }
+        if ((Al = cb[4]) != 0 && ws[9] == 0) {
+          int64_t num = Q00 * (change_dc ? (-DC[1] + DC[5] + 9 * DC[7] - 9 * DC[9] - 9 * DC[17] + 9 * DC[19] + DC[21] -
+                                            DC[25])
+                                         : (DC[10] + DC[16] - 10 * DC[17] + 10 * DC[19] - DC[2] - DC[20] + DC[22] -
+                                            DC[24] + DC[4] - DC[6] + 10 * DC[7] - 10 * DC[9]));
+          ws[9] = estimate(num, Q11, Al);
+        }
+        if ((Al = cb[5]) != 0 && ws[2] == 0) {
+          int64_t num = Q00 * (change_dc ? (2 * DC[7] - 5 * DC[8] + 2 * DC[9] + DC[11] + 7 * DC[12] - 14 * DC[13] +
+                                            7 * DC[14] + DC[15] + 2 * DC[17] - 5 * DC[18] + 2 * DC[19])
+                                         : (-DC[11] + 13 * DC[12] - 24 * DC[13] + 13 * DC[14] - DC[15]));
+          ws[2] = estimate(num, Q02, Al);
+        }
+        if (change_dc) {
+          if ((Al = cb[6]) != 0 && ws[3] == 0)
+            ws[3] = estimate(Q00 * (DC[7] - DC[9] + 2 * DC[12] - 2 * DC[14] + DC[17] - DC[19]), Q03, Al);
+          if ((Al = cb[7]) != 0 && ws[10] == 0)
+            ws[10] = estimate(Q00 * (DC[7] - 3 * DC[8] + DC[9] - DC[17] + 3 * DC[18] - DC[19]), Q12, Al);
+          if ((Al = cb[8]) != 0 && ws[17] == 0)
+            ws[17] = estimate(Q00 * (DC[7] - DC[9] - 3 * DC[12] + 3 * DC[14] + DC[17] - DC[19]), Q21, Al);
+          if ((Al = cb[9]) != 0 && ws[24] == 0)
+            ws[24] = estimate(Q00 * (DC[7] + 2 * DC[8] + DC[9] - DC[17] - 2 * DC[18] - DC[19]), Q30, Al);
+          int64_t num = Q00 * (-2 * DC[1] - 6 * DC[2] - 8 * DC[3] - 6 * DC[4] - 2 * DC[5] - 6 * DC[6] + 6 * DC[7] +
+                               42 * DC[8] + 6 * DC[9] - 6 * DC[10] - 8 * DC[11] + 42 * DC[12] + 152 * DC[13] +
+                               42 * DC[14] - 8 * DC[15] - 6 * DC[16] + 6 * DC[17] + 42 * DC[18] + 6 * DC[19] -
+                               6 * DC[20] - 2 * DC[21] - 6 * DC[22] - 8 * DC[23] - 6 * DC[24] - 2 * DC[25]);
+          ws[0] = estimate(num, Q00, 0);
+        }
+        idct_islow(ws, c.qt, plane + (size_t)row * 8 * ps + bx * 8, ps);
+      }
+    }
+  }
+}
+
 void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<uint8_t>& out, int& H, int& W,
                   int& orientation) {
   Decoder dec(data, len);
@@ -776,15 +914,7 @@ void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<
   W = dec.W;
   orientation = dec.orientation;
   int nc = dec.ncomp;
-  if (dec.progressive) {
-    // libjpeg smooths blocks whose first AC coefficients were never
-    // refined to full precision (jdcoefct.c smoothing_ok)
-    for (auto& c : dec.comps) {
-      if (c.coef_bits[0] < 0) continue;
-      for (int k = 1; k < 10; k++)
-        if (c.coef_bits[k] != 0) fail("progressive JPEG with unrefined coefficients (block smoothing) is not supported");
-    }
-  }
+  bool smooth = dec.progressive && smoothing_ok(dec);
   std::vector<std::vector<uint8_t>> full(nc);
   for (int ci = 0; ci < nc; ci++) {
     Component& c = dec.comps[ci];
@@ -795,18 +925,45 @@ void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<
     // only the blocks that hold the downsampled plane: the upsampler reads no further
     int ps = c.bw * 8;
     std::vector<uint8_t> plane((size_t)ps * c.bh * 8);
-    for (int by = 0; by < c.bh; by++)
-      for (int bx = 0; bx < c.bw; bx++)
-        idct_islow(c.block(by, bx), c.qt, plane.data() + (size_t)by * 8 * ps + bx * 8, ps);
+    if (smooth) {
+      smooth_idct(c, dec.mcuy, plane.data(), ps);
+    } else {
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++)
+          idct_islow(c.block(by, bx), c.qt, plane.data() + (size_t)by * 8 * ps + bx * 8, ps);
+    }
     full[ci].resize((size_t)W * H);
     int rh = dec.hmax / c.h, rv = dec.vmax / c.v;
     upsample(plane.data(), ps, c.dw, c.dh, rh, rv, W, H, full[ci].data());
   }
   out.resize((size_t)W * H * 3);
   int ir = blue_first ? 2 : 0, ib = blue_first ? 0 : 2;
+  const uint8_t* lim = kRange.clamp;
   if (nc == 1) {
     const uint8_t* g = full[0].data();
     for (size_t i = 0; i < (size_t)W * H; i++) out[i * 3] = out[i * 3 + 1] = out[i * 3 + 2] = g[i];
+    return;
+  }
+  if (nc == 4) {
+    // jdapimin.c: Adobe transform 0 is CMYK, any other YCCK, no Adobe marker
+    // CMYK; libjpeg gives CMYK (jdcolor.c ycck_cmyk_convert), then OpenCV's
+    // icvCvt_CMYK2BGR_8u_C4C3R takes each of C, M, Y to k - ((255 - x) * k >> 8)
+    bool ycck = dec.adobe && dec.adobe_transform != 0;
+    const uint8_t *p0 = full[0].data(), *p1 = full[1].data(), *p2 = full[2].data(), *p3 = full[3].data();
+    for (size_t i = 0; i < (size_t)W * H; i++) {
+      int cmy[3] = {p0[i], p1[i], p2[i]};
+      if (ycck) {
+        int Y = p0[i], Cb = p1[i], Cr = p2[i];
+        cmy[0] = lim[255 - (Y + kYcc.cr_r[Cr])];
+        cmy[1] = lim[255 - (Y + (int)((kYcc.cb_g[Cb] + kYcc.cr_g[Cr]) >> 16))];
+        cmy[2] = lim[255 - (Y + kYcc.cb_b[Cb])];
+      }
+      int k = p3[i];
+      uint8_t* o = &out[i * 3];
+      o[ir] = (uint8_t)(k - ((255 - cmy[0]) * k >> 8));
+      o[1] = (uint8_t)(k - ((255 - cmy[1]) * k >> 8));
+      o[ib] = (uint8_t)(k - ((255 - cmy[2]) * k >> 8));
+    }
     return;
   }
   bool rgb = false;
@@ -816,7 +973,6 @@ void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<
   const uint8_t* y = full[0].data();
   const uint8_t* cb = full[1].data();
   const uint8_t* cr = full[2].data();
-  const uint8_t* lim = kRange.clamp;
   for (size_t i = 0; i < (size_t)W * H; i++) {
     uint8_t* o = &out[i * 3];
     if (rgb) {

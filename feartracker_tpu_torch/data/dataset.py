@@ -10,13 +10,14 @@ equal cv2's) and augmentations.
 
 Two modes:
 
-* normal: host geometry, the cv2 augmentations of
-  :mod:`feartracker_tpu_torch.data.augmentations`, normalization and labels;
-  needs cv2;
+* normal: host geometry, the augmentations of
+  :mod:`feartracker_tpu_torch.data.augmentations` (cv2's pixels, through
+  :mod:`feartracker_tpu_torch.utils.cv_host`), normalization and labels;
 * staged (``device_augs: true``): host work stops at the doubled-context
   search crop and the template crop, uint8; the train step does the rest on
-  the device (:mod:`feartracker_tpu_torch.data.device_augs`). Needs no cv2
-  when frames are ``.npy`` files: the card host's training path.
+  the device (:mod:`feartracker_tpu_torch.data.device_augs`).
+
+Neither mode needs cv2; frames are decoded by :func:`read_img`.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from feartracker_tpu_torch.data.augmentations import (
 )
 from feartracker_tpu_torch.data.crops import get_extended_crop
 from feartracker_tpu_torch.data.device_augs import STAGED_SEARCH_BBOX_KEY, STAGED_SEARCH_KEY
-from feartracker_tpu_torch.data.jpeg import decode_jpeg
+from feartracker_tpu_torch.data.imread import imread
 from feartracker_tpu_torch.data.labels import get_regression_weight_label
 from feartracker_tpu_torch.data.samplers import SAMPLER_TYPES
 from feartracker_tpu_torch.utils import constants as C
@@ -48,19 +49,19 @@ from feartracker_tpu_torch.utils.image import normalize_imagenet_np as _normaliz
 def read_img(frame: Union[str, np.ndarray]) -> np.ndarray:
     """An RGB uint8 (H, W, 3) frame. A decoded ``np.ndarray`` passes through
     unchanged, so a dataset may hold frames in memory; a ``.npy`` path is
-    loaded with numpy; a ``.jpg``/``.jpeg`` path is decoded by
-    ``data/jpeg.py``, which gives ``cv2.imread``'s pixels on every host."""
+    loaded with numpy (cv2 reads no ``.npy``); any other path is decoded by
+    :func:`feartracker_tpu_torch.data.imread.imread`, which picks JPEG, PNG,
+    BMP or PNM from the file's signature and gives ``cv2.imread``'s pixels on
+    every host. A file it cannot read raises ``IOError`` naming the reason,
+    where JAX's ``read_img`` raises it for ``cv2.imread``'s None."""
     if isinstance(frame, np.ndarray):
         return frame
-    ext = os.path.splitext(frame)[1].lower()
-    if ext == ".npy":
+    if os.path.splitext(frame)[1].lower() == ".npy":
         return np.load(frame)
-    if ext in (".jpg", ".jpeg"):
-        try:
-            return decode_jpeg(frame)
-        except (OSError, ValueError) as e:
-            raise IOError(f"cannot read image {frame}: {e}") from e
-    raise IOError(f"cannot read image {frame}: only .jpg, .jpeg and .npy frames are supported")
+    try:
+        return imread(frame)
+    except (OSError, ValueError) as e:
+        raise IOError(f"cannot read image {frame}: {e}") from e
 
 
 class ImageCache:

@@ -5,16 +5,19 @@ The codec gives the bytes that OpenCV 5.0 (libjpeg-turbo 3.1) gives:
 
 * :func:`decode_jpeg` equals ``cv2.imread`` / ``cv2.imdecode(buf,
   IMREAD_COLOR)`` with the channels in RGB order: baseline and progressive
-  Huffman, 8-bit, 1 or 3 components at sampling 1-2, restart intervals, the
-  EXIF orientation applied as ``imread`` applies it. Anything else
-  (arithmetic coding, 12-bit, lossless, CMYK) raises ``ValueError``;
+  Huffman, 8-bit, 1, 3 or 4 components (CMYK and YCCK through OpenCV's own
+  CMYK conversion) at sampling factors 1-4, progressive block smoothing,
+  restart intervals, the EXIF orientation applied as ``imread`` applies
+  it. Arithmetic coding, lossless, hierarchical, 12-bit, DNL and
+  2-component files raise ``ValueError`` naming the mode;
 * :func:`encode_jpeg` equals ``cv2.imencode(".jpg", bgr, [IMWRITE_JPEG_QUALITY,
   q])`` of the same image in BGR order (``cv2.imwrite`` is q 95);
 * :func:`jpeg_roundtrip` is ``cv2.imdecode(cv2.imencode(".jpg", img, q))``
   with cv2's channel convention: channel 0 is taken as blue, as cv2 takes
   it, whatever the caller holds (``ImageCompression`` hands cv2 RGB).
 
-Build (once per source hash, into ``feartracker_tpu_torch/_kernels_build/``)::
+Build (once per source hash, into ``feartracker_tpu_torch/_kernels_build/``;
+:func:`build` also builds ``csrc/imgcodecs.cpp`` for ``data/imread.py``)::
 
     g++ -O2 -std=c++17 -fPIC -shared -ffp-contract=off csrc/jpeg.cpp -o libfear_jpeg_<hash>.so
 
@@ -47,26 +50,29 @@ _build_lock = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
-def _compiler() -> str:
+def _compiler(source: Path) -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the JPEG codec builds from csrc/jpeg.cpp with g++")
+        raise RuntimeError(f"g++ not found: the host codecs build from csrc/{source.name} with g++")
     return gxx
 
 
-def build() -> Path:
-    """Compile the codec if no build of the current source exists; return its path."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libfear_jpeg_{digest}.so"
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (a host C++ file of ``csrc/``) if no build of its
+    current text exists; return the library's path,
+    ``_kernels_build/libfear_<stem>_<hash>.so``."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + source.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libfear_{source.stem}_{digest}.so"
     with _build_lock:
         if lib.exists():
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             out = os.path.join(tmp, "lib.so")
-            proc = subprocess.run([_compiler(), *CXX_FLAGS, str(SOURCE), "-o", out], capture_output=True, text=True)
+            proc = subprocess.run([_compiler(source), *CXX_FLAGS, str(source), "-o", out], capture_output=True,
+                                  text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stdout}{proc.stderr}"[-4000:])
+                raise RuntimeError(f"building {source.name} failed:\n{proc.stdout}{proc.stderr}"[-4000:])
             os.replace(out, lib)  # atomic: concurrent builds race harmlessly
     return lib
 
@@ -87,8 +93,9 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
-    """OpenCV's ``ApplyExifOrientation`` (EXIF tag 0x0112, values 1-8)."""
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ``ApplyExifOrientation`` (EXIF tag 0x0112, values 1-8; any
+    other value leaves the image as it is)."""
     if orientation == 2:
         img = img[:, ::-1]
     elif orientation == 3:
@@ -119,7 +126,7 @@ def _decode(data: bytes, blue_first: bool) -> np.ndarray:
         img = np.ctypeslib.as_array(out, shape=(h.value, w.value, 3)).copy()
     finally:
         lib.jpg_free(out)
-    return _orient(img, o.value)
+    return apply_orientation(img, o.value)
 
 
 def decode_jpeg(src: Union[bytes, bytearray, memoryview, str, os.PathLike]) -> np.ndarray:

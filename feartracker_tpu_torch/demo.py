@@ -12,11 +12,13 @@ Lightning ``.ckpt``, or the reference's CoreML ``.mlmodel``; the default is
 ``$FEAR_WEIGHTS``, else the packaged ``fear_xs.npz``.
 
 ``--video_path`` is a ``.npy`` of (T, H, W, 3) RGB uint8 frames, read with
-numpy, or a video file, decoded with cv2. ``--output_path`` by suffix:
-``.npz`` holds the drawn frames (``frames``, (T, H, W, 3) uint8) and the
-boxes (``boxes``, (T, N, 4) xywh), written with numpy; any other suffix is
-encoded as an mp4v video with cv2, and raises where cv2 is not installed.
-The last line printed is the final box, as ``demo_video.py`` prints it.
+numpy, or a video file such as an mp4, decoded with cv2. ``--output_path``
+by suffix: ``.npz`` holds the drawn frames (``frames``, (T, H, W, 3) uint8)
+and the boxes (``boxes``, (T, N, 4) xywh), written with numpy; any other
+suffix is encoded as an mp4v video with cv2, and raises up front where cv2
+is not installed. The H100 host has cv2 4.13.0 with FFMPEG, so mp4 in and
+out run there (``chip_smoke.py`` phase 20d). The last line printed is the
+final box, as ``demo_video.py`` prints it.
 """
 
 from __future__ import annotations

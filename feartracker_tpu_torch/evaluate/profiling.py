@@ -22,13 +22,14 @@ HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile everything inside the block (host, and the card's kernels
     when CUDA is available) and write ``<log_dir>/trace.json``, a Chrome
-    trace (chrome://tracing, Perfetto). Yields the profiler, whose
+    trace (chrome://tracing, Perfetto), with each op's input shapes
+    (``tools/parse_trace.py`` reads them). Yields the profiler, whose
     ``key_averages()`` sums time by operator and kernel."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
+    prof = torch.profiler.profile(activities=activities, record_shapes=True)
     prof.start()
     try:
         yield prof

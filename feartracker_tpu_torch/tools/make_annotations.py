@@ -13,9 +13,10 @@ tool's byte for byte (pandas' ``to_csv(index=False)``: minimal quoting,
 ``\\n`` line ends).
 
 Frame sizes come from the file's header, not from decoding it: a JPEG's SOFn
-marker (swapped where its EXIF orientation is 5-8, as ``cv2.imread`` rotates
-such frames), a PNG's IHDR chunk, an ``.npy`` header; ``(0, 0)`` for a file
-none of these reads, where ``cv2.imread`` returns None. GOT-10k, LaSOT and
+marker, a PNG's IHDR chunk (each swapped where its EXIF / eXIf orientation is
+5-8, as ``cv2.imread`` rotates such frames), a BMP or PNM header as OpenCV's
+decoders read it, an ``.npy`` header; ``(0, 0)`` for a file none of these
+reads, where ``cv2.imread`` returns None. GOT-10k, LaSOT and
 TrackingNet frames are ``*.jpg``; a sequence without any takes its ``*.npy``
 frames (``tools/make_synthetic_dataset.py``'s trees).
 
@@ -36,6 +37,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from feartracker_tpu_torch.data.imread import bmp_header, format_of, pnm_header, tiff_orientation
 from feartracker_tpu_torch.data.sequence import _read_gt
 
 
@@ -46,25 +48,6 @@ def _near_corner(bbox, shape_wh, margin: int = 2) -> int:
 
 
 # -- frame sizes from headers -------------------------------------------------
-
-
-def _tiff_orientation(tiff: bytes) -> int:
-    """The orientation tag (0x0112) of an EXIF TIFF block's first IFD; 1
-    when absent or unreadable."""
-    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
-        return 1
-    end = "<" if tiff[:2] == b"II" else ">"
-    try:
-        (ifd,) = struct.unpack(end + "I", tiff[4:8])
-        (n,) = struct.unpack(end + "H", tiff[ifd:ifd + 2])
-        for i in range(n):
-            at = ifd + 2 + 12 * i
-            tag, typ = struct.unpack(end + "HH", tiff[at:at + 4])
-            if tag == 0x0112 and typ == 3:
-                return struct.unpack(end + "H", tiff[at + 8:at + 10])[0]
-    except struct.error:
-        pass
-    return 1
 
 
 def _jpeg_shape(data: bytes) -> Tuple[int, int]:
@@ -93,7 +76,7 @@ def _jpeg_shape(data: bytes) -> Tuple[int, int]:
                 return 0, 0
             return (h, w) if orientation in (5, 6, 7, 8) else (w, h)
         if marker == 0xE1 and seg[:6] == b"Exif\x00\x00" and orientation == 1:
-            orientation = _tiff_orientation(seg[6:])
+            orientation = tiff_orientation(seg[6:])
         pos += 2 + length
     return 0, 0
 
@@ -110,7 +93,7 @@ def _png_shape(data: bytes) -> Tuple[int, int]:
         if kind in (b"IDAT", b"IEND"):
             break
         if kind == b"eXIf":
-            orientation = _tiff_orientation(data[pos + 8:pos + 8 + length])
+            orientation = tiff_orientation(data[pos + 8:pos + 8 + length])
         pos += 12 + length
     if not (w and h):
         return 0, 0
@@ -119,18 +102,26 @@ def _png_shape(data: bytes) -> Tuple[int, int]:
 
 def frame_shape(img_path: str) -> Tuple[int, int]:
     """A frame's (W, H) from its header alone: what ``cv2.imread``'s array
-    gives for a JPEG or a PNG, the array's for an ``.npy`` file; ``(0, 0)``
-    where none of these reads the file."""
+    gives for a JPEG, PNG, BMP or PNM file (picked by signature, as cv2
+    picks its decoder), the array's for an ``.npy`` file; ``(0, 0)`` where
+    none of these reads the header."""
     try:
         with open(img_path, "rb") as fh:
             head = fh.read(16)
             if head.startswith(b"\x93NUMPY"):
                 shape = np.load(img_path, mmap_mode="r").shape
                 return (shape[1], shape[0]) if len(shape) >= 2 else (0, 0)
-            if head.startswith(b"\xff\xd8"):
+            kind = format_of(head)
+            if kind == "jpeg":
                 return _jpeg_shape(head + fh.read())
-            if head.startswith(b"\x89PNG\r\n\x1a\n"):
+            if kind == "png":
                 return _png_shape(head + fh.read())
+            if kind == "bmp":
+                hd = bmp_header(head + fh.read())
+                return hd["width"], hd["height"]
+            if kind == "pnm":
+                hd = pnm_header(head + fh.read())
+                return hd["width"], hd["height"]
     except (OSError, ValueError):
         pass
     return 0, 0

@@ -15,9 +15,11 @@ The classifier is the port's ``FBNetTrunk`` named ``encoder`` in train mode
 (Flax's BatchNorm, ``models/blocks.py:FlaxBatchNorm2d``), a spatial mean and
 ``nn.Linear`` as ``cls_head``, in float32 as in JAX; softmax cross-entropy,
 Adam (``train/optim.py``); one ``RandomState(seed)`` permutation an epoch, the
-last partial batch dropped. Images are resized to ``image_size`` with the
-cv2-exact bilinear resize where their size differs; ``.npy`` images need no
-cv2.
+last partial batch dropped. Images are listed by the JAX tool's suffixes
+(plus ``.npy``) and decoded by ``data/dataset.py:read_img`` as
+``cv2.imread`` decodes them, by signature (an ImageNet ``.JPEG`` that holds a
+PNG or a CMYK JPEG reads), with no cv2; they are resized to ``image_size``
+with the cv2-exact bilinear resize where their size differs.
 
     python -m feartracker_tpu_torch.tools.pretrain_trunk --data /data/imagenet/train --trunk fear_tiny \\
         --epochs 2 --out /tmp/tiny_trunk.npz
@@ -89,8 +91,8 @@ def trunk_variables(model: TrunkClassifier) -> Dict[str, np.ndarray]:
 
 
 def load_image(path: str, size: int) -> np.ndarray:
-    """An RGB image as float32 in [0, 1] at ``size``²: decoded (``.npy``
-    without cv2), resized as ``cv2.resize(INTER_LINEAR)`` where it differs."""
+    """An RGB image as float32 in [0, 1] at ``size``²: decoded by
+    ``read_img``, resized as ``cv2.resize(INTER_LINEAR)`` where it differs."""
     img = read_img(path)
     if img.shape[:2] != (size, size):
         img = resize_linear_u8(torch.from_numpy(np.ascontiguousarray(img)), (size, size)).numpy()

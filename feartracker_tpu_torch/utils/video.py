@@ -1,10 +1,12 @@
 """Video IO, the counterpart of ``feartracker_tpu/utils/video.py``.
 
 Frames are RGB uint8. A ``.npy`` file of decoded (T, H, W, 3) uint8 frames
-is read with numpy alone; any other path is decoded with cv2, imported in
-the functions that need it (the H100 host has no cv2 and no video decoder,
-so there the demo reads ``.npy``). :func:`draw_bbox` is numpy and draws
-the pixels ``cv2.rectangle`` draws.
+is read with numpy alone; any other path (an mp4, ...) is decoded and
+written with cv2's video I/O, imported in the functions that need it. The
+H100 host this port runs on has cv2 4.13.0 with the FFMPEG backend, which
+writes and reads mp4v, so the demo takes and makes mp4 there; the image
+readers do not use cv2 (``data/imread.py``). :func:`draw_bbox` is numpy
+and draws the pixels ``cv2.rectangle`` draws.
 """
 
 from __future__ import annotations

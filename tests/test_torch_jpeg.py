@@ -3,8 +3,8 @@ against cv2 5.0 (libjpeg-turbo 3.1) on the CPU: decode byte-equal to
 ``cv2.imdecode`` / ``cv2.imread`` over qualities, chroma samplings,
 progressive and restart files, odd sizes and EXIF orientation; encode
 byte-equal to ``cv2.imencode``; the round trip of ``ImageCompression``;
-unsupported files raise; and the generators' ``--format jpg`` trees equal
-the JAX generators' file for file."""
+the modes still refused raise naming the mode; and the generators'
+``--format jpg`` trees equal the JAX generators' file for file."""
 
 import hashlib
 import json
@@ -139,16 +139,22 @@ def _patch_sof(data: bytes, **fields) -> bytes:
 
 
 def test_unsupported_files_raise_and_name_the_feature():
+    """The modes the codec still refuses (CMYK, YCCK, sampling factors up to
+    4 and block smoothing are read since; ``tests/test_torch_image_formats.py``
+    holds them to cv2)."""
     data = _cv2_jpeg(IMAGES[(17, 33)], 90)
-    cmyk = b"\xff\xd8\xff\xc0" + struct.pack(">HBHHB", 20, 8, 4, 4, 4) + b"".join(
-        bytes([c + 1, 0x11, 0]) for c in range(4)) + b"\xff\xd9"
+    i = data.index(b"\xff\xc0")
+    dnl = data[:i + 5] + b"\0\0" + data[i + 7:]  # height 0: set by a DNL marker
+    two = b"\xff\xd8\xff\xc0" + struct.pack(">HBHHB", 14, 8, 4, 4, 2) + b"".join(
+        bytes([c + 1, 0x11, 0]) for c in range(2)) + b"\xff\xd9"
     cases = {
         "arithmetic": _patch_sof(data, marker=0xC9),
         "lossless": _patch_sof(data, marker=0xC3),
         "hierarchical": _patch_sof(data, marker=0xC5),
         "12-bit": _patch_sof(data, precision=12),
-        "CMYK": cmyk,
-        "sampling factor above 2": _patch_sof(data, sampling=0x41),
+        "DNL": dnl,
+        "2-component": two,
+        "sampling factors too large": _patch_sof(data, sampling=0x44),
         "no SOI": b"not a jpeg",
         "truncated": data[:60],
     }
@@ -165,8 +171,9 @@ def test_read_img_takes_jpeg_and_npy_and_names_the_rest(tmp_path):
     np.save(tmp_path / "a.npy", img)
     assert np.array_equal(read_img(str(tmp_path / "a.JPEG")), cv2.imread(str(tmp_path / "a.JPEG"))[..., ::-1])
     assert np.array_equal(read_img(str(tmp_path / "a.npy")), img)
-    with pytest.raises(IOError, match=r"\.jpg, \.jpeg and \.npy"):
-        read_img(str(tmp_path / "a.png"))
+    assert cv2.imwrite(str(tmp_path / "a.tif"), img)
+    with pytest.raises(IOError, match="TIFF"):
+        read_img(str(tmp_path / "a.tif"))
     with pytest.raises(IOError, match="cannot read"):
         read_img(str(tmp_path / "missing.jpg"))
 

@@ -140,3 +140,51 @@ def test_main_exports_and_refuses_a_missing_card(tmp_path, capsys):
         assert z.files and all("encoder" in k for k in z.files)
     with pytest.raises(RuntimeError, match="cuda"):
         pretrain_trunk.main(["--data", str(tmp_path / "c"), "--out", str(tmp_path / "u.npz"), "--device", "cuda"])
+
+
+def test_mixed_format_folder_matches_jax(tmp_path):
+    """An ImageFolder whose files cv2 reads by their signature, not their
+    suffix (ImageNet holds a PNG named ``.JPEG`` and CMYK JPEGs): baseline,
+    CMYK, YCCK, 4:1:1 and block-smoothed progressive JPEGs, a PNG, a PNG
+    named ``.JPEG`` and a BMP named ``.jpg``, through both tools from the
+    same initial variables: the same per-epoch loss (``LOSS_RTOL``) and
+    accuracy."""
+    import sys
+
+    import cv2
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures"))
+    import make_host_io_fixtures as W
+
+    from feartracker_tpu_torch.train.summary import encode_png
+
+    folder = tmp_path / "mixed"
+    for k in range(2):
+        cls = folder / f"class{k}"
+        cls.mkdir(parents=True)
+        img = W._img(300 + k, 40, 48)
+        four = W._img(310 + k, 40, 48, 4)
+        files = {
+            "baseline.jpg": cv2.imencode(".jpg", img[..., ::-1])[1].tobytes(),
+            "cmyk.jpg": W._pil_cmyk(four, 90),
+            "ycck.jpg": W.jpeg_baseline(W.sub_planes(four, [(1, 1)] * 4), [(1, 1)] * 4, adobe=2),
+            "s411.jpg": W.jpeg_baseline(W.sub_planes(img, [(4, 1), (1, 1), (1, 1)]), [(4, 1), (1, 1), (1, 1)],
+                                        jfif=True),
+            "smoothed.jpg": W.keep_scans(W._cv2_progressive(img), lambda i, ah: ah == 0),
+            "plain.png": encode_png(img),
+            "png_named.JPEG": encode_png(img[::-1]),
+            "bmp_named.jpg": W.bmp(img[:, ::-1], 24),
+        }
+        for name, data in files.items():
+            (cls / name).write_bytes(data)
+    jmodel = jax_pretrain.make_classifier("fear_tiny", 2)
+    init = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), train=False)  # the JAX tool's seed 0
+    flat_init = {"/".join(k): np.asarray(v) for k, v in flatten_dict(jax.tree.map(np.asarray, dict(init))).items()}
+    kw = dict(epochs=1, batch_size=4, image_size=SIZE, lr=LR, seed=0)
+    want = jax_pretrain.train(str(folder), "fear_tiny", str(tmp_path / "jax.npz"), **kw)
+    got = pretrain_trunk.run(str(folder), "fear_tiny", str(tmp_path / "port.npz"), device="cpu",
+                             init_variables=flat_init, **kw)
+    assert got["steps"] == 4 and len(got["history"]) == len(want["history"]) == 1
+    for g, w in zip(got["history"], want["history"], strict=True):
+        assert g["acc"] == w["acc"]
+        assert abs(g["loss"] - w["loss"]) <= LOSS_RTOL * abs(w["loss"]), (g, w)

@@ -154,7 +154,7 @@ def test_port_imports_no_jax_or_reference():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(modules) >= 102
+    assert len(modules) >= 104
     # the deployment surfaces: weight formats, export, demo, plots and report
     assert {f"feartracker_tpu_torch.{m}" for m in (
         "convert.protowire", "convert.coreml", "convert.fear_weights", "convert.lightning", "convert.export",
@@ -185,6 +185,8 @@ def test_port_imports_no_jax_or_reference():
         "make_annotations", "make_class_dataset", "pretrain_trunk", "warm_start_comparison", "synthetic_e2e",
         "train_run", "pretrain_chain", "family_train", "train_template_gate", "train_feature_gate",
         "train_flagship")} <= set(modules)
+    # the frame reader of every format cv2.imread reads there, and the trace summary
+    assert {f"feartracker_tpu_torch.{m}" for m in ("data.imread", "data.jpeg", "tools.parse_trace")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
