@@ -270,7 +270,8 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    pixels of the 36 committed ``tests/fixtures/images`` (PNG of every colour
    type, Adam7, tRNS, eXIf; BMP 1-32 bits, RLE4/RLE8, top-down, OS/2;
    P1-P6; CMYK, YCCK, 4:1:1, 1x4 and 3x2 sampling, block-smoothed
-   progressive JPEGs; a PNG named ``.JPEG``), TIFF/WebP/GIF refused by name,
+   progressive JPEGs; a PNG named ``.JPEG``), the formats still unread
+   (JPEG 2000, AVIF, Radiance HDR, PFM, PAM, Sun raster) refused by name,
    and the decode ms of a 1280x720 PNG, BMP and CMYK JPEG on one core; 20b
    19c's OPE over its val frames rewritten as PNG and as 24-bit BMP under
    their ``.jpg`` names: every result equal to the ``.npy`` run, K1/K2 at the
@@ -280,7 +281,22 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    the host's cv2 writes (mp4v), mp4 out: its final box equal to
    ``FEARTracker``'s over the decoded frames, K1/K2 one a frame; 20e phase
    5c's trace through ``tools/parse_trace.py``: the top ten aten ops by
-   device ms.
+   device ms;
+21. TIFF, WebP, GIF and the JPEG modes beyond Huffman, cv2 blocked (run
+   before 20d, which imports the host's cv2): 21a ``data/tiff.py``,
+   ``data/webp.py``, ``data/gif.py`` and ``csrc/jpeg.cpp``'s arithmetic and
+   lossless paths against the sha256s of cv2's pixels of the 33 committed
+   ``tests/fixtures/images/manifest_tiff_webp_gif.json`` files (TIFF
+   strips, tiles, planes, BigTIFF, LZW/Deflate/PackBits/JPEG, 1-16 bits,
+   palette, alpha, orientation; WebP lossy, lossless, alpha, animation,
+   EXIF; GIF interlaced, local tables, transparency; arithmetic and
+   lossless JPEG), and the decode ms of a 1280x720 TIFF LZW, TIFF JPEG,
+   WebP q90, lossless WebP and GIF on one core; 21b 19c's OPE over its val
+   frames rewritten as TIFF (LZW, predictor 2) and as lossless WebP
+   (``tiff_lzw``, ``webp_lossless`` below): every result equal to the
+   ``.npy`` run, K1/K2 at the schedule; 21c ``make_annotations`` over a
+   GOT-10k and a YouTube-BB tree of TIFF, WebP and GIF frames: rows equal
+   to the JPEG trees', no zero frame size.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -3601,6 +3617,9 @@ def _phase_host_io(card, counters, lap, work: str, trace_dir: str):
         launches, ope = _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19)
         t20 = time.perf_counter()
         launches.update(_phase_formats(card, counters, lap, work, here, ope))
+        t21 = time.perf_counter()
+        launches.update(_phase_tiff_webp_gif(card, counters, lap, work, here, ope))
+        print(f"[21] phase 21 in {time.perf_counter() - t21:.1f} s", flush=True)
     finally:
         del sys.modules["cv2"]
         if earlier is not None:
@@ -3810,6 +3829,11 @@ def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
 # phase 20: the other frame formats of cv2.imread, the demo's video and traces by op
 IMAGE_FIXTURES = ("tests", "fixtures", "images")  # seeded PNG/BMP/PNM/JPEG files and the sha256s of cv2's pixels
 CMYK_TIMING_FILE = "cmyk_1280x720.jpg"
+FORMAT_MANIFEST = "manifest_tiff_webp_gif.json"  # phase 21a's files and cv2's pixels of each
+# leading bytes of formats cv2 reads and the port does not: each must raise naming it
+UNREAD_SIGNATURES = (("JPEG 2000", b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8)), ("AVIF", b"\x00\x00\x00\x20ftypavif"),
+                     ("Radiance HDR", b"#?RADIANCE\n"), ("PFM", b"PF\n4 4\n-1\n"), ("PAM", b"P7\nWIDTH 4\n"),
+                     ("Sun raster", b"\x59\xa6\x6a\x95" + bytes(28)))
 PRETRAIN_MIX = ("cmyk.jpg", "cmyk_progressive.jpg", "ycck.jpg", "s411.jpg", "png_named.JPEG")
 VIDEO_FRAMES = 30
 
@@ -3826,6 +3850,138 @@ def bmp24(img) -> bytes:
     rows[:, :3 * w] = img[::-1, :, ::-1].reshape(h, 3 * w)
     info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
     return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + info + rows.tobytes()
+
+
+def _pack_codes(codes, widths, lsb_first: bool) -> bytes:
+    """Variable-width codes packed most significant bit first (TIFF) or
+    least significant bit first (GIF), numpy only."""
+    import numpy as np
+
+    ends = np.cumsum(widths)
+    bits = np.zeros(int(ends[-1]) + (-int(ends[-1]) % 8), np.uint8)
+    starts = ends - widths
+    for w in np.unique(widths):
+        sel = widths == w
+        for b in range(int(w)):
+            shift = b if lsb_first else int(w) - 1 - b
+            bits[starts[sel] + b] = (codes[sel] >> shift) & 1
+    return np.packbits(bits, bitorder="little" if lsb_first else "big").tobytes()
+
+
+def _literal_lzw(data: bytes, tiff: bool):
+    """LZW codes and widths that hold ``data`` as literal codes only: a Clear,
+    at most 3,800 literals, a Clear, ..., an EOI; each code as wide as the
+    decoder's growing table makes it (TIFF's decoder widens one code earlier
+    than GIF's). Valid LZW, without compression: the writer needs no table."""
+    import numpy as np
+
+    per, g = 3800, 0 if tiff else 1
+
+    def width(j):
+        return 9 + (j >= 254 + g) + (j >= 766 + g) + (j >= 1790 + g)
+
+    lit = np.frombuffer(data, np.uint8).astype(np.int64)
+    chunks = [lit[i:i + per] for i in range(0, len(lit), per)] or [lit]
+    codes, widths = [], []
+    clear_width = 9
+    for chunk in chunks:
+        codes += [np.array([256]), chunk]
+        widths += [np.array([clear_width]), width(np.arange(len(chunk)))]
+        clear_width = int(width(len(chunk)))
+    codes.append(np.array([257]))
+    widths.append(np.array([clear_width]))
+    return np.concatenate(codes), np.concatenate(widths)
+
+
+def _ifd(entries, at: int) -> bytes:
+    """A little-endian classic TIFF IFD at file offset ``at``: (tag, SHORT
+    or LONG type, values) entries, longer values after it."""
+    import struct
+
+    entries = sorted(entries)
+    after = at + 2 + 12 * len(entries) + 4
+    out, extra = struct.pack("<H", len(entries)), b""
+    for tag, typ, vals in entries:
+        payload = b"".join(struct.pack("<H" if typ == 3 else "<I", v) for v in vals)
+        if len(payload) <= 4:
+            field = payload.ljust(4, b"\0")
+        else:
+            field = struct.pack("<I", after + len(extra))
+            extra += payload
+        out += struct.pack("<HHI", tag, typ, len(vals)) + field
+    return out + b"\0\0\0\0" + extra
+
+
+def tiff_lzw(img, rows: int = 16) -> bytes:
+    """(H, W, 3) RGB uint8 → a TIFF of strips of ``rows`` rows, LZW
+    compression (literal codes: ``_literal_lzw``) after predictor 2."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    v = img.reshape(h, 3 * w).astype(np.int16)
+    diff = v.copy()
+    diff[:, 3:] = v[:, 3:] - v[:, :-3]
+    diff = (diff & 255).astype(np.uint8)
+    strips = [_pack_codes(*_literal_lzw(diff[y:y + rows].tobytes(), True), lsb_first=False) for y in range(0, h, rows)]
+    offsets, pos = [], 8
+    for s in strips:
+        offsets.append(pos)
+        pos += len(s)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [5]), (262, 3, [2]), (273, 4, offsets),
+               (277, 3, [3]), (278, 4, [rows]), (279, 4, [len(s) for s in strips]), (284, 3, [1]), (317, 3, [2])]
+    return b"II" + struct.pack("<HI", 42, pos) + b"".join(strips) + _ifd(entries, pos)
+
+
+def webp_lossless(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a lossless WebP (VP8L) without transforms or
+    colour cache: every green, red and blue value an 8-bit prefix code,
+    alpha and distance one-symbol codes."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    bits = []
+
+    def put(v, n):  # LSB first, as VP8L reads its header fields
+        bits.extend((v >> i) & 1 for i in range(n))
+
+    put(0, 3)  # no transform, no colour cache, no meta prefix codes
+    for alphabet in (280, 256, 256):  # green (+ 24 length codes), red, blue
+        put(0, 1)  # a normal code: its lengths through a code-length code
+        put(12 - 4, 4)  # 12 code-length code lengths, in kCodeLengthCodeOrder
+        for length in (0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 1):  # symbols 0 and 8 at 1 bit
+            put(length, 3)
+        put(0, 1)  # every symbol's length follows
+        bits.extend([1] * 256 + [0] * (alphabet - 256))  # length 8 (code 1), then 0 (code 0)
+    put(1, 1), put(0, 1), put(1, 1), put(255, 8)  # alpha: one symbol, 255
+    put(1, 1), put(0, 1), put(0, 1), put(0, 1)  # distance: one symbol, 0
+    head = np.array(bits, np.uint8)
+    gbr = img[..., [1, 0, 2]].reshape(-1)
+    px = np.unpackbits(gbr, bitorder="big")  # an 8-bit canonical code is the value, first bit first
+    payload = np.packbits(np.concatenate([head, px]), bitorder="little").tobytes()
+    vp8l = b"\x2f" + struct.pack("<I", (w - 1) | (h - 1) << 14) + payload
+    chunk = b"VP8L" + struct.pack("<I", len(vp8l)) + vp8l + b"\0" * (len(vp8l) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def gif_332(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a GIF89a of the colours cut to 3-3-2 bits (a
+    256-entry global table), LZW of literal codes (``_literal_lzw``)."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    idx = (img[..., 0] & 0xE0) | ((img[..., 1] >> 3) & 0x1C) | (img[..., 2] >> 6)
+    i = np.arange(256)
+    table = np.stack([(i & 0xE0) * 255 // 0xE0, ((i & 0x1C) << 3) * 255 // 0xE0, (i & 3) * 85], 1).astype(np.uint8)
+    data = _pack_codes(*_literal_lzw(idx.astype(np.uint8).tobytes(), False), lsb_first=True)
+    blocks = b"".join(bytes([len(data[k:k + 255])]) + data[k:k + 255] for k in range(0, len(data), 255))
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + table.tobytes()
+            + b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks + b"\x00\x3b")
 
 
 def _decode_p50_ms(data: bytes, decode) -> float:
@@ -3895,13 +4051,12 @@ def _phase_formats(card, counters, lap, work: str, here: str, ope: dict) -> dict
         if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
             bad.append(c["file"])
     refused = {}
-    for name, data in (("TIFF", b"II*\x00" + bytes(12)), ("WebP", b"RIFF\x00\x00\x00\x00WEBPVP8 "),
-                       ("GIF", b"GIF89a" + bytes(10))):
+    for name, data in UNREAD_SIGNATURES:
         try:
             imread(data)
         except IOError as e:
             refused[name] = name in str(e)
-    if bad or not all(refused.values()) or len(refused) != 3:
+    if bad or not all(refused.values()) or len(refused) != len(UNREAD_SIGNATURES):
         raise AssertionError(f"20a: {bad} differ from cv2's pixels; refusals named {refused}")
     frame = fixture_frame(0, 720, 1280)
     with open(os.path.join(images, CMYK_TIMING_FILE), "rb") as fh:
@@ -3910,8 +4065,8 @@ def _phase_formats(card, counters, lap, work: str, here: str, ope: dict) -> dict
               "CMYK JPEG q75": cmyk}
     ms = {k: _decode_p50_ms(v, imread) for k, v in timing.items()}
     print(f"[20a] data/imread.py (PNG and BMP in numpy + csrc/imgcodecs.cpp, JPEG in csrc/jpeg.cpp), cv2 blocked: "
-          f"{len(manifest)} fixtures ({', '.join(c['kind'] for c in manifest)}) equal to cv2's pixels; TIFF, WebP "
-          f"and GIF raise IOError naming the format; 1280x720 decode p50 on one core "
+          f"{len(manifest)} fixtures ({', '.join(c['kind'] for c in manifest)}) equal to cv2's pixels; "
+          f"{', '.join(refused)} raise IOError naming the format; 1280x720 decode p50 on one core "
           f"{', '.join(f'{k} ({len(timing[k]) / 1e3:.0f} kB) {v:.2f} ms' for k, v in ms.items())} [{card}]",
           flush=True)
     lap("20a")
@@ -3971,6 +4126,127 @@ def _phase_formats(card, counters, lap, work: str, here: str, ope: dict) -> dict
     lap("20c")
     if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
         raise AssertionError("20a-c imported cv2")
+    return launches
+
+
+def _phase_tiff_webp_gif(card, counters, lap, work: str, here: str, ope: dict) -> dict:
+    """Phase 21, cv2 blocked: the TIFF, WebP, GIF and JPEG-mode fixtures
+    against cv2's pixels and 1280x720 decode ms (21a); phase 19c's OPE over
+    its val frames rewritten as TIFF (LZW, predictor 2) and as lossless WebP
+    (21b); ``make_annotations`` over GOT-10k and YouTube-BB trees of TIFF,
+    WebP and GIF frames against the same trees in JPEG (21c). → each path's
+    launches."""
+    import csv
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.data.dataset import read_img
+    from feartracker_tpu_torch.data.imread import imread
+    from feartracker_tpu_torch.data.jpeg import encode_jpeg
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+    from feartracker_tpu_torch.tools import make_annotations
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
+
+    launches = {}
+    # 21a: the fixtures against cv2's pixels, made on the CPU with cv2 and PIL
+    images = os.path.join(here, *IMAGE_FIXTURES)
+    with open(os.path.join(images, FORMAT_MANIFEST)) as fh:
+        manifest = json.load(fh)["decode"]
+    bad, timing = [], {}
+    for c in manifest:
+        path = os.path.join(images, c["file"])
+        img = read_img(path)
+        if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
+            bad.append(c["file"])
+        if c["file"].startswith("timing_"):
+            with open(path, "rb") as fh:
+                timing[c["kind"]] = fh.read()
+    if bad or len(timing) != 5:
+        raise AssertionError(f"21a: {bad} differ from cv2's pixels ({len(timing)} timing files)")
+    ms = {k: _decode_p50_ms(v, imread) for k, v in timing.items()}
+    print(f"[21a] data/tiff.py, data/webp.py, data/gif.py (+ csrc/imgcodecs.cpp, csrc/webp.cpp, csrc/jpeg.cpp), "
+          f"cv2 blocked: {len(manifest)} fixtures equal to cv2's pixels; 1280x720 decode p50 on one core "
+          f"{', '.join(f'{k} ({len(timing[k]) / 1e3:.0f} kB) {v:.2f} ms' for k, v in ms.items())} [{card}]",
+          flush=True)
+    lap("21a")
+
+    # 21b: phase 19c's OPE over its val frames rewritten as TIFF and as lossless WebP
+    results = {}
+    for fmt, encode, magic in (("tiff", tiff_lzw, b"II*\x00"), ("webp", webp_lossless, b"RIFF")):
+        root = os.path.join(work, f"formats_{fmt}")
+        n = _rewrite_tree(ope["jpeg_root"], root, encode)
+        ds = GOT10kDataset(root, "val")
+        with open(ds[0][0][0], "rb") as fh:
+            head = fh.read(4)
+        if head != magic:
+            raise AssertionError(f"21b: the {fmt} tree holds {head!r}")
+        tracker = _fear_tracker("cuda", torch.float32)
+        _zero(counters)
+        ao = evaluate_tracker(tracker, ds)
+        torch.cuda.synchronize()
+        results[fmt] = (ao, _read(counters), n)
+        launches[f"formats_ope_{fmt}"] = results[fmt][1]
+        shutil.rmtree(root)
+    for fmt, (ao, got, n) in results.items():
+        if ao != ope["ao"] or got != ope["launches"]:
+            raise AssertionError(f"21b: {fmt} AO {ao} launches {got} against .npy {ope['ao']} {ope['launches']}")
+    print(f"[21b] GOT-10k OPE (FEARTracker FEAR-XS f32) over phase 19c's {len(ope['lengths'])} val sequences "
+          f"({results['tiff'][2]} frames) rewritten as TIFF (LZW, predictor 2) and as lossless WebP under their .jpg "
+          f"names: every result equal to the run over .npy (AO {ope['ao']['ao']:.6f}); launches "
+          f"{results['tiff'][1]} and {results['webp'][1]}, = the schedule [{card}]", flush=True)
+    lap("21b")
+
+    # 21c: make_annotations over trees of each format against the same trees in JPEG
+    ann = os.path.join(work, "annotations21")
+    generate(os.path.join(ann, "src"), tracks=1, frames=6, val_sequences=2, seed=21, size=(96, 128))
+    src_val = os.path.join(ann, "src", "got10k", "val")
+    writers = {"jpg": lambda img: encode_jpeg(img, 90), "tiff": tiff_lzw, "webp": webp_lossless, "gif": gif_332}
+    rows = {}
+    for fmt, write in writers.items():
+        got_root = os.path.join(ann, fmt, "got10k")
+        for d, _, files in os.walk(src_val):
+            out = os.path.join(got_root, "val", os.path.relpath(d, src_val))
+            os.makedirs(out, exist_ok=True)
+            for f in files:
+                if f.endswith(".npy"):
+                    with open(os.path.join(out, f[:-4] + ".jpg"), "wb") as fh:
+                        fh.write(write(np.load(os.path.join(d, f))))
+                else:
+                    shutil.copyfile(os.path.join(d, f), os.path.join(out, f))
+        yt = os.path.join(ann, fmt, "ytbb")
+        os.makedirs(yt, exist_ok=True)
+        with open(os.path.join(yt, "yt_bb_detection_train.csv"), "w", newline="") as fh:
+            w = csv.writer(fh)
+            for k, (vid, size) in enumerate((("vidA", (90, 160)), ("vidB", (120, 96)))):
+                os.makedirs(os.path.join(yt, vid), exist_ok=True)
+                for t in range(3):
+                    with open(os.path.join(yt, vid, f"{vid}_{t * 1000}.jpg"), "wb") as img_fh:
+                        img_fh.write(write(fixture_frame(210 + 3 * k + t, *size)))
+                    w.writerow([vid, t * 1000, 7, "cat", k, "present", 0.1 + 0.05 * t, 0.6, 0.2, 0.7 + 0.05 * t])
+        made = []
+        for dataset, root, subset in (("got10k", got_root, "val"), ("youtube_bb", yt, "train")):
+            out = os.path.join(ann, f"{fmt}_{dataset}.csv")
+            make_annotations.run(dataset, root, out, subset=subset)
+            with open(out) as fh:
+                made.append(fh.read())
+        rows[fmt] = made
+    zero = [fmt for fmt, made in rows.items() for text in made if "[0, 0]" in text]
+    differ = [fmt for fmt in writers if rows[fmt] != rows["jpg"]]
+    if zero or differ or not all(len(t.splitlines()) > 1 for t in rows["jpg"]):
+        raise AssertionError(f"21c make_annotations: formats with a zero frame size {zero}, rows differing from "
+                             f"JPEG's {differ}")
+    n_rows = [len(t.splitlines()) - 1 for t in rows["jpg"]]
+    print(f"[21c] make_annotations over GOT-10k ({n_rows[0]} rows) and YouTube-BB ({n_rows[1]} rows, boxes scaled "
+          f"by the frame size) trees of TIFF, WebP and GIF frames: rows equal to the JPEG trees', no zero frame "
+          f"size [{card}]", flush=True)
+    shutil.rmtree(ann)
+    lap("21c")
+    if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
+        raise AssertionError("phase 21 imported cv2")
     return launches
 
 

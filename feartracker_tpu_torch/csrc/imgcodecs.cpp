@@ -1,6 +1,6 @@
-// The sequential inner loops of the host's PNG and BMP readers, with a plain
-// C interface for ctypes (feartracker_tpu_torch/data/imread.py builds and
-// binds it; the rest of both readers is numpy).
+// The sequential inner loops of the host's PNG, BMP, TIFF and GIF readers,
+// with a plain C interface for ctypes (feartracker_tpu_torch/data/imread.py
+// builds and binds it; the rest of each reader is numpy).
 //
 // png_unfilter: PNG's five row filters (None, Sub, Up, Average, Paeth) undone
 // in place, one pass of an image at a time: Sub, Average and Paeth depend on
@@ -13,6 +13,13 @@
 // along and no line down, and an end of bitmap ends only its line; a run or
 // a literal that passes the line's end, or a stream that ends before the
 // last line, is an error.
+//
+// tiff_lzw, tiff_packbits: libtiff's LZWDecode (new-style codes, MSB first,
+// the width growing one code early) and PackBitsDecode, each filling one
+// strip or tile of a known size; a stream that ends before it is full is an
+// error.
+//
+// gif_lzw: GIF's LZW (LSB first, minimum code size 2-8) to palette indices.
 //
 // Every function returns 0 on success, else writes a message to err.
 
@@ -172,6 +179,205 @@ int bmp_rle(const uint8_t* src, size_t n, int W, int H, int bits, int bottom_up,
       flag = false;
       if (y >= H) break;
     }
+  }
+  return 0;
+}
+
+// one strip or tile of LZW data (n bytes) to exactly occ bytes
+int tiff_lzw(const uint8_t* in, size_t n, uint8_t* out, size_t occ, char* err, int errlen) {
+  if (n >= 2 && in[0] == 0 && (in[1] & 1)) {
+    set_err(err, errlen, "old-style (LSB-first) LZW is not read");
+    return 1;
+  }
+  static thread_local std::vector<uint16_t> prefix(4096);
+  static thread_local std::vector<uint8_t> suffix(4096), first(4096);
+  static thread_local std::vector<uint16_t> length(4096);
+  for (int i = 0; i < 256; i++) {
+    prefix[i] = 0;
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  size_t pos = 0, o = 0;
+  uint32_t acc = 0;
+  int have = 0, nbits = 9, free_ent = 258, old = -1;
+  auto next = [&](int& code) {
+    while (have < nbits) {
+      if (pos >= n) return false;
+      acc = (acc << 8) | in[pos++];
+      have += 8;
+    }
+    have -= nbits;
+    code = (int)((acc >> have) & ((1u << nbits) - 1));
+    return true;
+  };
+  auto put = [&](int code) {  // the string of code, cut at the end of the buffer
+    int len = length[code];
+    size_t skip = o + (size_t)len > occ ? o + (size_t)len - occ : 0;
+    int c = code;
+    for (int k = len - 1; k >= 0; k--) {
+      if ((size_t)k < (size_t)len - skip) out[o + (size_t)k] = suffix[c];
+      c = prefix[c];
+    }
+    o += (size_t)len - skip;
+  };
+  while (o < occ) {
+    int code;
+    if (!next(code)) break;
+    if (code == 256) {
+      free_ent = 258;
+      nbits = 9;
+      if (!next(code)) break;
+      if (code == 257) break;
+      if (code > 255) {
+        set_err(err, errlen, "LZW: corrupted table after a Clear code");
+        return 1;
+      }
+      out[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (code == 257) break;
+    if (old < 0 || code > free_ent || free_ent >= 4096) {
+      set_err(err, errlen, old < 0 ? "LZW: no Clear code first" : "LZW: a code not yet in the table");
+      return 1;
+    }
+    // the new entry: the previous string + the first byte of this one (KwKwK: of the previous)
+    prefix[free_ent] = (uint16_t)old;
+    length[free_ent] = (uint16_t)(length[old] + 1);
+    first[free_ent] = first[old];
+    suffix[free_ent] = code < free_ent ? first[code] : first[old];
+    if (++free_ent > (1 << nbits) - 2) nbits = nbits < 12 ? nbits + 1 : 12;
+    put(code);
+    old = code;
+  }
+  if (o < occ) {
+    set_err(err, errlen, "LZW: not enough data for the strip or tile");
+    return 1;
+  }
+  return 0;
+}
+
+// one strip or tile of PackBits data (n bytes) to exactly occ bytes
+int tiff_packbits(const uint8_t* in, size_t n, uint8_t* out, size_t occ, char* err, int errlen) {
+  size_t pos = 0, o = 0;
+  while (pos < n && o < occ) {
+    int c = (int8_t)in[pos++];
+    if (c == -128) continue;
+    if (c < 0) {
+      size_t k = (size_t)(1 - c);
+      if (k > occ - o) k = occ - o;
+      if (pos >= n) break;
+      memset(out + o, in[pos++], k);
+      o += k;
+    } else {
+      size_t k = (size_t)c + 1;
+      if (k > occ - o) k = occ - o;
+      if (pos + k > n) break;
+      memcpy(out + o, in + pos, k);
+      pos += k;
+      o += k;
+    }
+  }
+  if (o < occ) {
+    set_err(err, errlen, "PackBits: not enough data for the strip or tile");
+    return 1;
+  }
+  return 0;
+}
+
+// GIF image data: the sub-blocks from in (after the minimum code size byte)
+// to npix palette indices; *used = bytes read through the terminating block
+int gif_lzw(const uint8_t* in, size_t n, int min_size, uint16_t* out, size_t npix, size_t* used, char* err,
+            int errlen) {
+  if (min_size < 2 || min_size > 11) {
+    set_err(err, errlen, "GIF LZW minimum code size outside 2-11");
+    return 1;
+  }
+  static thread_local std::vector<uint16_t> prefix(4096), length(4096), suffix(4096), first(4096), stack(4097);
+  const int clear = 1 << min_size, eoi = clear + 1;
+  for (int i = 0; i < clear; i++) {
+    prefix[i] = 0;
+    suffix[i] = first[i] = (uint16_t)i;
+    length[i] = 1;
+  }
+  int width = min_size + 1, next = eoi + 1, old = -1;
+  uint32_t acc = 0;
+  int have = 0;
+  size_t pos = 0, o = 0;
+  bool done = false;
+  for (;;) {
+    if (pos >= n) {
+      set_err(err, errlen, "GIF image data has no terminating block");
+      return 1;
+    }
+    size_t len = in[pos++];
+    if (len == 0) break;
+    if (pos + len > n) {
+      set_err(err, errlen, "GIF image data runs past the end of the file");
+      return 1;
+    }
+    for (size_t i = 0; i < len && !done; i++) {
+      acc |= (uint32_t)in[pos + i] << have;
+      have += 8;
+      while (have >= width && !done) {
+        int code = (int)(acc & ((1u << width) - 1));
+        acc >>= width;
+        have -= width;
+        if (code == clear) {
+          width = min_size + 1;
+          next = eoi + 1;
+          old = -1;
+          continue;
+        }
+        if (code == eoi) {
+          done = true;
+          break;
+        }
+        if (old < 0) {
+          if (code >= clear) {
+            set_err(err, errlen, "GIF LZW: a first code that is not a colour");
+            return 1;
+          }
+          if (o < npix) out[o++] = (uint16_t)code;
+          old = code;
+          continue;
+        }
+        if (code > next || (code == next && next >= 4096)) {
+          set_err(err, errlen, "GIF LZW: a code not yet in the table");
+          return 1;
+        }
+        if (next < 4096) {
+          prefix[next] = (uint16_t)old;
+          length[next] = (uint16_t)(length[old] + 1);
+          first[next] = first[old];
+          suffix[next] = code < next ? first[code] : first[old];
+          next++;
+          if (next == (1 << width) && width < 12) width++;
+        }
+        int c = code, k = length[code];
+        for (int j = k - 1; j >= 0; j--) {
+          stack[j] = suffix[c];
+          c = prefix[c];
+        }
+        for (int j = 0; j < k && o < npix; j++) out[o++] = stack[j];
+        old = code;
+      }
+    }
+    pos += len;
+    if (done) {  // skip to the terminating block
+      while (pos < n && in[pos] != 0) pos += (size_t)in[pos] + 1;
+      if (pos >= n) {
+        set_err(err, errlen, "GIF image data has no terminating block");
+        return 1;
+      }
+      pos++;
+      break;
+    }
+  }
+  *used = pos;
+  if (o < npix) {
+    set_err(err, errlen, "GIF image data ends before the last pixel");
+    return 1;
   }
   return 0;
 }

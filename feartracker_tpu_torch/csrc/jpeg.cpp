@@ -2,8 +2,14 @@
 // drives it (cv2.imdecode / cv2.imencode), with a plain C interface for
 // ctypes (feartracker_tpu_torch/data/jpeg.py builds and binds it).
 //
-// Decode: baseline, extended and progressive Huffman, 8-bit; 1, 3 or 4
-// components at sampling factors 1-4; restart intervals; APPn/COM skipped.
+// Decode: baseline, extended and progressive Huffman, 8-bit; sequential
+// and progressive arithmetic coding (T.81 Annex D's QM decoder, DAC
+// conditioning, as jdarith.c decodes it); 1, 3 or 4 components at sampling
+// factors 1-4; restart intervals; APPn/COM skipped. Lossless (SOF3, 2-8
+// bits, predictors 1-7, point transform, 1x1 sampling) as libjpeg-turbo 3's
+// jdlossls.c undoes it, in the colour spaces that need no conversion there
+// (RGB, CMYK): a lossless grey or YCbCr file has no conversion to BGR in
+// libjpeg-turbo, so cv2 reads nothing, and neither does this decoder.
 // The output follows libjpeg's defaults: JDCT_ISLOW (jidctint.c), fancy
 // (triangular) upsampling at exact 2:1 ratios and replication at the others
 // (jdsample.c), block smoothing of progressive files (jdcoefct.c) and the
@@ -42,6 +48,23 @@ const int kNatural[64 + 16] = {
 struct Error {
   std::string msg;
 };
+
+// T.81 Table D.2 as jaricom.c packs it: (Qe << 16) | (Next_Index_MPS << 8) |
+// (Switch_MPS << 7) | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+const int32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x80b0412, 0x3d80514, 0x1da0617, 0xe50719, 0x6f081c, 0x36091e,
+    0x1a0a21, 0xd0b23, 0x60c09, 0x30d0a, 0x10d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328,
+    0x1182142a, 0xcef152b, 0x9a1162d, 0x72f172e, 0x55c1830, 0x4061931, 0x3031a33, 0x2401b34, 0x1b11c36,
+    0x1441d38, 0xf51e39, 0xb71f3b, 0x8a203c, 0x68213e, 0x4e223f, 0x3b2320, 0x2c0921, 0x5ae125a5, 0x484c2640,
+    0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49, 0xe742e4a, 0xbfb2f4b,
+    0x9f8304d, 0x861314e, 0x706324f, 0x5cd3330, 0x4de3432, 0x40f3532, 0x3633633, 0x2d43734, 0x25c3835,
+    0x1f83936, 0x1a43a37, 0x1603b38, 0x1253c39, 0xf63d3a, 0xcb3e3b, 0xab3f3d, 0x8f203d, 0x5b1241c1,
+    0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857, 0x1aa94957,
+    0x174e4a48, 0x14244b48, 0x119c4c4a, 0xf6b4d4a, 0xd514e4b, 0xbb64f4d, 0xa40304d, 0x583251d0, 0x4d1c5258,
+    0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9,
+    0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
 
 [[noreturn]] void fail(const std::string& m) { throw Error{m}; }
 
@@ -102,7 +125,9 @@ struct Component {
   bool latched = false;
   int coef_bits[64];
   int dc_pred = 0;
+  int dc_ctx = 0;              // arithmetic DC conditioning (F.1.4.4.1.2)
   int td = 0, ta = 0;
+  std::vector<int> lossless;   // lossless: the samples before the point transform is undone
   int16_t* block(int by, int bx) { return &coef[((size_t)by * bw_pad + bx) * 64]; }
 };
 
@@ -171,11 +196,95 @@ int decode_huff(BitReader& br, const HuffTable& t) {
   return 0;
 }
 
+// jdarith.c: the QM decoder over one scan's bytes; a marker met inside the
+// data (legal in arithmetic coding) supplies zeros from then on
+struct ArithDecoder {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = 0;
+  size_t marker_pos = 0;
+
+  int next_byte() {
+    if (marker) return 0;
+    if (pos >= n) {  // libjpeg inserts a fake EOI at the end of the data
+      marker = 0xD9;
+      marker_pos = n;
+      return 0;
+    }
+    int data = d[pos++];
+    if (data != 0xFF) return data;
+    size_t at = pos - 1;
+    do {
+      if (pos >= n) {
+        marker = 0xD9;
+        marker_pos = at;
+        return 0;
+      }
+      at = pos - 1;
+      data = d[pos++];
+    } while (data == 0xFF);
+    if (data == 0) return 0xFF;
+    marker = data;
+    marker_pos = at;
+    return 0;
+  }
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read: a is 0x10000 after the shift
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    const int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Decoder {
   const uint8_t* d;
   size_t n, pos = 0;
   int W = 0, H = 0, ncomp = 0, precision = 8;
-  bool progressive = false, have_frame = false;
+  bool progressive = false, have_frame = false, arith = false, lossless = false;
+  int dac_L[4] = {0, 0, 0, 0}, dac_U[4] = {1, 1, 1, 1}, dac_K[4] = {5, 5, 5, 5};
+  uint8_t dc_stats[4][64], ac_stats[4][256];
+  uint8_t fixed_bin = 113;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int orientation = 0;
@@ -186,6 +295,7 @@ struct Decoder {
   HuffTable dc[4], ac[4];
   std::vector<Component> comps;
   int eobrun = 0;
+  int lossless_al = 0;
 
   Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
 
@@ -241,7 +351,9 @@ struct Decoder {
     W = u16();
     ncomp = u8();
     if (len != 8 + 3 * ncomp) fail("bad SOF length");
-    if (precision != 8) fail(std::to_string(precision) + "-bit JPEG is not supported (8-bit only)");
+    if (marker == 0xC3 && (precision < 2 || precision > 8))
+      fail(std::to_string(precision) + "-bit lossless JPEG is not supported (cv2 reads 2-8 bits)");
+    if (marker != 0xC3 && precision != 8) fail(std::to_string(precision) + "-bit JPEG is not supported (8-bit only)");
     if (H == 0) fail("a height set by a DNL marker is not supported");
     if (W == 0) fail("JPEG of zero width");
     if (ncomp != 1 && ncomp != 3 && ncomp != 4) fail(std::to_string(ncomp) + "-component JPEG is not supported");
@@ -256,7 +368,12 @@ struct Decoder {
       if (c.h < 1 || c.v < 1 || c.h > 4 || c.v > 4) fail("bad sampling factor");
       if (c.tq > 3) fail("bad quantization table index");
     }
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
+    lossless = marker == 0xC3;
+    if (lossless)
+      for (auto& c : comps)
+        if (c.h != 1 || c.v != 1) fail("lossless JPEG with subsampled components is not supported");
     have_frame = true;
     hmax = vmax = 1;
     for (auto& c : comps) {
@@ -275,7 +392,8 @@ struct Decoder {
       c.bh = (c.dh + 7) / 8;
       c.bw_pad = mcux * c.h;  // whole MCUs, as libjpeg's coefficient arrays
       c.bh_pad = mcuy * c.v;
-      c.coef.assign((size_t)c.bw_pad * c.bh_pad * 64, 0);
+      if (lossless) c.lossless.assign((size_t)c.dw * c.dh, 0);
+      else c.coef.assign((size_t)c.bw_pad * c.bh_pad * 64, 0);
       for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
   }
@@ -335,6 +453,13 @@ struct Decoder {
     }
     int Ss = u8(), Se = u8(), A = u8();
     int Ah = A >> 4, Al = A & 15;
+    if (lossless) {
+      if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= precision) fail("bad lossless JPEG scan parameters");
+      for (auto* c : sc)
+        if (!dc[c->td].present) fail("lossless JPEG scan without its Huffman table");
+      decode_lossless_scan(sc, Ss, Al);
+      return;
+    }
     if (!progressive) {
       Ss = 0; Se = 63; Ah = 0; Al = 0;
     } else {
@@ -352,9 +477,21 @@ struct Decoder {
       }
       bool need_dc = !progressive || (Ss == 0 && Ah == 0);
       bool need_ac = !progressive || Ss > 0;
-      if (need_dc && !dc[c->td].present) std_table(dc[c->td], c->td, false);
-      if (need_ac && !ac[c->ta].present) std_table(ac[c->ta], c->ta, true);
-      c->dc_pred = 0;
+      if (arith) {  // jdarith.c start_pass: fresh statistics for the tables this scan codes
+        if (need_dc) {
+          memset(dc_stats[c->td], 0, 64);
+          c->dc_ctx = 0;
+        }
+        if (need_ac) memset(ac_stats[c->ta], 0, 256);
+      } else {
+        if (need_dc && !dc[c->td].present) std_table(dc[c->td], c->td, false);
+        if (need_ac && !ac[c->ta].present) std_table(ac[c->ta], c->ta, true);
+      }
+      if (need_dc || !arith) c->dc_pred = 0;
+    }
+    if (arith) {
+      decode_arith_scan(sc, Ss, Se, Ah, Al);
+      return;
     }
     eobrun = 0;
     BitReader br{d, n, pos};
@@ -395,6 +532,244 @@ struct Decoder {
       }
     }
     pos = br.pos;  // parse() walks on to the next marker
+  }
+
+  void read_dac() {
+    int len = u16() - 2;
+    while (len >= 2) {
+      const int index = u8(), val = u8();
+      len -= 2;
+      if (index < 0 || index >= 32 || (index & 15) > 3) fail("bad DAC table index");
+      const int t = index & 15;
+      if (index >= 16) {
+        if (val < 1 || val > 63) fail("bad DAC value");
+        dac_K[t] = val;
+      } else {
+        dac_L[t] = val & 0x0F;
+        dac_U[t] = val >> 4;
+        if (dac_L[t] > dac_U[t]) fail("bad DAC value");
+      }
+    }
+    if (len != 0) fail("bad DAC length");
+  }
+
+  // the bytes from pos to the next marker and past it when it is RSTn, as
+  // jdmarker.c read_restart_marker does for valid data
+  size_t skip_to_restart(size_t q) {
+    while (q < n) {
+      if (d[q] == 0xFF) {
+        size_t r = q + 1;
+        while (r < n && d[r] == 0xFF) r++;
+        if (r < n && d[r] != 0) return d[r] >= 0xD0 && d[r] <= 0xD7 ? r + 1 : q;
+        q = r + 1;
+      } else {
+        q++;
+      }
+    }
+    return q;
+  }
+
+  // jdarith.c decode_mcu, decode_mcu_DC_first/_AC_first/_DC_refine/_AC_refine
+  int arith_dc_diff(ArithDecoder& ad, int tbl, int& ctx) {
+    uint8_t* st = dc_stats[tbl] + ctx;
+    if (ad.decode(st) == 0) {
+      ctx = 0;
+      return 0;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m) {
+      st = dc_stats[tbl] + 20;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) fail("arithmetic-coded JPEG: bad DC magnitude");
+        st += 1;
+      }
+    }
+    if (m < ((1 << dac_L[tbl]) >> 1)) ctx = 0;
+    else if (m > ((1 << dac_U[tbl]) >> 1)) ctx = 12 + sign * 4;
+    else ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  void arith_ac_first(ArithDecoder& ad, int tbl, int16_t* blk, int Ss, int Se, int Al) {
+    uint8_t* const stats = ac_stats[tbl];
+    for (int k = Ss; k <= Se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ad.decode(st)) break;  // end of block
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > Se) fail("arithmetic-coded JPEG: spectral overflow");
+      }
+      const int sign = ad.decode(&fixed_bin);
+      st += 2;
+      int m = ad.decode(st);
+      if (m && ad.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_K[tbl] ? 189 : 217);
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) fail("arithmetic-coded JPEG: bad AC magnitude");
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ad.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = (int16_t)((unsigned)v << Al);
+    }
+  }
+
+  void arith_ac_refine(ArithDecoder& ad, int tbl, int16_t* blk, int Ss, int Se, int Al) {
+    uint8_t* const stats = ac_stats[tbl];
+    const int p1 = 1 << Al, m1 = -1 * (1 << Al);
+    int kex = Se;
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = Ss; k <= Se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ad.decode(st)) break;  // end of block
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // previously nonzero
+          if (ad.decode(st + 2)) *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+          break;
+        }
+        if (ad.decode(st + 1)) {  // newly nonzero
+          *coef = (int16_t)(ad.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > Se) fail("arithmetic-coded JPEG: spectral overflow");
+      }
+    }
+  }
+
+  void arith_block(ArithDecoder& ad, Component& c, int16_t* blk, int Ss, int Se, int Ah, int Al) {
+    if (!progressive) {
+      c.dc_pred = (c.dc_pred + arith_dc_diff(ad, c.td, c.dc_ctx)) & 0xffff;
+      blk[0] = (int16_t)c.dc_pred;
+      arith_ac_first(ad, c.ta, blk, 1, 63, 0);
+    } else if (Ss == 0) {
+      if (Ah == 0) {
+        c.dc_pred = (c.dc_pred + arith_dc_diff(ad, c.td, c.dc_ctx)) & 0xffff;
+        blk[0] = (int16_t)((unsigned)c.dc_pred << Al);
+      } else if (ad.decode(&fixed_bin)) {
+        blk[0] = (int16_t)(blk[0] | (1 << Al));
+      }
+    } else if (Ah == 0) {
+      arith_ac_first(ad, c.ta, blk, Ss, Se, Al);
+    } else {
+      arith_ac_refine(ad, c.ta, blk, Ss, Se, Al);
+    }
+  }
+
+  void decode_arith_scan(const std::vector<Component*>& sc, int Ss, int Se, int Ah, int Al) {
+    ArithDecoder ad{d, n, pos};
+    const int ns = (int)sc.size();
+    const int mcus_x = ns == 1 ? sc[0]->bw : mcux;
+    const long mcus = ns == 1 ? (long)sc[0]->bw * sc[0]->bh : (long)mcux * mcuy;
+    int restarts_left = restart_interval;
+    const bool need_dc = !progressive || (Ss == 0 && Ah == 0), need_ac = !progressive || Ss > 0;
+    for (long m = 0; m < mcus; m++) {
+      if (restart_interval) {
+        if (restarts_left == 0) {
+          // jdarith.c process_restart
+          if (ad.marker) ad.pos = ad.marker >= 0xD0 && ad.marker <= 0xD7 ? ad.pos : ad.marker_pos;
+          else ad.pos = skip_to_restart(ad.pos);
+          ad.marker = 0;
+          for (auto* c : sc) {
+            if (need_dc) {
+              memset(dc_stats[c->td], 0, 64);
+              c->dc_pred = 0;
+              c->dc_ctx = 0;
+            }
+            if (need_ac) memset(ac_stats[c->ta], 0, 256);
+          }
+          ad.reset();
+          restarts_left = restart_interval;
+        }
+        restarts_left--;
+      }
+      const int my = (int)(m / mcus_x), mx = (int)(m % mcus_x);
+      if (ns == 1) {
+        arith_block(ad, *sc[0], sc[0]->block(my, mx), Ss, Se, Ah, Al);
+      } else {
+        for (auto* c : sc)
+          for (int yy = 0; yy < c->v; yy++)
+            for (int xx = 0; xx < c->h; xx++)
+              arith_block(ad, *c, c->block(my * c->v + yy, mx * c->h + xx), Ss, Se, Ah, Al);
+      }
+    }
+    pos = ad.marker ? ad.marker_pos : ad.pos;  // parse() walks on to the next marker
+  }
+
+  // jdlhuff.c + jdlossls.c: one lossless scan; MCUs of one sample a component
+  void decode_lossless_scan(const std::vector<Component*>& sc, int predictor, int Al) {
+    const int ns = (int)sc.size();
+    const int cols = ns == 1 ? sc[0]->dw : W, rows = ns == 1 ? sc[0]->dh : H;
+    int restart_rows = 0;
+    if (restart_interval) {
+      if (restart_interval % cols) fail("lossless JPEG restart interval that is not whole rows");
+      restart_rows = restart_interval / cols;
+    }
+    BitReader br{d, n, pos};
+    std::vector<int> diff((size_t)ns * cols);
+    for (int y = 0; y < rows; y++) {
+      bool first_row = y == 0;
+      if (restart_rows && y > 0 && y % restart_rows == 0) {
+        br.reset();
+        size_t q = br.pos;
+        while (q < n && d[q] != 0xFF) q++;
+        while (q < n && d[q] == 0xFF) q++;
+        if (q < n && d[q] >= 0xD0 && d[q] <= 0xD7) br.pos = q + 1;
+        else br.pos = q > 0 ? q - 1 : q;
+        first_row = true;
+      }
+      for (int x = 0; x < cols; x++)
+        for (int ci = 0; ci < ns; ci++) {
+          const int s = decode_huff(br, dc[sc[ci]->td]);
+          int v = 0;
+          if (s == 16) v = 32768;
+          else if (s) v = extend(br.get(s), s);
+          diff[(size_t)ci * cols + x] = v;
+        }
+      for (int ci = 0; ci < ns; ci++) {
+        Component& c = *sc[ci];
+        int* row = &c.lossless[(size_t)y * c.dw];
+        const int* prev = y > 0 ? row - c.dw : nullptr;
+        const int* df = &diff[(size_t)ci * cols];
+        for (int x = 0; x < cols; x++) {
+          int pred;
+          if (first_row) {
+            pred = x == 0 ? 1 << (precision - Al - 1) : row[x - 1];
+          } else if (x == 0) {
+            pred = prev[0];
+          } else {
+            const int Ra = row[x - 1], Rb = prev[x], Rc = prev[x - 1];
+            switch (predictor) {
+              case 1: pred = Ra; break;
+              case 2: pred = Rb; break;
+              case 3: pred = Rc; break;
+              case 4: pred = Ra + Rb - Rc; break;
+              case 5: pred = Ra + ((Rb - Rc) >> 1); break;
+              case 6: pred = Rb + ((Ra - Rc) >> 1); break;
+              default: pred = (Ra + Rb) >> 1; break;
+            }
+          }
+          row[x] = (df[x] + pred) & 0xFFFF;
+        }
+      }
+    }
+    lossless_al = Al;
+    pos = br.pos;
   }
 
   void decode_block(BitReader& br, Component& c, int16_t* blk, int Ss, int Se, int Ah, int Al) {
@@ -511,14 +886,13 @@ struct Decoder {
       if (marker == 0xD9) return;  // EOI
       if (marker == 0x00 || (marker >= 0xD0 && marker <= 0xD7)) continue;
       switch (marker) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           read_sof(marker);
           break;
-        case 0xC3: fail("lossless JPEG (SOF3) is not supported");
-        case 0xC5: case 0xC6: case 0xC7: fail("hierarchical JPEG is not supported");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-          fail("arithmetic-coded JPEG is not supported");
-        case 0xCC: fail("arithmetic-coded JPEG (DAC) is not supported");
+        case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF:
+          fail("hierarchical JPEG is not supported");
+        case 0xCB: fail("lossless arithmetic-coded JPEG (SOF11) is not supported");
+        case 0xCC: read_dac(); break;
         case 0xC4: read_dht(); break;
         case 0xDB: read_dqt(); break;
         case 0xDD: {
@@ -905,8 +1279,51 @@ void smooth_idct(Component& c, int total_imcu_rows, uint8_t* plane, int ps) {
   }
 }
 
-void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<uint8_t>& out, int& H, int& W,
+enum { DECODE_BLUE_FIRST = 1, DECODE_AS_IS = 2, DECODE_YCBCR = 4 };
+
+// a lossless image: the samples shifted back by the point transform; 3
+// components only as RGB and 4 only as CMYK, where libjpeg-turbo converts
+// nothing (it has no other conversion in lossless mode)
+void decode_lossless_image(const Decoder& dec, int mode, std::vector<uint8_t>& out) {
+  const size_t npix = (size_t)dec.W * dec.H;
+  const int nc = dec.ncomp, al = dec.lossless_al;
+  auto sample = [&](int ci, size_t i) { return (uint8_t)(dec.comps[ci].lossless[i] << al); };
+  const int ir = (mode & DECODE_BLUE_FIRST) ? 2 : 0, ib = 2 - ir;
+  out.resize(npix * 3);
+  if (nc == 1) fail("lossless grey JPEG: libjpeg-turbo has no lossless grey-to-BGR conversion (cv2 reads nothing)");
+  if (nc == 3) {
+    bool ycc;
+    if (mode & DECODE_YCBCR) ycc = true;
+    else if (mode & DECODE_AS_IS) ycc = false;
+    else if (dec.jfif) ycc = true;
+    else if (dec.adobe) ycc = dec.adobe_transform != 0;
+    else ycc = false;  // jdapimin.c: a lossless file without markers is RGB
+    if (ycc) fail("lossless YCbCr JPEG: libjpeg-turbo has no lossless YCbCr-to-BGR conversion (cv2 reads nothing)");
+    for (size_t i = 0; i < npix; i++) {
+      out[i * 3 + ir] = sample(0, i);
+      out[i * 3 + 1] = sample(1, i);
+      out[i * 3 + ib] = sample(2, i);
+    }
+    return;
+  }
+  if (mode & (DECODE_AS_IS | DECODE_YCBCR)) fail("a 4-component JPEG strip or tile is not read");
+  if (dec.adobe && dec.adobe_transform != 0) fail("lossless YCCK JPEG: libjpeg-turbo has no lossless YCCK conversion");
+  for (size_t i = 0; i < npix; i++) {
+    const int k = sample(3, i);
+    uint8_t* o = &out[i * 3];
+    o[ir] = (uint8_t)(k - ((255 - sample(0, i)) * k >> 8));
+    o[1] = (uint8_t)(k - ((255 - sample(1, i)) * k >> 8));
+    o[ib] = (uint8_t)(k - ((255 - sample(2, i)) * k >> 8));
+  }
+}
+
+// mode: DECODE_BLUE_FIRST for BGR out; DECODE_AS_IS takes 3 components as
+// they are (libtiff's JCS_UNKNOWN for an RGB TIFF), DECODE_YCBCR as YCbCr
+// whatever the markers say (libtiff's JPEGCOLORMODE_RGB for a YCbCr TIFF)
+
+void decode_image(const uint8_t* data, size_t len, int mode, std::vector<uint8_t>& out, int& H, int& W,
                   int& orientation) {
+  const bool blue_first = (mode & DECODE_BLUE_FIRST) != 0;
   Decoder dec(data, len);
   dec.parse();
   if (!dec.have_frame) fail("no frame header (SOF) in JPEG");
@@ -914,6 +1331,10 @@ void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<
   W = dec.W;
   orientation = dec.orientation;
   int nc = dec.ncomp;
+  if (dec.lossless) {
+    decode_lossless_image(dec, mode, out);
+    return;
+  }
   bool smooth = dec.progressive && smoothing_ok(dec);
   std::vector<std::vector<uint8_t>> full(nc);
   for (int ci = 0; ci < nc; ci++) {
@@ -945,6 +1366,7 @@ void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<
     return;
   }
   if (nc == 4) {
+    if (mode & (DECODE_AS_IS | DECODE_YCBCR)) fail("a 4-component JPEG strip or tile is not read");
     // jdapimin.c: Adobe transform 0 is CMYK, any other YCCK, no Adobe marker
     // CMYK; libjpeg gives CMYK (jdcolor.c ycck_cmyk_convert), then OpenCV's
     // icvCvt_CMYK2BGR_8u_C4C3R takes each of C, M, Y to k - ((255 - x) * k >> 8)
@@ -967,7 +1389,9 @@ void decode_image(const uint8_t* data, size_t len, bool blue_first, std::vector<
     return;
   }
   bool rgb = false;
-  if (dec.jfif) rgb = false;
+  if (mode & DECODE_YCBCR) rgb = false;
+  else if (mode & DECODE_AS_IS) rgb = true;
+  else if (dec.jfif) rgb = false;
   else if (dec.adobe) rgb = dec.adobe_transform == 0;
   else rgb = dec.comps[0].id == 82 && dec.comps[1].id == 71 && dec.comps[2].id == 66;
   const uint8_t* y = full[0].data();
@@ -1420,13 +1844,14 @@ void set_err(char* err, int errlen, const std::string& m) {
 extern "C" {
 
 // Decode a JPEG held in memory to interleaved 8-bit samples, RGB or BGR
-// (blue_first). *out is malloc'd; free it with jpg_free.
-int jpg_decode(const uint8_t* data, size_t len, int blue_first, uint8_t** out, int* h, int* w, int* orientation,
+// (mode DECODE_BLUE_FIRST; DECODE_AS_IS and DECODE_YCBCR set the colour
+// space as libtiff sets it). *out is malloc'd; free it with jpg_free.
+int jpg_decode(const uint8_t* data, size_t len, int mode, uint8_t** out, int* h, int* w, int* orientation,
                char* err, int errlen) {
   try {
     std::vector<uint8_t> img;
     int H = 0, W = 0, o = 0;
-    decode_image(data, len, blue_first != 0, img, H, W, o);
+    decode_image(data, len, mode, img, H, W, o);
     uint8_t* buf = (uint8_t*)malloc(img.size() ? img.size() : 1);
     if (!buf) fail("out of memory");
     memcpy(buf, img.data(), img.size());

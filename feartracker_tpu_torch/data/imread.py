@@ -7,7 +7,8 @@ from its name (an ImageNet file named ``.JPEG`` may hold a PNG):
 
 * JPEG (``FF D8 FF``): ``data/jpeg.py`` (libjpeg-turbo 3.1's output,
   including CMYK/YCCK through OpenCV's own CMYK conversion, sampling
-  factors up to 4 and progressive block smoothing);
+  factors up to 4, progressive block smoothing, arithmetic coding and
+  lossless files);
 * PNG (``89 50 4E 47``): chunks and ``zlib`` here, the row filters undone
   in ``csrc/imgcodecs.cpp``; every colour type at bit depths 1-16, palette
   (indices past the palette read black), Adam7; what libpng gives under
@@ -21,12 +22,19 @@ from its name (an ImageNet file named ``.JPEG`` may hold a PNG):
   fourth byte dropped; bottom-up and top-down rows; OS/2 headers;
 * PNM (``P1``-``P6``): OpenCV's decoder (``grfmt_pxm.cpp``): ASCII samples
   scaled as ``v * 255 // maxval``, binary 8-bit samples as they are,
-  samples of a maxval above 255 as ``v >> 8``; P1/P4 1 = black.
+  samples of a maxval above 255 as ``v >> 8``; P1/P4 1 = black;
+* TIFF (``II*\\0``, ``MM\\0*``, BigTIFF): ``data/tiff.py``, libtiff's RGBA
+  reader as OpenCV drives it;
+* GIF (``GIF87a``, ``GIF89a``): ``data/gif.py``, OpenCV's own decoder's
+  first frame;
+* WebP (``RIFF....WEBP``): ``data/webp.py``, libwebp's lossy and lossless
+  decoders as OpenCV calls them.
 
-Anything else raises ``IOError``, naming TIFF, WebP and GIF by their
-signatures. A file a decoder takes but cannot
-read (a refused JPEG mode, a bad CRC, truncated data) raises ``ValueError``
-naming what failed, where ``cv2.imread`` returns None.
+Anything else raises ``IOError``, naming the other formats cv2 reads by
+their signatures (JPEG 2000, AVIF, Radiance HDR, PFM, PAM, Sun raster). A
+file a decoder takes but cannot read (a refused JPEG mode, a bad CRC,
+truncated data) raises ``ValueError`` naming what failed, where
+``cv2.imread`` returns None.
 
 The C++ library builds with g++ at first use, beside the JPEG codec's
 (``data/jpeg.py:build``).
@@ -44,12 +52,13 @@ from typing import Union
 
 import numpy as np
 
-from feartracker_tpu_torch.data import jpeg
+from feartracker_tpu_torch.data import gif, jpeg, tiff, webp
 
 SOURCE = jpeg.PACKAGE_DIR / "csrc" / "imgcodecs.cpp"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # signatures of formats cv2 reads that this module does not, named in the error
-OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
+                 (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"\x59\xa6\x6a\x95", "Sun raster"))
 
 
 @functools.cache
@@ -61,12 +70,21 @@ def load_library() -> ctypes.CDLL:
     lib.bmp_rle.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
     lib.bmp_rle.restype = ctypes.c_int
+    for name in ("tiff_lzw", "tiff_packbits"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                       ctypes.c_int]
+        fn.restype = ctypes.c_int
+    lib.gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
+                            ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int]
+    lib.gif_lzw.restype = ctypes.c_int
     return lib
 
 
 def format_of(data: bytes) -> str:
     """The format cv2 would pick for these leading bytes: "jpeg", "png",
-    "bmp", "pnm", or the name of one this module does not read, or ""."""
+    "bmp", "pnm", "tiff", "gif", "webp", or the name of one this module does
+    not read, or ""."""
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if data[:8] == PNG_SIGNATURE:
@@ -75,8 +93,18 @@ def format_of(data: bytes) -> str:
         return "bmp"
     if len(data) >= 3 and data[:1] == b"P" and data[1:2] in b"123456" and data[2:3].isspace():
         return "pnm"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
+    if tiff.is_tiff(data):
+        return "tiff"
+    if gif.is_gif(data):
+        return "gif"
+    if webp.is_webp(data):
+        return "webp"
+    if data[4:12] in (b"ftypavif", b"ftypavis"):
+        return "AVIF"
+    if len(data) >= 3 and data[:2] in (b"PF", b"Pf") and data[2:3].isspace():
+        return "PFM"
+    if len(data) >= 3 and data[:2] == b"P7" and data[2:3].isspace():
+        return "PAM"
     return next((name for sig, name in OTHER_FORMATS if data.startswith(sig)), "")
 
 
@@ -97,9 +125,15 @@ def imread(src: Union[str, os.PathLike, bytes, bytearray, memoryview]) -> np.nda
         return decode_bmp(data)
     if kind == "pnm":
         return decode_pnm(data)
+    if kind == "tiff":
+        return tiff.decode_tiff(data)
+    if kind == "gif":
+        return gif.decode_gif(data)
+    if kind == "webp":
+        return webp.decode_webp(data)
     if kind:
-        raise IOError(f"{kind} images are not read here (JPEG, PNG, BMP and PNM are)")
-    raise IOError("no JPEG, PNG, BMP or PNM signature: not a format read here")
+        raise IOError(f"{kind} images are not read here (JPEG, PNG, BMP, PNM, TIFF, GIF and WebP are)")
+    raise IOError("no JPEG, PNG, BMP, PNM, TIFF, GIF or WebP signature: not a format read here")
 
 
 # -- PNG ------------------------------------------------------------------------

@@ -113,12 +113,17 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def _decode(data: bytes, blue_first: bool) -> np.ndarray:
+# jpg_decode's mode bits (csrc/jpeg.cpp)
+DECODE_BLUE_FIRST, DECODE_AS_IS, DECODE_YCBCR = 1, 2, 4
+
+
+def _decode(data: bytes, blue_first: bool, mode: int = 0, orient: bool = True) -> np.ndarray:
     lib = load_library()
     out = _U8P()
     h, w, o = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(256)
-    rc = lib.jpg_decode(data, len(data), int(blue_first), ctypes.byref(out), ctypes.byref(h), ctypes.byref(w),
+    mode |= DECODE_BLUE_FIRST if blue_first else 0
+    rc = lib.jpg_decode(data, len(data), mode, ctypes.byref(out), ctypes.byref(h), ctypes.byref(w),
                         ctypes.byref(o), err, len(err))
     if rc != 0:
         raise ValueError(f"cannot decode JPEG: {err.value.decode()}")
@@ -126,7 +131,7 @@ def _decode(data: bytes, blue_first: bool) -> np.ndarray:
         img = np.ctypeslib.as_array(out, shape=(h.value, w.value, 3)).copy()
     finally:
         lib.jpg_free(out)
-    return apply_orientation(img, o.value)
+    return apply_orientation(img, o.value) if orient else img
 
 
 def decode_jpeg(src: Union[bytes, bytearray, memoryview, str, os.PathLike]) -> np.ndarray:
@@ -138,6 +143,14 @@ def decode_jpeg(src: Union[bytes, bytearray, memoryview, str, os.PathLike]) -> n
     else:
         data = bytes(src)
     return _decode(data, blue_first=False)
+
+
+def decode_tiff_jpeg(data: bytes, ycbcr: bool) -> np.ndarray:
+    """One JPEG strip or tile of a TIFF (its JPEGTables already in front)
+    → (h, w, 3) uint8: YCbCr converted to RGB where ``ycbcr`` (libtiff's
+    JPEGCOLORMODE_RGB), else the components as they are (JCS_UNKNOWN); no
+    EXIF orientation."""
+    return _decode(data, False, DECODE_YCBCR if ycbcr else DECODE_AS_IS, orient=False)
 
 
 def _encode(img: np.ndarray, quality: int, blue_first: bool) -> bytes:

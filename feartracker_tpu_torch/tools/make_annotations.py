@@ -37,7 +37,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from feartracker_tpu_torch.data.gif import first_image
 from feartracker_tpu_torch.data.imread import bmp_header, format_of, pnm_header, tiff_orientation
+from feartracker_tpu_torch.data.tiff import tiff_header
+from feartracker_tpu_torch.data.webp import webp_header
 from feartracker_tpu_torch.data.sequence import _read_gt
 
 
@@ -51,9 +54,13 @@ def _near_corner(bbox, shape_wh, margin: int = 2) -> int:
 
 
 def _jpeg_shape(data: bytes) -> Tuple[int, int]:
-    """(W, H) from the first SOFn marker, as displayed: swapped for an EXIF
-    orientation of 5-8 (a transposing rotation or flip)."""
-    pos, orientation = 2, 1
+    """(W, H) from the frame header, as displayed: swapped for an EXIF
+    orientation of 5-8 (a transposing rotation or flip); (0, 0) for the
+    kinds ``cv2.imread`` refuses (hierarchical, lossless arithmetic, 12-bit,
+    2 components, a height set by DNL, lossless grey or YCbCr, lossless
+    above 8 bits), judged from the markers up to the first scan as libjpeg
+    judges them."""
+    pos, orientation, sof, jfif, adobe = 2, 1, None, False, None
     while pos + 4 <= len(data):
         if data[pos] != 0xFF:
             return 0, 0
@@ -64,21 +71,33 @@ def _jpeg_shape(data: bytes) -> Tuple[int, int]:
         if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:  # no length
             pos += 2
             continue
-        if marker in (0xD9, 0xDA):  # end of image, or scan data before any frame header
-            return 0, 0
+        if marker in (0xD9, 0xDA):  # end of image, or the first scan
+            break
         (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
         seg = data[pos + 4:pos + 2 + length]
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            if len(seg) < 5:
+            if sof is not None or len(seg) < 6:
                 return 0, 0
-            h, w = struct.unpack(">HH", seg[1:5])
-            if not (w and h):
-                return 0, 0
-            return (h, w) if orientation in (5, 6, 7, 8) else (w, h)
-        if marker == 0xE1 and seg[:6] == b"Exif\x00\x00" and orientation == 1:
+            sof = (marker,) + struct.unpack(">BHHB", seg[:6])
+        elif marker == 0xE1 and seg[:6] == b"Exif\x00\x00" and orientation == 1:
             orientation = tiff_orientation(seg[6:])
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
         pos += 2 + length
-    return 0, 0
+    if sof is None:
+        return 0, 0
+    marker, precision, h, w, ncomp = sof
+    if not (w and h) or ncomp not in (1, 3, 4) or marker not in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+        return 0, 0
+    if marker == 0xC3:  # lossless: only RGB and CMYK need no conversion in libjpeg-turbo
+        ycc = ncomp == 3 and (jfif or (adobe is not None and adobe != 0))
+        if not 2 <= precision <= 8 or ncomp == 1 or ycc or (ncomp == 4 and adobe not in (None, 0)):
+            return 0, 0
+    elif precision != 8:
+        return 0, 0
+    return (h, w) if orientation in (5, 6, 7, 8) else (w, h)
 
 
 def _png_shape(data: bytes) -> Tuple[int, int]:
@@ -102,9 +121,10 @@ def _png_shape(data: bytes) -> Tuple[int, int]:
 
 def frame_shape(img_path: str) -> Tuple[int, int]:
     """A frame's (W, H) from its header alone: what ``cv2.imread``'s array
-    gives for a JPEG, PNG, BMP or PNM file (picked by signature, as cv2
-    picks its decoder), the array's for an ``.npy`` file; ``(0, 0)`` where
-    none of these reads the header."""
+    gives for a JPEG, PNG, BMP, PNM, TIFF, GIF or WebP file (picked by
+    signature, as cv2 picks its decoder; after the orientation cv2 applies),
+    the array's for an ``.npy`` file; ``(0, 0)`` where none of these reads
+    the header or the reader refuses what it names."""
     try:
         with open(img_path, "rb") as fh:
             head = fh.read(16)
@@ -122,6 +142,15 @@ def frame_shape(img_path: str) -> Tuple[int, int]:
             if kind == "pnm":
                 hd = pnm_header(head + fh.read())
                 return hd["width"], hd["height"]
+            if kind == "tiff":  # orientations 5-8 raise: cv2.imread reads nothing there
+                hd = tiff_header(head + fh.read())
+                return hd["width"], hd["height"]
+            if kind == "gif":
+                hd = first_image(head + fh.read())
+                return hd["width"], hd["height"]
+            if kind == "webp":
+                hd = webp_header(head + fh.read())
+                return (hd["height"], hd["width"]) if hd["orientation"] in (5, 6, 7, 8) else (hd["width"], hd["height"])
     except (OSError, ValueError):
         pass
     return 0, 0

@@ -450,7 +450,9 @@ _HEADER_GLYPHS = {
     'b': (8, -11, 1, 12, 8, "854c000000000000e087000000000000e087000000000000e08f8ad5d17d0200e0fbb15b89fd8200e0ce03000095f002e08e00000053ff1de0890000004cff23e0bd0000007cfa05e0ff78204cf0a400d893c8fefdb81400000000100c000000"),
     'c': (8, -8, 0, 9, 8, "00027ac3e1b73a000094f28c58baf93107f69100000dcb7435ff4200000000003bff3900000000000efb7c0000028f5800b7df501d86ff53000eb2f6fff07700000000051c040000"),
     'e': (8, -8, 0, 9, 8, "000071c2d89820000084ee5e43b3d71105f367000009ef6537ff90727272e1993cffaa959595955f04e55c00000009030086e02e0865fb5200127edefdec70000000000219010000"),
+    'f': (5, -12, 0, 12, 6, "000000000f09000050e1ffa90001edad2a0f0018ff4d00008acfffd7c863457aff916930001dff430000001dff430000001dff430000001dff430000001dff4300000018fc3c0000"),
     'h': (9, -11, 1, 11, 8, "8551000000000000e08f000000000000e08f000000000000e09386d2cf800200e0f9bc62a1fa8400e0e6030000b2e000e09a0000006cff0de08f00000061ff12e08f00000061ff12e08f00000061ff12d8870000005afb0e"),
+    'i': (3, -11, 0, 11, 3, "01b46b01bb7000000000aa5b00e38000e38000e38000e38000e38000e38000dc77"),
     'n': (9, -8, 1, 8, 8, "aa5f8ad3cd7c0100e3f7b861a4fc7a00e3e0010000b8d500e39300000070fd04e38700000065ff07e38700000065ff07e38700000065ff07dc7f0000005ef905"),
     'o': (8, -8, 0, 9, 8, "000173bfdda53400008cf28a59bbef2d06f590000009f28d32ff40000000abc638ff36000000a2cc0dfb7c000002e59d00b4e04f1e87fd4a000daff4ffde63000000000415000000"),
     'r': (5, -8, 1, 8, 5, "aa6087c05de3f7cc873be3ce000000e38b000000e387000000e387000000e387000000dc7f000000"),
@@ -475,8 +477,8 @@ _HEADER_GLYPHS = {
 def put_header_text(img: np.ndarray, text: str, org: Tuple[int, int]) -> None:
     """``cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255,
     255, 255), 1)`` in place, for the characters a mosaic header prints
-    (``batch score`` and a number): each glyph's alpha composited "over"
-    the image in white at its advance."""
+    (``batch score`` and a number, ``nan``, ``inf`` or ``-inf`` included):
+    each glyph's alpha composited "over" the image in white at its advance."""
     x0, base = int(org[0]), int(org[1])
     h, w = img.shape[:2]
     x = x0

@@ -271,22 +271,30 @@ def _huffman_codes(bits, vals):
     return out
 
 
+def _dct_coefs(planes, sampling, precision=8):
+    """The size, MCU counts and quantized coefficients (blocks of 8x8,
+    natural order) of ``planes`` at ``sampling``, the standard luma table for
+    every component; a float DCT."""
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    H, W = next(p.shape for p, s in zip(planes, sampling) if s == (hmax, vmax))
+    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    coefs = []
+    for p, (h, v) in zip(planes, sampling):
+        pad = np.pad(p.astype(np.float64), ((0, mcuy * v * 8 - p.shape[0]), (0, mcux * h * 8 - p.shape[1])),
+                     mode="edge") - (1 << (precision - 1))
+        blocks = pad.reshape(mcuy * v, 8, mcux * h, 8).transpose(0, 2, 1, 3)
+        coefs.append(np.round(np.einsum("ux,abxy,vy->abuv", _DCT, blocks, _DCT) / STD_LUMA_Q.reshape(8, 8)).astype(int))
+    return H, W, mcux, mcuy, coefs
+
+
 def jpeg_baseline(planes, sampling, adobe=None, jfif=False):
     """A baseline JPEG of ``planes`` (one uint8 plane a component, each at
     its own sampling) with sampling factors ``sampling`` [(h, v), ...]: one
     interleaved scan, the standard luma quantization and Huffman tables for
     every component, an optional JFIF APP0 and Adobe APP14 (``adobe`` = its
     transform). A float DCT: the oracle is cv2's decode, not this writer."""
-    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
-    H, W = next(p.shape for p, s in zip(planes, sampling) if s == (hmax, vmax))
-    mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    H, W, mcux, mcuy, coefs = _dct_coefs(planes, sampling)
     dc, ac = _huffman_codes(DC_BITS, range(12)), _huffman_codes(AC_BITS, AC_VALS)
-    coefs = []
-    for p, (h, v) in zip(planes, sampling):
-        pad = np.pad(p.astype(np.float64), ((0, mcuy * v * 8 - p.shape[0]), (0, mcux * h * 8 - p.shape[1])),
-                     mode="edge") - 128
-        blocks = pad.reshape(mcuy * v, 8, mcux * h, 8).transpose(0, 2, 1, 3)
-        coefs.append(np.round(np.einsum("ux,abxy,vy->abuv", _DCT, blocks, _DCT) / STD_LUMA_Q.reshape(8, 8)).astype(int))
     bits, preds = [], [0] * len(planes)
 
     def put(code, n):
@@ -372,6 +380,897 @@ def keep_scans(data, keep):
             out.append(data[pos:end])
         pos = end
     return b"".join(out)
+
+
+# -- TIFF ---------------------------------------------------------------------------
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes as (257 - n, byte), the rest as
+    literals of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        r = 1
+        while i + r < n and r < 128 and data[i + r] == data[i]:
+            r += 1
+        if r >= 2:
+            out += bytes([257 - r, data[i]])
+            i += r
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and data[j] == data[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF's LZW as libtiff writes it: MSB first, Clear 256, EOI 257, the
+    width growing when the next code needs it, a Clear at code 4094."""
+    bits, nbits, width = 0, 0, 9
+    out = bytearray()
+
+    def emit(code):
+        nonlocal bits, nbits
+        bits = bits << width | code
+        nbits += width
+        while nbits >= 8:
+            nbits -= 8
+            out.append(bits >> nbits & 255)
+        bits &= (1 << nbits) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    emit(256)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:  # full: libtiff's encoder clears here
+            emit(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt == 1 << width:
+            width += 1
+        w = bytes([c])
+    if w:
+        emit(table[w])
+        nxt += 1
+        if nxt == 4094:
+            emit(256)
+            width = 9
+        elif nxt == 1 << width:
+            width += 1
+    emit(257)
+    if nbits:
+        out.append(bits << (8 - nbits) & 255)
+    return bytes(out)
+
+
+def _tiff_segments(samples, bits, planar, rows, tile, predictor, end):
+    """The raw bytes of each strip (``rows`` a strip) or tile (``tile`` =
+    (height, width)), plane-major where ``planar`` is 2, with predictor 2's
+    horizontal differences taken."""
+    H, W, C = samples.shape
+    planes = [samples[..., c:c + 1] for c in range(C)] if planar == 2 else [samples]
+    segs = []
+    for p in planes:
+        if tile:
+            th, tw = tile
+            pad = np.zeros((-(-H // th) * th, -(-W // tw) * tw, p.shape[2]), p.dtype)
+            pad[:H, :W] = p
+            blocks = [pad[y:y + th, x:x + tw] for y in range(0, H, th) for x in range(0, W, tw)]
+        else:
+            blocks = [p[y:y + rows] for y in range(0, H, rows)]
+        for b in blocks:
+            h, w, c = b.shape
+            v = b.reshape(h, w * c).astype(np.int64)
+            if predictor == 2:
+                d = v.copy()
+                d[:, c:] = v[:, c:] - v[:, :-c]
+                v = d & (2 ** bits - 1)
+            if bits == 16:
+                segs.append(v.astype(end + "u2").tobytes())
+            else:
+                segs.append(_pack_rows(v, bits).tobytes())
+    return segs
+
+
+def tiff(samples, bits=8, photometric=2, compression=1, predictor=1, planar=1, rows=None, tile=None, extra=None,
+         colormap=None, orientation=None, bigtiff=False, big_endian=False, tags=(), segments=None, jpeg_tables=None):
+    """A TIFF of ``samples`` ((H, W) or (H, W, C) integers below 2**bits),
+    one IFD: strips of ``rows`` rows or tiles of ``tile`` = (h, w), planar
+    configuration 1 or 2, compression 1 (none), 5 (LZW), 8 / 32946
+    (Deflate) or 32773 (PackBits), predictor 1 or 2, ExtraSamples ``extra``,
+    a palette ``colormap`` ((2**bits, 3) 16-bit values), the Orientation
+    tag, classic or BigTIFF, either byte order; ``tags`` adds (tag, type,
+    values) entries. ``segments`` (compressed strips or tiles) and
+    ``jpeg_tables`` replace the samples' own for JPEG (compression 7)."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    H, W, C = samples.shape
+    end = ">" if big_endian else "<"
+    rows = rows or H
+    if segments is None:
+        raw = _tiff_segments(samples, bits, planar, rows, tile, predictor, end)
+        enc = {1: lambda b: b, 5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress, 32773: packbits}[compression]
+        segments = [enc(s) for s in raw]
+    off_type = 16 if bigtiff else 4
+    entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bits] * C), (259, 3, [compression]), (262, 3, [photometric]),
+               (277, 3, [C]), (284, 3, [planar])]
+    if tile:
+        entries += [(322, 4, [tile[1]]), (323, 4, [tile[0]]), (324, off_type, None), (325, 4, [len(s) for s in segments])]
+    else:
+        entries += [(273, off_type, None), (278, 4, [rows]), (279, 4, [len(s) for s in segments])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if extra is not None:
+        entries.append((338, 3, list(extra)))
+    if colormap is not None:
+        entries.append((320, 3, list(np.asarray(colormap).T.reshape(-1))))
+    if orientation is not None:
+        entries.append((274, 3, [orientation]))
+    if jpeg_tables is not None:
+        entries.append((347, 7, jpeg_tables))
+    entries += list(tags)
+    head = 16 if bigtiff else 8
+    data = bytearray()
+    offsets = []
+    for s in segments:
+        offsets.append(head + len(data))
+        data += s + b"\0" * (len(s) & 1)
+    ifd_at = head + len(data)
+    entries = sorted((t, ty, offsets if v is None else v) for t, ty, v in entries)
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 7: 1, 16: 8}
+    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}
+    inline = 8 if bigtiff else 4
+    n = len(entries)
+    after = ifd_at + (8 + 20 * n + 8 if bigtiff else 2 + 12 * n + 4)
+    ifd, extra_data = bytearray(), bytearray()
+    ifd += struct.pack(end + ("Q" if bigtiff else "H"), n)
+    for t, ty, v in entries:
+        payload = bytes(v) if ty in (2, 7) and isinstance(v, (bytes, bytearray)) else b"".join(
+            struct.pack(end + fmt[ty], x) for x in v)
+        count = len(payload) // size[ty]
+        if len(payload) <= inline:
+            field = payload.ljust(inline, b"\0")
+        else:
+            field = struct.pack(end + ("Q" if bigtiff else "I"), after + len(extra_data))
+            extra_data += payload + b"\0" * (len(payload) & 1)
+        ifd += struct.pack(end + ("HHQ" if bigtiff else "HHI"), t, ty, count) + field
+    ifd += b"\0" * (8 if bigtiff else 4)
+    order = b"MM" if big_endian else b"II"
+    header = order + (struct.pack(end + "HHHQ", 43, 8, 0, ifd_at) if bigtiff else struct.pack(end + "HI", 42, ifd_at))
+    return bytes(header + data + ifd + extra_data)
+
+
+def jpeg_segments(data: bytes):
+    """A JPEG split at its first SOF or SOS-preceding table run: (tables,
+    image) where tables = SOI + every DQT/DHT + EOI (TIFF's JPEGTables) and
+    image = SOI + the rest without those tables (an abbreviated stream)."""
+    pos, tables, rest = 2, [], []
+    while pos < len(data):
+        marker = data[pos + 1]
+        if marker == 0xDA:
+            rest.append(data[pos:])
+            break
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        seg = data[pos:pos + 2 + length]
+        (tables if marker in (0xDB, 0xC4) else rest).append(seg)
+        pos += 2 + length
+    return b"\xff\xd8" + b"".join(tables) + b"\xff\xd9", b"\xff\xd8" + b"".join(rest)
+
+
+# -- GIF ----------------------------------------------------------------------------
+
+def gif_lzw(indices, min_size: int) -> bytes:
+    """GIF's LZW as giflib writes it: LSB first, a Clear first and before
+    the table fills, the width growing after the code that fills it; in
+    sub-blocks of up to 255 bytes after the minimum code size byte."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    width, nxt = min_size + 1, eoi + 1
+    bits, nbits, out = 0, 0, bytearray()
+
+    def emit(code):
+        nonlocal bits, nbits, width
+        bits |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(bits & 255)
+            bits >>= 8
+            nbits -= 8
+        if nxt >= 1 << width and width < 12:
+            width += 1
+
+    data = bytes(np.asarray(indices, np.uint8).reshape(-1))
+    table = {bytes([i]): i for i in range(clear)}
+    emit(clear)
+    w = data[:1]
+    for c in data[1:]:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        if nxt >= 4094:
+            emit(clear)
+            table = {bytes([i]): i for i in range(clear)}
+            width, nxt = min_size + 1, eoi + 1
+        else:
+            table[wc] = nxt
+            nxt += 1
+        w = bytes([c])
+    if w:
+        emit(table[w])
+    emit(eoi)
+    if nbits:
+        out.append(bits & 255)
+    blocks = b"".join(bytes([len(out[i:i + 255])]) + bytes(out[i:i + 255]) for i in range(0, len(out), 255))
+    return bytes([min_size]) + blocks + b"\0"
+
+
+def gif(frames, screen, palette=None, background=0, version=b"GIF89a"):
+    """A GIF of ``screen`` = (W, H) with a global ``palette`` ((n, 3), n a
+    power of two) or none and ``frames``: dicts of ``indices`` (h, w),
+    optional ``left``, ``top``, local ``palette``, ``interlace``,
+    ``transparent`` index, ``disposal`` and LZW ``min_size``."""
+    W, H = screen
+    out = bytearray(version + struct.pack("<HH", W, H))
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)
+        size = int(np.log2(len(pal))) - 1
+        out += bytes([0x80 | 0x70 | size, background, 0]) + pal.tobytes()
+    else:
+        out += bytes([0x70, background, 0])
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        h, w = idx.shape
+        if f.get("transparent") is not None or f.get("disposal"):
+            t = f.get("transparent")
+            out += bytes([0x21, 0xF9, 4, (f.get("disposal", 0) << 2) | (t is not None), 10, 0, t or 0, 0])
+        flags = 0x40 if f.get("interlace") else 0
+        local = f.get("palette")
+        if local is not None:
+            local = np.asarray(local, np.uint8)
+            flags |= 0x80 | (int(np.log2(len(local))) - 1)
+        out += b"\x2c" + struct.pack("<HHHH", f.get("left", 0), f.get("top", 0), w, h) + bytes([flags])
+        if local is not None:
+            out += local.tobytes()
+        if f.get("interlace"):
+            idx = np.concatenate([idx[0::8], idx[4::8], idx[2::4], idx[1::2]])
+        min_size = f.get("min_size", max(2, int(np.ceil(np.log2(max(2, int(idx.max()) + 1))))))
+        out += gif_lzw(idx, min_size)
+    return bytes(out + b"\x3b")
+
+
+# -- WebP ---------------------------------------------------------------------------
+
+def webp_chunk(kind: bytes, payload: bytes) -> bytes:
+    return kind + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def webp_riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_bitstream(data: bytes):
+    """The (fourcc, payload) of a simple WebP file's VP8 or VP8L chunk."""
+    pos = 12
+    while pos + 8 <= len(data):
+        kind, (size,) = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])
+        if kind in (b"VP8 ", b"VP8L"):
+            return kind, data[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    raise ValueError("no bitstream")
+
+
+def webp_extended(size, chunks, flags=0) -> bytes:
+    """A VP8X file of canvas ``size`` = (W, H) holding ``chunks``."""
+    w, h = size
+    vp8x = bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+    return webp_riff([webp_chunk(b"VP8X", vp8x)] + list(chunks))
+
+
+def webp_animation(size, frames, background=(0, 0, 0, 0)) -> bytes:
+    """An animated WebP: ``frames`` of (x, y, w, h, bitstream chunk, flags)
+    with even offsets."""
+    anim = webp_chunk(b"ANIM", bytes(background) + struct.pack("<H", 0))
+    anmf = [webp_chunk(b"ANMF", (x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+                       + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little") + (100).to_bytes(3, "little")
+                       + bytes([flags]) + chunk) for x, y, w, h, chunk, flags in frames]
+    return webp_extended(size, [anim] + anmf, flags=0x02 | 0x10)
+
+
+def _c_table(name: str):
+    """One of ``csrc/webp.cpp``'s RFC 6386 tables, as a list of ints."""
+    import re
+
+    src = open(os.path.join(REPO, "feartracker_tpu_torch", "csrc", "webp.cpp")).read()
+    body = re.search(name + r"\[[^\]]*\] = \{([^}]*)\}", src).group(1)
+    return [int(v) for v in re.findall(r"\d+", body)]
+
+
+class _BoolDecoder:
+    """RFC 6386's boolean decoder, recording each decision as (prob, bit)."""
+
+    def __init__(self, data: bytes):
+        self.d, self.pos, self.value, self.range, self.count = data, 2, (data[0] << 8) | data[1], 255, 0
+        self.decisions = []
+
+    def bit(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        big = split << 8
+        if self.value >= big:
+            b, self.range, self.value = 1, self.range - split, self.value - big
+        else:
+            b, self.range = 0, split
+        while self.range < 128:
+            self.value <<= 1
+            self.range <<= 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.d[self.pos] if self.pos < len(self.d) else 0
+                self.pos += 1
+        self.decisions.append((prob, b))
+        return b
+
+    def value_bits(self, n: int) -> int:
+        return sum(self.bit(128) << i for i in range(n - 1, -1, -1))
+
+
+def _bool_encode(decisions) -> bytes:
+    """RFC 6386's boolean encoder over (prob, bit) decisions, flushed."""
+    out, rng, bottom, count = bytearray(), 255, 0, 24
+
+    def carry():
+        i = len(out) - 1
+        while i >= 0 and out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+
+    for prob, b in decisions:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if b:
+            bottom, rng = bottom + split, rng - split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                carry()
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if count == 0:
+                out.append(bottom >> 24)
+                bottom &= (1 << 24) - 1
+                count = 8
+    if bottom & (1 << (32 - count)):
+        carry()
+    v = (bottom << (count & 7)) & 0xFFFFFFFF
+    for _ in range(count >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _bits(n: int, v: int):
+    return [(128, (v >> i) & 1) for i in range(n - 1, -1, -1)]
+
+
+def _signed(n: int, v: int):
+    return _bits(n, abs(v)) + [(128, int(v < 0))]
+
+
+def vp8_reheader(frame: bytes, simple=None, level=None, sharpness=None, lf_deltas=None, segment_deltas=None) -> bytes:
+    """A VP8 key frame with its loop-filter header (``simple``, ``level``,
+    ``sharpness``, ``lf_deltas`` = (ref_lf_delta[0..3], mode_lf_delta[0..3])
+    or None) or its segment data (``segment_deltas`` = (absolute, 4
+    quantizers, 4 filter strengths)) replaced: partition 0 decoded decision
+    by decision, those fields' decisions swapped, every other decision
+    re-encoded as it was; the token partitions untouched. The paths
+    libwebp's encoder never writes, for the decoder's tests."""
+    bits = frame[0] | frame[1] << 8 | frame[2] << 16
+    size0 = bits >> 5
+    head, p0, rest = frame[:10], frame[10:10 + size0], frame[10 + size0:]
+    br = _BoolDecoder(p0)
+    br.value_bits(2)  # colour space, clamping
+    seg_at = len(br.decisions)
+    use_segment, update_map = br.value_bits(1), 0
+    seg_fields = None
+    if use_segment:
+        update_map = br.value_bits(1)
+        if br.value_bits(1):
+            absolute = br.value_bits(1)
+            q = [(br.value_bits(7) * (-1 if br.value_bits(1) else 1)) if br.value_bits(1) else 0 for _ in range(4)]
+            f = [(br.value_bits(6) * (-1 if br.value_bits(1) else 1)) if br.value_bits(1) else 0 for _ in range(4)]
+            seg_fields = (absolute, q, f)
+        seg_data_end = len(br.decisions)
+        seg_probs = [br.value_bits(8) if br.value_bits(1) else 255 for _ in range(3)] if update_map else [255] * 3
+    else:
+        seg_data_end, seg_probs = len(br.decisions), [255] * 3
+    filt_at = len(br.decisions)
+    old = [br.value_bits(1), br.value_bits(6), br.value_bits(3)]
+    use_delta = br.value_bits(1)
+    if use_delta and br.value_bits(1):
+        for _ in range(8):
+            if br.value_bits(1):
+                br.value_bits(7)
+    filt_end = len(br.decisions)
+    br.value_bits(2)  # partitions
+    br.value_bits(7)
+    for _ in range(5):
+        if br.value_bits(1):
+            br.value_bits(5)
+    br.value_bits(1)  # refresh entropy probabilities
+    update = _c_table("kCoeffsUpdateProba")
+    for p in update:
+        if br.bit(p):
+            br.value_bits(8)
+    use_skip = br.value_bits(1)
+    skip_p = br.value_bits(8) if use_skip else 0
+    bmodes = _c_table("kBModesProba")
+    w, h = (head[6] | head[7] << 8) & 0x3FFF, (head[8] | head[9] << 8) & 0x3FFF
+    mbw, mbh = (w + 15) >> 4, (h + 15) >> 4
+    intra_t = [0] * (4 * mbw)
+    for _ in range(mbh):
+        intra_l = [0] * 4
+        for mx in range(mbw):
+            if update_map:
+                if not br.bit(seg_probs[0]):
+                    br.bit(seg_probs[1])
+                else:
+                    br.bit(seg_probs[2])
+            if use_skip:
+                br.bit(skip_p)
+            top = intra_t[4 * mx:4 * mx + 4]
+            if br.bit(145):  # 16x16
+                ymode = (1 if br.bit(128) else 3) if br.bit(156) else (2 if br.bit(163) else 0)
+                top, intra_l = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    ymode = intra_l[y]
+                    for x in range(4):
+                        p = bmodes[(top[x] * 10 + ymode) * 9:(top[x] * 10 + ymode) * 9 + 9]
+                        if not br.bit(p[0]):
+                            ymode = 0
+                        elif not br.bit(p[1]):
+                            ymode = 1
+                        elif not br.bit(p[2]):
+                            ymode = 2
+                        elif not br.bit(p[3]):
+                            ymode = 3 if not br.bit(p[4]) else (4 if not br.bit(p[5]) else 5)
+                        else:
+                            ymode = 6 if not br.bit(p[6]) else (7 if not br.bit(p[7]) else (8 if not br.bit(p[8]) else 9))
+                        top[x] = ymode
+                    intra_l[y] = ymode
+            intra_t[4 * mx:4 * mx + 4] = top
+            if br.bit(142) and br.bit(114):
+                br.bit(183)
+    dec = br.decisions
+    filt = (_bits(1, old[0] if simple is None else simple) + _bits(6, old[1] if level is None else level)
+            + _bits(3, old[2] if sharpness is None else sharpness))
+    if lf_deltas is None:
+        filt += dec[filt_at + 10:filt_end]
+    else:
+        filt += _bits(1, 1) + _bits(1, 1)
+        for v in list(lf_deltas[0]) + list(lf_deltas[1]):
+            filt += _bits(1, 1) + _signed(6, v)
+    seg = dec[seg_at:seg_data_end]
+    if segment_deltas is not None:
+        assert use_segment, "a frame without segments"
+        absolute, q, f = segment_deltas
+        seg = _bits(1, 1) + _bits(1, update_map) + _bits(1, 1) + _bits(1, absolute)
+        seg += [d for v in q for d in _bits(1, 1) + _signed(7, v)] + [d for v in f for d in _bits(1, 1) + _signed(6, v)]
+    new = dec[:seg_at] + seg + dec[seg_data_end:filt_at] + filt + dec[filt_end:]
+    p0 = _bool_encode(new)
+    tag = (bits & 0x1F) | (len(p0) << 5)
+    return bytes([tag & 255, tag >> 8 & 255, tag >> 16]) + head[3:] + p0 + rest
+
+
+# -- JPEG modes beyond baseline and progressive Huffman -------------------------------
+
+def _jseg(marker, body):
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _stuff(bits):
+    bits = list(bits) + [1] * (-len(bits) % 8)
+    return np.packbits(np.array(bits, np.uint8)).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def jpeg_lossless(planes, predictor=1, pt=0, precision=8, restart=0, jfif=False, ids=None):
+    """A lossless JPEG (SOF3, T.81 Annex H) of ``planes`` (one (H, W)
+    integer plane a component, all the same size): one interleaved scan with
+    selection value ``predictor`` (1-7) and point transform ``pt``, a DC-style
+    Huffman table of 17 categories at 5 bits each, restart markers every
+    ``restart`` rows' worth of samples."""
+    planes = [np.asarray(p, np.int64) >> pt for p in planes]
+    H, W = planes[0].shape
+    n = len(planes)
+    lengths = [0] * 16
+    lengths[4] = 17  # 5-bit codes for SSSS 0-16
+    codes = _huffman_codes(lengths, range(17))
+    bits, chunks = [], []
+    mcus = W * restart if restart else 0
+    count = 0
+    for y in range(H):
+        for x in range(W):
+            if restart and count and count % mcus == 0:
+                chunks.append(_stuff(bits) + bytes([0xFF, 0xD0 + (count // mcus - 1) % 8]))
+                bits = []
+            first_row = restart and (count // mcus) * mcus // W == y if restart else y == 0
+            for c in range(n):
+                p = planes[c]
+                if first_row and x == 0:
+                    pred = 1 << (precision - pt - 1)
+                elif first_row:
+                    pred = p[y, x - 1]
+                elif x == 0:
+                    pred = p[y - 1, x]
+                else:
+                    ra, rb, rc = p[y, x - 1], p[y - 1, x], p[y - 1, x - 1]
+                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                            7: (ra + rb) >> 1}[predictor]
+                diff = int(p[y, x] - pred) & 0xFFFF
+                if diff >= 0x8000:
+                    diff -= 0x10000
+                s = 16 if diff == -0x8000 else abs(diff).bit_length()
+                code, length = codes[s]
+                bits.extend((code >> i) & 1 for i in range(length - 1, -1, -1))
+                if 0 < s < 16:
+                    v = diff if diff >= 0 else diff - 1 + (1 << s)
+                    bits.extend((v >> i) & 1 for i in range(s - 1, -1, -1))
+            count += 1
+    chunks.append(_stuff(bits))
+    out = b"\xff\xd8" + (_jseg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0") if jfif else b"")
+    ids = ids or list(range(1, n + 1))
+    out += _jseg(0xC3, struct.pack(">BHHB", precision, H, W, n) + b"".join(bytes([i, 0x11, 0]) for i in ids))
+    out += _jseg(0xC4, b"\x00" + bytes(lengths) + bytes(range(17)))
+    if restart:
+        out += _jseg(0xDD, struct.pack(">H", mcus))
+    out += _jseg(0xDA, bytes([n]) + b"".join(bytes([i, 0]) for i in ids) + bytes([predictor, 0, pt]))
+    return out + b"".join(chunks) + b"\xff\xd9"
+
+
+# T.81 Table D.2 as libjpeg packs it: (Qe << 16) | (Next_Index_MPS << 8) | (Switch_MPS << 7) | Next_Index_LPS
+ARITAB = (0x5a1d0181, 0x2586020e, 0x11140310, 0x80b0412, 0x3d80514, 0x1da0617, 0xe50719, 0x6f081c, 0x36091e, 0x1a0a21,
+          0xd0b23, 0x60c09, 0x30d0a, 0x10d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a,
+          0xcef152b, 0x9a1162d, 0x72f172e, 0x55c1830, 0x4061931, 0x3031a33, 0x2401b34, 0x1b11c36, 0x1441d38, 0xf51e39,
+          0xb71f3b, 0x8a203c, 0x68213e, 0x4e223f, 0x3b2320, 0x2c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843,
+          0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49, 0xe742e4a, 0xbfb2f4b, 0x9f8304d, 0x861314e,
+          0x706324f, 0x5cd3330, 0x4de3432, 0x40f3532, 0x3633633, 0x2d43734, 0x25c3835, 0x1f83936, 0x1a43a37,
+          0x1603b38, 0x1253c39, 0xf63d3a, 0xcb3e3b, 0xab3f3d, 0x8f203d, 0x5b1241c1, 0x4d044250, 0x412c4351,
+          0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a,
+          0xf6b4d4a, 0xd514e4b, 0xbb64f4d, 0xa40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a, 0x34ee555b,
+          0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63,
+          0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a,
+          0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+          0x59eb6ff0, 0x5a1d7171)
+
+
+class QMEncoder:
+    """T.81 Annex D's arithmetic encoder, as libjpeg's jcarith.c codes it
+    (carry propagation through stacked 0xFF bytes, stuffing, the final
+    flush)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b):
+        self.out.append(b)
+
+    def _flush_zeros(self):
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, st, i, val):
+        """Code ``val`` with the statistics bin ``st[i]`` (adapted in place)."""
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._flush_zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._release()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def _release(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._flush_zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._flush_zeros()
+            for _ in range(self.sc):
+                self._emit(0xFF)
+                self._emit(0)
+            self.sc = 0
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._release()
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if (self.c >> 19) & 0xFF == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if (self.c >> 11) & 0xFF == 0xFF:
+                    self._emit(0)
+        return bytes(self.out)
+
+
+def _arith_dc(enc, stats, ctx, ci, diff, L, U):
+    """F.1.4.1: one DC difference; updates ctx[ci]."""
+    st, s0 = stats, ctx[ci]
+    if diff == 0:
+        enc.encode(st, s0, 0)
+        ctx[ci] = 0
+        return
+    enc.encode(st, s0, 1)
+    if diff > 0:
+        enc.encode(st, s0 + 1, 0)
+        i, ctx[ci] = s0 + 2, 4
+    else:
+        diff = -diff
+        enc.encode(st, s0 + 1, 1)
+        i, ctx[ci] = s0 + 3, 8
+    m, v = 0, diff - 1
+    if v:
+        enc.encode(st, i, 1)
+        m, v2, i = 1, v, 20
+        while v2 >> 1:
+            v2 >>= 1
+            enc.encode(st, i, 1)
+            m <<= 1
+            i += 1
+    enc.encode(st, i, 0)
+    if m < (1 << L) >> 1:
+        ctx[ci] = 0
+    elif m > (1 << U) >> 1:
+        ctx[ci] += 8
+    i += 14
+    while m > 1:
+        m >>= 1
+        enc.encode(st, i, int(bool(m & v)))
+
+
+def _arith_magnitude(enc, st, i, v, k, K, fixed):
+    """F.1.4.2's magnitude category and bits of an AC value v >= 1 at bin i."""
+    m, v = 0, v - 1
+    if v:
+        enc.encode(st, i, 1)
+        m, v2 = 1, v
+        if v2 >> 1:
+            v2 >>= 1
+            enc.encode(st, i, 1)
+            m <<= 1
+            i = 189 if k <= K else 217
+            while v2 >> 1:
+                v2 >>= 1
+                enc.encode(st, i, 1)
+                m <<= 1
+                i += 1
+    enc.encode(st, i, 0)
+    i += 14
+    while m > 1:
+        m >>= 1
+        enc.encode(st, i, int(bool(m & v)))
+
+
+def _pt(v, al):
+    """A coefficient's point transform: |v| >> al, the sign kept."""
+    return (v >> al) if v >= 0 else -((-v) >> al)
+
+
+def jpeg_arithmetic(planes, sampling, scans=None, restart=0, dac=None, jfif=True):
+    """An arithmetic-coded JPEG (T.81 Annex D and F, G): SOF9 with one
+    interleaved scan, or SOF10 with ``scans`` = [(component indices, Ss, Se,
+    Ah, Al), ...]; a DAC segment from ``dac`` = (L, U, Kx) (T.81's defaults
+    0, 1, 5 when None); restart markers every ``restart`` MCUs; the bins
+    coded as libjpeg's jcarith.c codes them."""
+    H, W, mcux, mcuy, coefs = _dct_coefs(planes, sampling)
+    n = len(planes)
+    L, U, K = dac or (0, 1, 5)
+    progressive = scans is not None
+    scans = scans or [(tuple(range(n)), 0, 63, 0, 0)]
+    out = b"\xff\xd8" + (_jseg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0") if jfif else b"")
+    out += _jseg(0xDB, b"\0" + bytes(STD_LUMA_Q[ZIGZAG].astype(np.uint8)))
+    out += _jseg(0xCA if progressive else 0xC9, struct.pack(">BHHB", 8, H, W, n)
+                 + b"".join(bytes([i + 1, (h << 4) | v, 0]) for i, (h, v) in enumerate(sampling)))
+    if dac is not None:
+        out += _jseg(0xCC, bytes([0x00, L | (U << 4), 0x10, K]))
+    if restart:
+        out += _jseg(0xDD, struct.pack(">H", restart))
+    for comps, ss, se, ah, al in scans:
+        out += _jseg(0xDA, bytes([len(comps)]) + b"".join(bytes([c + 1, 0]) for c in comps) + bytes([ss, se, ah << 4 | al]))
+        if len(comps) == 1:
+            c = comps[0]
+            h, v = sampling[c]
+            bw = -(-(-(-W * h // max(x for x, _ in sampling))) // 8)
+            bh = -(-(-(-H * v // max(y for _, y in sampling))) // 8)
+            units = [[(c, by, bx)] for by in range(bh) for bx in range(bw)]
+        else:
+            units = [[(c, my * sampling[c][1] + yy, mx * sampling[c][0] + xx) for c in comps
+                      for yy in range(sampling[c][1]) for xx in range(sampling[c][0])]
+                     for my in range(mcuy) for mx in range(mcux)]
+        data = b""
+        enc, dc_st, ac_st, fixed = QMEncoder(), [0] * 64, [0] * 256, [113]
+        preds, ctx = [0] * n, [0] * n
+        for u, unit in enumerate(units):
+            if restart and u and u % restart == 0:
+                data += enc.finish() + bytes([0xFF, 0xD0 + (u // restart - 1) % 8])
+                enc, preds, ctx = QMEncoder(), [0] * n, [0] * n
+                if not progressive or (ss == 0 and ah == 0):
+                    dc_st = [0] * 64
+                if not progressive or ss:
+                    ac_st = [0] * 256
+            for c, by, bx in unit:
+                zz = [int(x) for x in coefs[c][by, bx].reshape(64)[ZIGZAG]]
+                if ss == 0 and ah == 0:  # DC first (or sequential)
+                    dcv = zz[0] >> al
+                    _arith_dc(enc, dc_st, ctx, c, dcv - preds[c], L, U)
+                    preds[c] = dcv
+                elif ss == 0:  # DC refinement
+                    enc.encode(fixed, 0, (zz[0] >> al) & 1)
+                if se == 0:
+                    continue
+                lo = max(ss, 1)
+                vals = [_pt(zz[k], al) for k in range(64)]
+                ke = next((k for k in range(se, 0, -1) if vals[k]), 0)
+                if ah == 0:
+                    k = lo
+                    while k <= ke:
+                        enc.encode(ac_st, 3 * (k - 1), 0)
+                        while vals[k] == 0:
+                            enc.encode(ac_st, 3 * (k - 1) + 1, 0)
+                            k += 1
+                        enc.encode(ac_st, 3 * (k - 1) + 1, 1)
+                        enc.encode(fixed, 0, int(vals[k] < 0))
+                        _arith_magnitude(enc, ac_st, 3 * (k - 1) + 2, abs(vals[k]), k, K, fixed)
+                        k += 1
+                else:  # AC refinement (G.1.3.3)
+                    prev = [_pt(zz[k], ah) for k in range(64)]
+                    kex = next((k for k in range(ke, 0, -1) if prev[k]), 0)
+                    k = lo
+                    while k <= ke:
+                        if k > kex:
+                            enc.encode(ac_st, 3 * (k - 1), 0)
+                        while True:
+                            a = abs(vals[k])
+                            if a:
+                                if a >> 1:
+                                    enc.encode(ac_st, 3 * (k - 1) + 2, a & 1)
+                                else:
+                                    enc.encode(ac_st, 3 * (k - 1) + 1, 1)
+                                    enc.encode(fixed, 0, int(vals[k] < 0))
+                                break
+                            enc.encode(ac_st, 3 * (k - 1) + 1, 0)
+                            k += 1
+                        k += 1
+                if k <= se:
+                    enc.encode(ac_st, 3 * (k - 1), 1)
+        out += data + enc.finish()
+    return out + b"\xff\xd9"
+
+
+def jpeg_12bit(plane, quality_scale=1):
+    """A 12-bit sequential Huffman JPEG (SOF1) of one (H, W) plane of values
+    below 4096: 16 DC categories at 5 bits, 226 AC symbols at 8 bits."""
+    H, W, mcux, mcuy, (coef,) = _dct_coefs([plane], [(1, 1)], precision=12)
+    dcl, acl = [0] * 16, [0] * 16
+    dcl[4], acl[7] = 16, 226
+    ac_syms = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 15)]
+    dc, ac = _huffman_codes(dcl, range(16)), _huffman_codes(acl, ac_syms)
+    bits, pred = [], 0
+
+    def put(code, n):
+        bits.extend((code >> i) & 1 for i in range(n - 1, -1, -1))
+
+    for by in range(mcuy):
+        for bx in range(mcux):
+            zz = coef[by, bx].reshape(64)[ZIGZAG]
+            d = int(zz[0]) - pred
+            pred = int(zz[0])
+            n = abs(d).bit_length()
+            put(*dc[n])
+            put(d if d >= 0 else d - 1 + (1 << n), n)
+            run = 0
+            for k in range(1, 64):
+                if zz[k] == 0:
+                    run += 1
+                    continue
+                while run > 15:
+                    put(*ac[0xF0])
+                    run -= 16
+                n = abs(int(zz[k])).bit_length()
+                put(*ac[(run << 4) | n])
+                put(int(zz[k]) if zz[k] >= 0 else int(zz[k]) - 1 + (1 << n), n)
+                run = 0
+            if run:
+                put(*ac[0])
+    out = b"\xff\xd8" + _jseg(0xDB, b"\0" + bytes(STD_LUMA_Q[ZIGZAG].astype(np.uint8)))
+    out += _jseg(0xC1, struct.pack(">BHHB", 12, H, W, 1) + bytes([1, 0x11, 0]))
+    out += _jseg(0xC4, b"\x00" + bytes(dcl) + bytes(range(16)) + b"\x10" + bytes(acl) + bytes(ac_syms))
+    out += _jseg(0xDA, bytes([1, 1, 0, 0, 63, 0]))
+    return out + _stuff(bits) + b"\xff\xd9"
+
+
+def jpeg_hierarchical(data: bytes) -> bytes:
+    """A baseline JPEG made a one-frame hierarchical file: a DHP segment of
+    its size before the frame, SOF0 turned into SOF5 (T.81 Annex J)."""
+    i = data.index(b"\xff\xc0")
+    (length,) = struct.unpack(">H", data[i + 2:i + 4])
+    sof = data[i + 4:i + 2 + length]
+    return data[:i] + _jseg(0xDE, sof) + b"\xff\xc5" + data[i + 2:]
+
+
+def jpeg_dnl(data: bytes) -> bytes:
+    """A baseline JPEG whose frame height is 0, set by a DNL segment after
+    its first scan (T.81 B.2.5)."""
+    i = data.index(b"\xff\xc0")
+    (h,) = struct.unpack(">H", data[i + 5:i + 7])
+    out = data[:i + 5] + b"\0\0" + data[i + 7:]
+    assert out.endswith(b"\xff\xd9")
+    return out[:-2] + _jseg(0xDC, struct.pack(">H", h)) + b"\xff\xd9"
 
 
 # -- phase 20's image fixtures -----------------------------------------------
@@ -474,10 +1373,140 @@ IMAGE_FILES = {
 }
 
 
-def image_manifest(images_dir: str) -> dict:
-    """cv2's pixels of every file in ``images_dir`` that ``IMAGE_FILES`` names."""
+# -- the TIFF, WebP, GIF and JPEG-mode fixtures of phase 21 -----------------------------
+
+def _smooth(seed, h, w, cell=48):
+    """A smooth seeded frame: flat colour cells of ``cell`` pixels, no
+    noise (so that each 1280x720 timing file stays under 200 KB)."""
+    rng = np.random.RandomState(seed)
+    cells = rng.randint(0, 256, (h // cell + 1, w // cell + 1, 3)).astype(np.uint8)
+    return np.ascontiguousarray(np.repeat(np.repeat(cells, cell, 0), cell, 1)[:h, :w])
+
+
+def _pil_webp(img, **kw):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+def _cv2_webp(img, quality):
+    return cv2.imencode(".webp", img[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, quality])[1].tobytes()
+
+
+def _cv2_tiff(img, *params):
+    return cv2.imencode(".tif", img if img.ndim == 2 else img[..., ::-1], list(params))[1].tobytes()
+
+
+def tiff_ycbcr_jpeg(img, rows=16, quality=90):
+    """A YCbCr TIFF of JPEG strips (4:2:0, cv2's encoder) sharing one
+    JPEGTables."""
+    segs, tables = [], None
+    for y in range(0, img.shape[0], rows):
+        data = cv2.imencode(".jpg", np.ascontiguousarray(img[y:y + rows, :, ::-1]),
+                            [cv2.IMWRITE_JPEG_QUALITY, quality])[1].tobytes()
+        t, s = jpeg_segments(data)
+        tables = tables or t
+        segs.append(s)
+    return tiff(img, photometric=6, compression=7, rows=rows, segments=segs, jpeg_tables=tables,
+                tags=[(530, 3, [2, 2])])
+
+
+def _quantized(img):
+    """``img`` cut to 3-3-2 bits: (indices, the 256-colour table)."""
+    idx = (img[..., 0] & 0xE0) | ((img[..., 1] >> 3) & 0x1C) | (img[..., 2] >> 6)
+    i = np.arange(256)
+    table = np.stack([(i & 0xE0) * 255 // 0xE0, ((i & 0x1C) << 3) * 255 // 0xE0, (i & 3) * 85], 1)
+    return idx, table
+
+
+def _gif_of(img, **kw):
+    idx, table = _quantized(img)
+    return gif([dict(indices=idx, **kw)], (img.shape[1], img.shape[0]), table)
+
+
+def _anim_offset():
+    kind, payload = webp_bitstream(_cv2_webp(_img(60, 20, 24), 80))
+    return webp_animation((40, 30), [(6, 4, 24, 20, webp_chunk(kind, payload), 0)])
+
+
+def _exif6():
+    kind, payload = webp_bitstream(_cv2_webp(_img(61, 21, 34), 85))
+    return webp_extended((34, 21), [webp_chunk(b"EXIF", tiff_orientation(6)), webp_chunk(kind, payload)], flags=0x08)
+
+
+_SC = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2),
+       ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+_S420 = [(2, 2), (1, 1), (1, 1)]
+
+# name: (kind, the function that makes the file's bytes)
+FORMAT_FILES = {
+    "tiff_lzw_pred2.tif": ("TIFF LZW predictor 2, strips of 8", lambda: tiff(_img(40, 37, 45), compression=5, predictor=2,
+                                                                             rows=8)),
+    "tiff_deflate_planar.tif": ("TIFF Deflate planar predictor 2", lambda: tiff(_img(41, 30, 41), compression=8,
+                                                                                 predictor=2, planar=2, rows=7)),
+    "tiff_packbits_tiled.tif": ("TIFF PackBits tiles 16x32", lambda: tiff(_img(42, 40, 50), compression=32773,
+                                                                          tile=(16, 32))),
+    "tiff_bigtiff_mm.tif": ("BigTIFF big-endian LZW tiles", lambda: tiff(_img(43, 33, 35), compression=5, tile=(16, 16),
+                                                                         bigtiff=True, big_endian=True)),
+    "tiff_rgb16_pred2.tif": ("TIFF RGB 16-bit LZW predictor 2", lambda: tiff(
+        np.random.RandomState(44).randint(0, 65536, (21, 29, 3)), bits=16, compression=5, predictor=2, rows=5)),
+    "tiff_rgba_unassoc.tif": ("TIFF RGBA unassociated alpha", lambda: tiff(_img(45, 25, 31, 4), extra=[2],
+                                                                           compression=8)),
+    "tiff_gray1_miniswhite.tif": ("TIFF 1-bit MinIsWhite", lambda: tiff(_idx(46, 19, 45, 2), bits=1, photometric=0)),
+    "tiff_gray16.tif": ("TIFF grey 16-bit big-endian", lambda: tiff(_idx(47, 17, 23, 65536), bits=16, photometric=1,
+                                                                    big_endian=True)),
+    "tiff_palette4.tif": ("TIFF palette 4-bit", lambda: tiff(_idx(48, 22, 27, 16), bits=4, photometric=3,
+                                                             colormap=_idx(49, 16, 3, 65536), compression=5)),
+    "tiff_palette8_8bitmap.tif": ("TIFF palette 8-bit, 8-bit ColorMap", lambda: tiff(
+        _idx(50, 20, 30, 256), photometric=3, colormap=_idx(51, 256, 3, 256), compression=32773)),
+    "tiff_jpeg_ycbcr.tif": ("TIFF JPEG YCbCr 4:2:0, JPEGTables", lambda: tiff_ycbcr_jpeg(_img(52, 45, 61))),
+    "tiff_jpeg_rgb.tif": ("TIFF JPEG RGB (cv2)", lambda: _cv2_tiff(_img(53, 37, 50), cv2.IMWRITE_TIFF_COMPRESSION, 7,
+                                                                   cv2.IMWRITE_TIFF_ROWSPERSTRIP, 16)),
+    "tiff_orientation3.tif": ("TIFF orientation 3", lambda: tiff(_img(54, 19, 26), orientation=3, rows=4)),
+    "gif_interlaced.gif": ("GIF interlaced, 256 colours", lambda: _gif_of(_img(55, 45, 63), interlace=True)),
+    "gif_local_transparent.gif": ("GIF local table, transparency, offset in a larger screen", lambda: gif(
+        [dict(indices=_idx(56, 20, 25, 16), palette=_pal(57, 16), transparent=3, left=7, top=5)], (40, 31),
+        _pal(58, 8), background=6)),
+    "gif87a_min2.gif": ("GIF87a, 4 colours, LZW minimum code size 2", lambda: gif(
+        [dict(indices=_idx(59, 33, 47, 4))], (47, 33), _pal(60, 4), version=b"GIF87a")),
+    "webp_lossy_q90.webp": ("WebP lossy q90 (cv2)", lambda: _cv2_webp(_img(62, 45, 61), 90)),
+    "webp_lossy_q20.webp": ("WebP lossy q20 (cv2)", lambda: _cv2_webp(_img(63, 50, 70), 20)),
+    "webp_lossless.webp": ("WebP lossless (cv2)", lambda: _cv2_webp(_img(64, 41, 53), 101)),
+    "webp_lossless_palette.webp": ("WebP lossless, 4 colours (bundled)", lambda: _pil_webp(
+        _pal(65, 4).astype(np.uint8)[_idx(66, 30, 41, 4)], lossless=True)),
+    "webp_alpha_lossy.webp": ("WebP lossy with ALPH (VP8X)", lambda: _pil_webp(_img(67, 30, 40, 4), quality=80)),
+    "webp_animated_offset.webp": ("WebP animation, first frame at an offset", _anim_offset),
+    "webp_exif6.webp": ("WebP VP8X with EXIF orientation 6", _exif6),
+    "jpeg_arith.jpg": ("JPEG arithmetic sequential 4:2:0", lambda: jpeg_arithmetic(sub_planes(_img(68, 37, 45), _S420),
+                                                                                   _S420)),
+    "jpeg_arith_progressive.jpg": ("JPEG arithmetic progressive, successive approximation", lambda: jpeg_arithmetic(
+        sub_planes(_img(69, 33, 41), _S420), _S420, scans=_SC)),
+    "jpeg_arith_restart_dac.jpg": ("JPEG arithmetic, DAC and restarts", lambda: jpeg_arithmetic(
+        sub_planes(_img(70, 30, 50), [(1, 1)] * 3), [(1, 1)] * 3, dac=(2, 5, 20), restart=3)),
+    "jpeg_lossless_pred7.jpg": ("JPEG lossless RGB predictor 7", lambda: jpeg_lossless(
+        [_img(71, 23, 31)[..., c] for c in range(3)], predictor=7)),
+    "jpeg_lossless_pt2_restart.jpg": ("JPEG lossless predictor 5, point transform 2, restarts", lambda: jpeg_lossless(
+        [_img(72, 20, 27)[..., c] for c in range(3)], predictor=5, pt=2, restart=4)),
+}
+# phase 21a's decode timings: one 1280x720 file a kind, from one smooth frame
+TIMING_FILES = {
+    "timing_tiff_lzw_pred2.tif": ("TIFF LZW predictor 2", lambda: tiff(_smooth(0, 720, 1280), compression=5,
+                                                                       predictor=2, rows=16)),
+    "timing_tiff_jpeg.tif": ("TIFF JPEG YCbCr", lambda: tiff_ycbcr_jpeg(_smooth(0, 720, 1280), rows=16)),
+    "timing_webp_q90.webp": ("WebP lossy q90", lambda: _cv2_webp(_smooth(0, 720, 1280), 90)),
+    "timing_webp_lossless.webp": ("WebP lossless", lambda: _cv2_webp(_smooth(0, 720, 1280), 101)),
+    "timing_gif.gif": ("GIF 3-3-2 colours", lambda: _gif_of(_smooth(0, 720, 1280))),
+}
+FORMAT_MANIFEST = "manifest_tiff_webp_gif.json"
+
+
+def image_manifest(images_dir: str, files=None) -> dict:
+    """cv2's pixels of every file in ``images_dir`` that ``files`` (default
+    ``IMAGE_FILES``) names."""
     rows = []
-    for name, (kind, _) in IMAGE_FILES.items():
+    for name, (kind, _) in (IMAGE_FILES if files is None else files).items():
         img = cv2.imread(os.path.join(images_dir, name))
         assert img is not None, name
         img = np.ascontiguousarray(img[..., ::-1])
@@ -509,6 +1538,17 @@ def jax_item_digests() -> list:
         return chip_smoke.forced_item_digests(SiameseTrackingDataset, augmentations, root)
 
 
+def write_format_fixtures(images_dir: str) -> None:
+    """Phase 21's files (``FORMAT_FILES``, ``TIMING_FILES``) and their
+    manifest of cv2's pixels."""
+    files = {**FORMAT_FILES, **TIMING_FILES}
+    for name, (_kind, make) in files.items():
+        with open(os.path.join(images_dir, name), "wb") as fh:
+            fh.write(make())
+    with open(os.path.join(images_dir, FORMAT_MANIFEST), "w") as fh:
+        json.dump(image_manifest(images_dir, files), fh, indent=1)
+
+
 def main():
     jpeg_dir = os.path.join(HERE, *chip_smoke.JPEG_FIXTURES[2:])
     os.makedirs(jpeg_dir, exist_ok=True)
@@ -526,6 +1566,7 @@ def main():
             fh.write(make())
     with open(os.path.join(images_dir, "manifest.json"), "w") as fh:
         json.dump(image_manifest(images_dir), fh, indent=1)
+    write_format_fixtures(images_dir)
     print(f"wrote {len(DECODE_FILES)} JPEGs, the manifest, {chip_smoke.HOST_ITEM_COUNT} item digests and "
           f"{len(IMAGE_FILES)} image fixtures")
 

@@ -60,6 +60,17 @@ def test_batch_mosaic_bytes_equal_jax(kw):
     assert got.tobytes() == want.tobytes()
 
 
+@pytest.mark.parametrize("score", [float("inf"), float("-inf"), float("nan")], ids=["inf", "-inf", "nan"])
+def test_batch_mosaic_non_finite_score_equals_jax(score):
+    """A direct call with a score the callback would filter out: the header
+    prints ``inf``, ``-inf`` or ``nan`` (glyphs i, n, f, a), as JAX's does."""
+    pytest.importorskip("cv2")
+    batch, outputs = _batch(5)
+    got = P.batch_mosaic(batch, outputs, score)
+    want = J.batch_mosaic(batch, outputs, score)
+    assert got.shape == want.shape and got.tobytes() == want.tobytes()
+
+
 @pytest.mark.parametrize("mode", ["min", "max"])
 def test_best_worst_miner_matches_jax(mode):
     pytest.importorskip("cv2")

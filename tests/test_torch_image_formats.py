@@ -6,10 +6,13 @@ bits, RLE4/RLE8 with their end-of-line, delta and end-of-bitmap codes,
 top-down, OS/2), PNM (P1-P6, maxval above 255) and JPEG (CMYK, YCCK,
 sampling factors up to 4, progressive files with scans removed, which
 libjpeg block-smooths) files written by the fixture script's writers;
-formats cv2 reads and the port does not raise ``IOError`` naming them;
+TIFF, WebP and GIF as cv2 and PIL write them; arithmetic-coded and
+lossless JPEGs, and real files of the JPEG modes cv2 refuses; formats cv2
+reads and the port does not raise ``IOError`` naming them;
 ``make_annotations.frame_shape`` against JAX's ``_frame_shape``; the
 committed fixtures of ``chip_smoke.py`` phase 20a against their manifest."""
 
+import io
 import json
 import os
 import struct
@@ -271,17 +274,24 @@ def test_png_named_jpeg_reads(tmp_path):
 # -- what is not read --------------------------------------------------------------
 
 def test_other_formats_raise_naming_the_format(tmp_path):
+    """TIFF, WebP and GIF, as cv2 and PIL write them, read equal to cv2;
+    the formats cv2 reads and the port does not yet raise ``IOError`` naming
+    them; bytes of no format name the signatures looked for."""
     img = W._img(1, 16, 16)
-    for ext, name in ((".tif", "TIFF"), (".webp", "WebP"), (".gif", "GIF")):
-        if ext == ".gif":
-            from PIL import Image
+    from PIL import Image
 
-            path = tmp_path / "a.gif"
-            Image.fromarray(img).save(path)
-        else:
-            path = tmp_path / f"a{ext}"
-            assert cv2.imwrite(str(path), img[..., ::-1])
-        assert jax_read_img(str(path)).shape == img.shape  # cv2 reads it
+    for ext in (".tif", ".webp", ".gif"):
+        assert _same(tmp_path, cv2.imencode(ext, img[..., ::-1])[1].tobytes()) is not None
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, {".tif": "TIFF", ".webp": "WEBP", ".gif": "GIF"}[ext])
+        assert _same(tmp_path, buf.getvalue()) is not None
+    for ext, name in ((".jp2", "JPEG 2000"), (".pam", "PAM"), (".pfm", "PFM"), (".hdr", "Radiance HDR"),
+                      (".ras", "Sun raster"), (".avif", "AVIF")):
+        data = cv2.imencode(ext, W._img(2, 64, 80).astype(np.float32) / 255 if ext in (".pfm", ".hdr")
+                            else W._img(2, 64, 80))[1].tobytes()
+        path = tmp_path / f"a{ext}"
+        path.write_bytes(data)
+        assert jax_read_img(str(path)).shape == (64, 80, 3)  # cv2 reads it
         with pytest.raises(IOError, match=name):
             read_img(str(path))
         with pytest.raises(IOError, match=name):
@@ -291,29 +301,25 @@ def test_other_formats_raise_naming_the_format(tmp_path):
             port_imread.imread(data)
 
 
-def _sof_patch(data: bytes, marker=None, precision=None) -> bytes:
-    i = data.index(b"\xff\xc0")
-    out = bytearray(data)
-    if marker is not None:
-        out[i + 1] = marker
-    if precision is not None:
-        out[i + 4] = precision
-    return bytes(out)
-
-
 def test_refused_jpeg_modes_raise_naming_the_mode(tmp_path):
-    data = cv2.imencode(".jpg", W._img(2, 17, 33))[1].tobytes()
-    dnl = bytearray(data)
-    i = data.index(b"\xff\xc0")
-    dnl[i + 5:i + 7] = b"\0\0"  # height 0: set by a DNL marker
-    cases = {"arithmetic": _sof_patch(data, marker=0xC9), "lossless": _sof_patch(data, marker=0xC3),
-             "hierarchical": _sof_patch(data, marker=0xC5), "12-bit": _sof_patch(data, precision=12),
-             "DNL": bytes(dnl)}
+    """Real files: arithmetic-coded and lossless JPEGs read equal to cv2;
+    the modes cv2 refuses (hierarchical, 12-bit, DNL, 2 components,
+    lossless grey) are refused by both, the port naming the mode."""
+    img = W._img(2, 17, 33)
+    planes = W.sub_planes(img, [(2, 2), (1, 1), (1, 1)])
+    assert _same(tmp_path, W.jpeg_arithmetic(planes, [(2, 2), (1, 1), (1, 1)])) is not None
+    assert _same(tmp_path, W.jpeg_lossless([img[..., c] for c in range(3)], predictor=4)) is not None
+    data = cv2.imencode(".jpg", img)[1].tobytes()
+    cases = {"hierarchical": W.jpeg_hierarchical(data), "12-bit": W.jpeg_12bit(img[..., 0].astype(int) * 16),
+             "DNL": W.jpeg_dnl(data), "2-component": W.jpeg_baseline([img[..., 0], img[..., 1]], [(1, 1), (1, 1)]),
+             "lossless grey": W.jpeg_lossless([img[..., 0]])}
     for mode, bad in cases.items():
-        with pytest.raises(ValueError, match=mode):
-            port_imread.imread(bad)
         path = tmp_path / "refused.jpg"
         path.write_bytes(bad)
+        with pytest.raises(IOError):
+            jax_read_img(str(path))  # cv2 reads nothing
+        with pytest.raises(ValueError, match=mode):
+            port_imread.imread(bad)
         with pytest.raises(IOError, match=mode):
             read_img(str(path))
 

@@ -140,16 +140,20 @@ def _patch_sof(data: bytes, **fields) -> bytes:
 
 def test_unsupported_files_raise_and_name_the_feature():
     """The modes the codec still refuses (CMYK, YCCK, sampling factors up to
-    4 and block smoothing are read since; ``tests/test_torch_image_formats.py``
-    holds them to cv2)."""
+    4, block smoothing, arithmetic coding and lossless files are read since;
+    ``tests/test_torch_image_formats.py`` and ``tests/test_torch_tiff_webp_gif.py``
+    hold them to cv2). A Huffman-coded file whose SOF0 is made SOF9 is read
+    as arithmetic-coded data, by cv2 and the port alike."""
     data = _cv2_jpeg(IMAGES[(17, 33)], 90)
     i = data.index(b"\xff\xc0")
     dnl = data[:i + 5] + b"\0\0" + data[i + 7:]  # height 0: set by a DNL marker
     two = b"\xff\xd8\xff\xc0" + struct.pack(">HBHHB", 14, 8, 4, 4, 2) + b"".join(
         bytes([c + 1, 0x11, 0]) for c in range(2)) + b"\xff\xd9"
+    arith = _patch_sof(data, marker=0xC9)
+    want = cv2.imdecode(np.frombuffer(arith, np.uint8), cv2.IMREAD_COLOR)
+    assert np.array_equal(jpeg.decode_jpeg(arith), want[..., ::-1])
     cases = {
-        "arithmetic": _patch_sof(data, marker=0xC9),
-        "lossless": _patch_sof(data, marker=0xC3),
+        "lossless": _patch_sof(data, marker=0xC3),  # a Huffman scan's Ss = 0: no lossless predictor
         "hierarchical": _patch_sof(data, marker=0xC5),
         "12-bit": _patch_sof(data, precision=12),
         "DNL": dnl,
@@ -172,8 +176,10 @@ def test_read_img_takes_jpeg_and_npy_and_names_the_rest(tmp_path):
     assert np.array_equal(read_img(str(tmp_path / "a.JPEG")), cv2.imread(str(tmp_path / "a.JPEG"))[..., ::-1])
     assert np.array_equal(read_img(str(tmp_path / "a.npy")), img)
     assert cv2.imwrite(str(tmp_path / "a.tif"), img)
-    with pytest.raises(IOError, match="TIFF"):
-        read_img(str(tmp_path / "a.tif"))
+    assert np.array_equal(read_img(str(tmp_path / "a.tif")), cv2.imread(str(tmp_path / "a.tif"))[..., ::-1])
+    assert cv2.imwrite(str(tmp_path / "a.pam"), img)
+    with pytest.raises(IOError, match="PAM"):
+        read_img(str(tmp_path / "a.pam"))
     with pytest.raises(IOError, match="cannot read"):
         read_img(str(tmp_path / "missing.jpg"))
 

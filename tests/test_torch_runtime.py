@@ -135,8 +135,9 @@ def test_provenance_and_load_failure(tmp_path):
 
 def test_port_imports_no_jax_or_reference():
     """Every port module imports without jax, flax, optax, orbax, the JAX
-    package, the root ``tools`` package, cv2, matplotlib, pandas, PyYAML,
-    tensorboardX or tensorboard: the H100 host has none of them."""
+    package, the root ``tools`` package, cv2, PIL, matplotlib, pandas,
+    PyYAML, tensorboardX or tensorboard: the H100 host has none of them (or,
+    for cv2 and PIL, the image readers must not use them)."""
     modules = []
     for root, _, files in os.walk(os.path.join(REPO, "feartracker_tpu_torch")):
         for f in files:
@@ -147,7 +148,7 @@ def test_port_imports_no_jax_or_reference():
         "import importlib, sys\n"
         f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu', 'cv2', 'matplotlib',\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'feartracker_tpu', 'cv2', 'PIL', 'matplotlib',\n"
         "                              'pandas', 'yaml', 'optax', 'orbax', 'tensorboardX', 'tensorboard',\n"
         "                              'tools')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -186,7 +187,8 @@ def test_port_imports_no_jax_or_reference():
         "train_run", "pretrain_chain", "family_train", "train_template_gate", "train_feature_gate",
         "train_flagship")} <= set(modules)
     # the frame reader of every format cv2.imread reads there, and the trace summary
-    assert {f"feartracker_tpu_torch.{m}" for m in ("data.imread", "data.jpeg", "tools.parse_trace")} <= set(modules)
+    assert {f"feartracker_tpu_torch.{m}" for m in ("data.imread", "data.jpeg", "data.tiff", "data.gif", "data.webp",
+                                                   "tools.parse_trace")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
