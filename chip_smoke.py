@@ -270,8 +270,8 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    pixels of the 36 committed ``tests/fixtures/images`` (PNG of every colour
    type, Adam7, tRNS, eXIf; BMP 1-32 bits, RLE4/RLE8, top-down, OS/2;
    P1-P6; CMYK, YCCK, 4:1:1, 1x4 and 3x2 sampling, block-smoothed
-   progressive JPEGs; a PNG named ``.JPEG``), the formats still unread
-   (JPEG 2000, AVIF, Radiance HDR, PFM, PAM, Sun raster) refused by name,
+   progressive JPEGs; a PNG named ``.JPEG``), the format still unread
+   (AVIF) refused by name,
    and the decode ms of a 1280x720 PNG, BMP and CMYK JPEG on one core; 20b
    19c's OPE over its val frames rewritten as PNG and as 24-bit BMP under
    their ``.jpg`` names: every result equal to the ``.npy`` run, K1/K2 at the
@@ -296,7 +296,27 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    (``tiff_lzw``, ``webp_lossless`` below): every result equal to the
    ``.npy`` run, K1/K2 at the schedule; 21c ``make_annotations`` over a
    GOT-10k and a YouTube-BB tree of TIFF, WebP and GIF frames: rows equal
-   to the JPEG trees', no zero frame size.
+   to the JPEG trees', no zero frame size;
+22. JPEG 2000, PAM, PFM, Sun raster and Radiance HDR, cv2 blocked: 22a
+   ``data/jp2.py`` + ``csrc/jp2.cpp``, ``data/hdr.py`` and
+   ``data/imread.py``'s PAM, PFM and Sun raster readers against the
+   sha256s of cv2's pixels of the 40 committed
+   ``tests/fixtures/images/manifest_jp2_hdr_pam.json`` files (JPEG 2000
+   5/3 and 9/7, layers, every progression, precincts, tiles, code-block
+   sizes, resolutions, grey, 16-bit, 12-bit, RGBA, grey + alpha, no MCT,
+   PLT, a raw codestream, sYCC, a palette, cdef; PAM types and maxvals; PFM
+   both byte orders; Sun raster 1-32 bits, old type, colour maps; HDR
+   run-length, flat, narrow, header lines), and the decode ms of a
+   1280x720 JPEG 2000 9/7 and 5/3, HDR, Sun raster and PFM on one core;
+   22b the GOT-10k OPE protocol (``FEARTracker`` FEAR-XS f32) over the
+   committed JPEG 2000 val tree ``tests/fixtures/jp2_got10k`` (2 x 12
+   frames of 1280x720, PIL's OpenJPEG 9/7 under ``.jpg`` names): every file
+   at its recorded sha256, K1 22 / K2 312 launches, the result equal to the
+   one recorded from the port on the CPU; 22c ``make_annotations`` over
+   GOT-10k and YouTube-BB trees of PAM, PFM, HDR and Sun raster frames
+   (``pam_rgb``, ``pfm_rgb``, ``hdr_flat``, ``sun_raster`` below) and of
+   22b's JPEG 2000 frames: rows equal to the same trees in JPEG, no zero
+   frame size, no launch.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -3620,6 +3640,9 @@ def _phase_host_io(card, counters, lap, work: str, trace_dir: str):
         t21 = time.perf_counter()
         launches.update(_phase_tiff_webp_gif(card, counters, lap, work, here, ope))
         print(f"[21] phase 21 in {time.perf_counter() - t21:.1f} s", flush=True)
+        t22 = time.perf_counter()
+        launches.update(_phase_jp2_hdr_pam(card, counters, lap, work, here))
+        print(f"[22] phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
     finally:
         del sys.modules["cv2"]
         if earlier is not None:
@@ -3831,9 +3854,10 @@ IMAGE_FIXTURES = ("tests", "fixtures", "images")  # seeded PNG/BMP/PNM/JPEG file
 CMYK_TIMING_FILE = "cmyk_1280x720.jpg"
 FORMAT_MANIFEST = "manifest_tiff_webp_gif.json"  # phase 21a's files and cv2's pixels of each
 # leading bytes of formats cv2 reads and the port does not: each must raise naming it
-UNREAD_SIGNATURES = (("JPEG 2000", b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8)), ("AVIF", b"\x00\x00\x00\x20ftypavif"),
-                     ("Radiance HDR", b"#?RADIANCE\n"), ("PFM", b"PF\n4 4\n-1\n"), ("PAM", b"P7\nWIDTH 4\n"),
-                     ("Sun raster", b"\x59\xa6\x6a\x95" + bytes(28)))
+UNREAD_SIGNATURES = (("AVIF", b"\x00\x00\x00\x20ftypavif"),)
+JP2_MANIFEST = "manifest_jp2_hdr_pam.json"  # phase 22a's files and cv2's pixels of each
+JP2_TREE = ("tests", "fixtures", "jp2_got10k")  # phase 22b's GOT-10k val tree of JPEG 2000 frames
+JP2_TREE_RECORD = "record.json"  # its files' sha256s, how it was written and the CPU's OPE result over it
 PRETRAIN_MIX = ("cmyk.jpg", "cmyk_progressive.jpg", "ycck.jpg", "s411.jpg", "png_named.JPEG")
 VIDEO_FRAMES = 30
 
@@ -3982,6 +4006,47 @@ def gif_332(img) -> bytes:
     blocks = b"".join(bytes([len(data[k:k + 255])]) + data[k:k + 255] for k in range(0, len(data), 255))
     return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + table.tobytes()
             + b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08" + blocks + b"\x00\x3b")
+
+
+def pam_rgb(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a PAM (P7, TUPLTYPE RGB, maxval 255) whose
+    samples are stored blue first: OpenCV's reader puts depth-3 samples into
+    its BGR array as they are stored, and so does its writer."""
+    h, w = img.shape[:2]
+    return (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n".encode()
+            + img[..., ::-1].tobytes())
+
+
+def pfm_rgb(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a little-endian PFM (scale -1) holding the
+    same values as floats, rows bottom-up."""
+    h, w = img.shape[:2]
+    return f"PF\n{w} {h}\n-1.0\n".encode() + img[::-1].astype("<f4").tobytes()
+
+
+def sun_raster(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a standard 24-bit Sun raster: rows of blue,
+    green, red padded to 16 bits, no colour map."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    pitch = (3 * w + 1) & ~1
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, :3 * w] = img[..., ::-1].reshape(h, 3 * w)
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, h * pitch, 1, 0, 0) + rows.tobytes()
+
+
+def hdr_flat(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a Radiance file of flat RGBE pixels, each
+    channel's mantissa the value and the exponent 128 (v / 256), which
+    cv2 reads back as rint(v * 255 / 256)."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    rgbe = np.concatenate([img, np.full((h, w, 1), 128, np.uint8)], axis=2)
+    return f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n".encode() + rgbe.tobytes()
 
 
 def _decode_p50_ms(data: bytes, decode) -> float:
@@ -4136,11 +4201,9 @@ def _phase_tiff_webp_gif(card, counters, lap, work: str, here: str, ope: dict) -
     (21b); ``make_annotations`` over GOT-10k and YouTube-BB trees of TIFF,
     WebP and GIF frames against the same trees in JPEG (21c). → each path's
     launches."""
-    import csv
     import os
     import shutil
 
-    import numpy as np
     import torch
 
     from feartracker_tpu_torch.data.dataset import read_img
@@ -4148,8 +4211,6 @@ def _phase_tiff_webp_gif(card, counters, lap, work: str, here: str, ope: dict) -
     from feartracker_tpu_torch.data.jpeg import encode_jpeg
     from feartracker_tpu_torch.data.sequence import GOT10kDataset
     from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
-    from feartracker_tpu_torch.tools import make_annotations
-    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
 
     launches = {}
     # 21a: the fixtures against cv2's pixels, made on the CPU with cv2 and PIL
@@ -4202,9 +4263,79 @@ def _phase_tiff_webp_gif(card, counters, lap, work: str, here: str, ope: dict) -
 
     # 21c: make_annotations over trees of each format against the same trees in JPEG
     ann = os.path.join(work, "annotations21")
-    generate(os.path.join(ann, "src"), tracks=1, frames=6, val_sequences=2, seed=21, size=(96, 128))
-    src_val = os.path.join(ann, "src", "got10k", "val")
     writers = {"jpg": lambda img: encode_jpeg(img, 90), "tiff": tiff_lzw, "webp": webp_lossless, "gif": gif_332}
+    rows = _annotation_rows(ann, writers, 21)
+    n_rows = [len(t.splitlines()) - 1 for t in rows["jpg"]]
+    print(f"[21c] make_annotations over GOT-10k ({n_rows[0]} rows) and YouTube-BB ({n_rows[1]} rows, boxes scaled "
+          f"by the frame size) trees of TIFF, WebP and GIF frames: rows equal to the JPEG trees', no zero frame "
+          f"size [{card}]", flush=True)
+    shutil.rmtree(ann)
+    lap("21c")
+    if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
+        raise AssertionError("phase 21 imported cv2")
+    return launches
+
+
+def _ytbb_tree(yt: str, frames: dict, write) -> None:
+    """A YouTube-BB tree: each video's frames ({video: [frame]}) written by
+    ``write`` under ``<video>_<ms>.jpg``, and its detection CSV."""
+    import csv
+    import os
+
+    os.makedirs(yt, exist_ok=True)
+    with open(os.path.join(yt, "yt_bb_detection_train.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        for k, (vid, imgs) in enumerate(frames.items()):
+            os.makedirs(os.path.join(yt, vid), exist_ok=True)
+            for t, img in enumerate(imgs):
+                with open(os.path.join(yt, vid, f"{vid}_{t * 1000}.jpg"), "wb") as img_fh:
+                    img_fh.write(write(img))
+                w.writerow([vid, t * 1000, 7, "cat", k, "present", 0.1 + 0.05 * t, 0.6, 0.2, 0.7 + 0.05 * t])
+
+
+def _annotations(ann: str, fmt: str, got_root: str, yt: str) -> list:
+    """make_annotations' CSV text of a GOT-10k val tree and a YouTube-BB tree."""
+    import os
+
+    from feartracker_tpu_torch.tools import make_annotations
+
+    made = []
+    for dataset, root, subset in (("got10k", got_root, "val"), ("youtube_bb", yt, "train")):
+        out = os.path.join(ann, f"{fmt}_{dataset}.csv")
+        make_annotations.run(dataset, root, out, subset=subset)
+        with open(out) as fh:
+            made.append(fh.read())
+    return made
+
+
+def _check_rows(tag: str, rows: dict, base: str) -> None:
+    """Raise unless every format's CSV texts equal ``base``'s and hold rows
+    and no zero frame size."""
+    zero = [fmt for fmt, made in rows.items() for text in made if "[0, 0]" in text]
+    differ = [fmt for fmt in rows if rows[fmt] != rows[base]]
+    if zero or differ or not all(len(t.splitlines()) > 1 for t in rows[base]):
+        raise AssertionError(f"{tag} make_annotations: formats with a zero frame size {zero}, rows differing from "
+                             f"{base}'s {differ}")
+
+
+def _annotation_rows(ann: str, writers: dict, seed: int) -> dict:
+    """21c and 22c: make_annotations over a generated GOT-10k val tree
+    (2 x 6 frames of 128x96) and a YouTube-BB tree (two videos of 3 seeded
+    frames, 160x90 and 96x120) in each of ``writers``' formats, each frame
+    under its ``.jpg`` name; raises unless every format's rows equal the
+    "jpg" writer's and no frame size is zero. → {format: [GOT-10k CSV text,
+    YouTube-BB CSV text]}."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
+
+    generate(os.path.join(ann, "src"), tracks=1, frames=6, val_sequences=2, seed=seed, size=(96, 128))
+    src_val = os.path.join(ann, "src", "got10k", "val")
+    yt_frames = {vid: [fixture_frame(10 * seed + 3 * k + t, *size) for t in range(3)]
+                 for k, (vid, size) in enumerate((("vidA", (90, 160)), ("vidB", (120, 96))))}
     rows = {}
     for fmt, write in writers.items():
         got_root = os.path.join(ann, fmt, "got10k")
@@ -4218,35 +4349,119 @@ def _phase_tiff_webp_gif(card, counters, lap, work: str, here: str, ope: dict) -
                 else:
                     shutil.copyfile(os.path.join(d, f), os.path.join(out, f))
         yt = os.path.join(ann, fmt, "ytbb")
-        os.makedirs(yt, exist_ok=True)
-        with open(os.path.join(yt, "yt_bb_detection_train.csv"), "w", newline="") as fh:
-            w = csv.writer(fh)
-            for k, (vid, size) in enumerate((("vidA", (90, 160)), ("vidB", (120, 96)))):
-                os.makedirs(os.path.join(yt, vid), exist_ok=True)
-                for t in range(3):
-                    with open(os.path.join(yt, vid, f"{vid}_{t * 1000}.jpg"), "wb") as img_fh:
-                        img_fh.write(write(fixture_frame(210 + 3 * k + t, *size)))
-                    w.writerow([vid, t * 1000, 7, "cat", k, "present", 0.1 + 0.05 * t, 0.6, 0.2, 0.7 + 0.05 * t])
-        made = []
-        for dataset, root, subset in (("got10k", got_root, "val"), ("youtube_bb", yt, "train")):
-            out = os.path.join(ann, f"{fmt}_{dataset}.csv")
-            make_annotations.run(dataset, root, out, subset=subset)
-            with open(out) as fh:
-                made.append(fh.read())
-        rows[fmt] = made
-    zero = [fmt for fmt, made in rows.items() for text in made if "[0, 0]" in text]
-    differ = [fmt for fmt in writers if rows[fmt] != rows["jpg"]]
-    if zero or differ or not all(len(t.splitlines()) > 1 for t in rows["jpg"]):
-        raise AssertionError(f"21c make_annotations: formats with a zero frame size {zero}, rows differing from "
-                             f"JPEG's {differ}")
+        _ytbb_tree(yt, yt_frames, write)
+        rows[fmt] = _annotations(ann, fmt, got_root, yt)
+    _check_rows(f"{seed}c", rows, "jpg")
+    return rows
+
+
+def _phase_jp2_hdr_pam(card, counters, lap, work: str, here: str) -> dict:
+    """Phase 22, cv2 blocked: the JPEG 2000, PAM, PFM, Sun raster and HDR
+    fixtures against cv2's pixels and 1280x720 decode ms (22a); the GOT-10k
+    OPE over the committed JPEG 2000 val tree against the CPU's recorded
+    result (22b); ``make_annotations`` over trees of each format against
+    the same trees in JPEG (22c). → each path's launches."""
+    import os
+    import shutil
+
+    import torch
+
+    from feartracker_tpu_torch.data.dataset import read_img
+    from feartracker_tpu_torch.data.imread import imread
+    from feartracker_tpu_torch.data.jpeg import encode_jpeg
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+
+    launches = {}
+    # 22a: the fixtures against cv2's pixels, made on the CPU with cv2 and PIL
+    images = os.path.join(here, *IMAGE_FIXTURES)
+    with open(os.path.join(images, JP2_MANIFEST)) as fh:
+        manifest = json.load(fh)["decode"]
+    bad, timing = [], {}
+    for c in manifest:
+        path = os.path.join(images, c["file"])
+        img = read_img(path)
+        if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
+            bad.append(c["file"])
+        if c["file"].startswith("timing_"):
+            with open(path, "rb") as fh:
+                timing[c["kind"]] = fh.read()
+    frame = fixture_frame(0, 720, 1280)
+    for kind, write in (("Sun raster 24-bit", sun_raster), ("PFM", pfm_rgb)):
+        timing[kind] = write(frame)
+        if not (imread(timing[kind]) == frame).all():
+            bad.append(kind)
+    if bad or len(timing) != 5:
+        raise AssertionError(f"22a: {bad} differ from cv2's pixels or the frame written ({len(timing)} timing files)")
+    ms = {k: _decode_p50_ms(v, imread) for k, v in timing.items()}
+    print(f"[22a] data/jp2.py (+ csrc/jp2.cpp), data/hdr.py, data/imread.py's PAM, PFM and Sun raster, cv2 blocked: "
+          f"{len(manifest)} fixtures equal to cv2's pixels; 1280x720 decode p50 on one core "
+          f"{', '.join(f'{k} ({len(timing[k]) / 1e3:.0f} kB) {v:.2f} ms' for k, v in ms.items())} [{card}]",
+          flush=True)
+    lap("22a")
+
+    # 22b: the GOT-10k protocol over the committed JPEG 2000 tree
+    root = os.path.join(here, *JP2_TREE)
+    with open(os.path.join(root, JP2_TREE_RECORD)) as fh:
+        record = json.load(fh)
+    differ = []
+    for rel, digest in record["files"].items():
+        with open(os.path.join(root, rel), "rb") as fh:
+            data = fh.read()
+        if _sha(data) != digest or (rel.endswith(".jpg") and not data.startswith(b"\x00\x00\x00\x0cjP  \r\n\x87\n")):
+            differ.append(rel)
+    ds = GOT10kDataset(root, "val")
+    lengths = [len(ds[i][0]) for i in range(len(ds))]
+    if differ or lengths != record["lengths"]:
+        raise AssertionError(f"22b: the JPEG 2000 tree's files {differ} differ from its record; lengths {lengths}")
+    tracker = _fear_tracker("cuda", torch.float32)
+    _zero(counters)
+    ao = evaluate_tracker(tracker, ds)
+    torch.cuda.synchronize()
+    got = _read(counters)
+    want = _sequential_launches(lengths, _n_fused("fear_xs"))
+    if got != want or want != {"K1": 22, "K2": 312}:
+        raise AssertionError(f"22b: launches {got}, schedule {want}")
+    if json.loads(json.dumps(ao)) != record["ope_cpu"]:
+        raise AssertionError(f"22b: OPE over JPEG 2000 on the card AO {ao['ao']!r} against the CPU's recorded "
+                             f"{record['ope_cpu']['ao']!r}")
+    launches["jp2_ope"] = got
+    print(f"[22b] GOT-10k OPE (FEARTracker FEAR-XS f32) over the committed JPEG 2000 val tree ({len(lengths)} x "
+          f"{lengths[0]} frames of {record['frame_hw'][1]}x{record['frame_hw'][0]}, 9/7 rate {record['rate']}, "
+          f"{record['bytes']} bytes, every file at its sha256): AO {ao['ao']:.6f}, SR50 {ao['sr50']:.4f}, every "
+          f"result equal to the port's on the CPU; launches {got} = the schedule [{card}]", flush=True)
+    lap("22b")
+
+    # 22c: make_annotations over trees of each format against the same trees in JPEG
+    _zero(counters)
+    ann = os.path.join(work, "annotations22")
+    writers = {"jpg": lambda img: encode_jpeg(img, 90), "pam": pam_rgb, "pfm": pfm_rgb, "hdr": hdr_flat,
+               "sun": sun_raster}
+    rows = _annotation_rows(ann, writers, 22)
+    # JPEG 2000 (no writer here): 22b's tree and frames as they are, against JPEG encodes of their pixels
+    yt_frames = {vid: [os.path.join(root, "val", seq, f"{t:08d}.jpg") for t in range(3)]
+                  for vid, seq in (("vidA", "GOT-10k_Val_000000"), ("vidB", "GOT-10k_Val_000001"))}
+    jpg_root = os.path.join(ann, "jp2_as_jpg", "got10k")
+    _rewrite_tree(root, jpg_root, lambda img: encode_jpeg(img, 90))
+    for fmt, write in (("jp2", lambda path: open(path, "rb").read()),
+                       ("jp2_as_jpg", lambda path: encode_jpeg(imread(path), 90))):
+        _ytbb_tree(os.path.join(ann, fmt, "ytbb"), yt_frames, write)
+    jp2_rows = {"jp2": _annotations(ann, "jp2", root, os.path.join(ann, "jp2", "ytbb")),
+                "jp2_as_jpg": _annotations(ann, "jp2_as_jpg", jpg_root, os.path.join(ann, "jp2_as_jpg", "ytbb"))}
+    _check_rows("22c", jp2_rows, "jp2_as_jpg")
+    got = _read(counters)
+    if got != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"22c: make_annotations launched {got}")
+    launches["jp2_hdr_pam_annotations"] = got
     n_rows = [len(t.splitlines()) - 1 for t in rows["jpg"]]
-    print(f"[21c] make_annotations over GOT-10k ({n_rows[0]} rows) and YouTube-BB ({n_rows[1]} rows, boxes scaled "
-          f"by the frame size) trees of TIFF, WebP and GIF frames: rows equal to the JPEG trees', no zero frame "
-          f"size [{card}]", flush=True)
+    print(f"[22c] make_annotations over GOT-10k ({n_rows[0]} rows) and YouTube-BB ({n_rows[1]} rows) trees of PAM, "
+          f"PFM, HDR and Sun raster frames, and over trees of 22b's JPEG 2000 frames "
+          f"({len(jp2_rows['jp2'][0].splitlines()) - 1} and {len(jp2_rows['jp2'][1].splitlines()) - 1} rows): rows "
+          f"equal to the same trees in JPEG, no zero frame size, no launch [{card}]", flush=True)
     shutil.rmtree(ann)
-    lap("21c")
+    lap("22c")
     if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
-        raise AssertionError("phase 21 imported cv2")
+        raise AssertionError("phase 22 imported cv2")
     return launches
 
 

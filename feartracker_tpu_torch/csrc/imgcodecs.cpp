@@ -21,6 +21,13 @@
 //
 // gif_lzw: GIF's LZW (LSB first, minimum code size 2-8) to palette indices.
 //
+// hdr_rle: Radiance scanlines as the RGBE reader OpenCV 5.0 carries (Greg
+// Ward's rgbe.c) reads them, to RGBE bytes: a scanline that starts 2, 2
+// holds its four channels one after another, each as runs (a count above
+// 128, then the byte) and literals (a count up to 128, then the bytes); any
+// other start means that pixel and every one after it are stored flat, and
+// widths below 8 or above 32767 are flat throughout.
+//
 // Every function returns 0 on success, else writes a message to err.
 
 #include <cstddef>
@@ -378,6 +385,73 @@ int gif_lzw(const uint8_t* in, size_t n, int min_size, uint16_t* out, size_t npi
   if (o < npix) {
     set_err(err, errlen, "GIF image data ends before the last pixel");
     return 1;
+  }
+  return 0;
+}
+
+
+// height * width pixels of RGBE bytes from src into out (4 bytes a pixel)
+int hdr_rle(const uint8_t* src, size_t n, int width, int height, uint8_t* out, char* err, int errlen) {
+  const size_t total = (size_t)width * (size_t)height;
+  size_t pos = 0;
+  auto flat = [&](size_t from) {
+    size_t need = (total - from) * 4;
+    if (n - pos < need) {
+      set_err(err, errlen, "RGBE read error: the pixels end early");
+      return 1;
+    }
+    memcpy(out + from * 4, src + pos, need);
+    return 0;
+  };
+  if (width < 8 || width > 0x7fff) return flat(0);
+  std::vector<uint8_t> line((size_t)width * 4);
+  for (int y = 0; y < height; y++) {
+    if (n - pos < 4) {
+      set_err(err, errlen, "RGBE read error: the scanlines end early");
+      return 1;
+    }
+    const uint8_t* h = src + pos;
+    if (h[0] != 2 || h[1] != 2 || (h[2] & 0x80)) return flat((size_t)y * (size_t)width);
+    if ((h[2] << 8 | h[3]) != width) {
+      set_err(err, errlen, "RGBE bad file format: wrong scanline width");
+      return 1;
+    }
+    pos += 4;
+    for (int c = 0; c < 4; c++) {
+      uint8_t* ch = line.data() + (size_t)c * (size_t)width;
+      int x = 0;
+      while (x < width) {
+        if (n - pos < 2) {
+          set_err(err, errlen, "RGBE read error: a scanline ends early");
+          return 1;
+        }
+        int b0 = src[pos], b1 = src[pos + 1];
+        pos += 2;
+        int count = b0 > 128 ? b0 - 128 : b0;
+        if (count == 0 || count > width - x) {
+          set_err(err, errlen, "RGBE bad file format: bad scanline data");
+          return 1;
+        }
+        if (b0 > 128) {
+          memset(ch + x, b1, (size_t)count);
+          x += count;
+        } else {
+          ch[x++] = (uint8_t)b1;
+          if (--count > 0) {
+            if (n - pos < (size_t)count) {
+              set_err(err, errlen, "RGBE read error: a scanline ends early");
+              return 1;
+            }
+            memcpy(ch + x, src + pos, (size_t)count);
+            pos += (size_t)count;
+            x += count;
+          }
+        }
+      }
+    }
+    uint8_t* row = out + (size_t)y * (size_t)width * 4;
+    for (int x = 0; x < width; x++)
+      for (int c = 0; c < 4; c++) row[x * 4 + c] = line[(size_t)c * (size_t)width + (size_t)x];
   }
   return 0;
 }

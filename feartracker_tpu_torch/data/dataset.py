@@ -51,9 +51,11 @@ def read_img(frame: Union[str, np.ndarray]) -> np.ndarray:
     unchanged, so a dataset may hold frames in memory; a ``.npy`` path is
     loaded with numpy (cv2 reads no ``.npy``); any other path is decoded by
     :func:`feartracker_tpu_torch.data.imread.imread`, which picks JPEG, PNG,
-    BMP or PNM from the file's signature and gives ``cv2.imread``'s pixels on
-    every host. A file it cannot read raises ``IOError`` naming the reason,
-    where JAX's ``read_img`` raises it for ``cv2.imread``'s None."""
+    BMP, PNM, PAM, PFM, Sun raster, TIFF, GIF, WebP, JPEG 2000 or Radiance
+    HDR from the file's signature and gives ``cv2.imread``'s pixels on every
+    host (AVIF is named and refused). A file it cannot read raises
+    ``IOError`` naming the reason, where JAX's ``read_img`` raises it for
+    ``cv2.imread``'s None."""
     if isinstance(frame, np.ndarray):
         return frame
     if os.path.splitext(frame)[1].lower() == ".npy":

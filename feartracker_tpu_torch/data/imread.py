@@ -23,16 +23,34 @@ from its name (an ImageNet file named ``.JPEG`` may hold a PNG):
 * PNM (``P1``-``P6``): OpenCV's decoder (``grfmt_pxm.cpp``): ASCII samples
   scaled as ``v * 255 // maxval``, binary 8-bit samples as they are,
   samples of a maxval above 255 as ``v >> 8``; P1/P4 1 = black;
+* PAM (``P7``): OpenCV's decoder (``grfmt_pam.cpp``): the header's WIDTH,
+  HEIGHT, DEPTH, MAXVAL (required, decimal digits) and TUPLTYPE (without
+  one, depth 1 or 3 at maxval 255 or below); samples as they are (maxval
+  does not scale them), 16-bit ones as ``v >> 8``; maxval 1 reads each
+  row's first bytes as packed bits, 1 = white; depth 3 lands in cv2's BGR
+  order as stored; the alpha tuple types above maxval 1 raise (cv2's
+  pixels for them come from memory past its row buffer);
+* PFM (``PF``): OpenCV's decoder: rows bottom-up, the scale's sign the byte
+  order, samples times float32(1 / |scale|) through ``saturate_cast<uchar>``
+  (NaN, ±inf and values past int32 read 0); ``Pf`` (grey) raises, as
+  ``cv2.imread`` in colour mode reads none;
+* Sun raster (``59 A6 6A 95``): OpenCV's decoder: the old and standard
+  types (cv2 reads neither the byte-encoded nor the RGB type), 1, 8, 24
+  and 32 bits, rows padded to 16 bits, equal-RGB colour maps;
 * TIFF (``II*\\0``, ``MM\\0*``, BigTIFF): ``data/tiff.py``, libtiff's RGBA
   reader as OpenCV drives it;
 * GIF (``GIF87a``, ``GIF89a``): ``data/gif.py``, OpenCV's own decoder's
   first frame;
 * WebP (``RIFF....WEBP``): ``data/webp.py``, libwebp's lossy and lossless
-  decoders as OpenCV calls them.
+  decoders as OpenCV calls them;
+* JPEG 2000 (a JP2 file or a raw ``FF 4F FF 51`` codestream):
+  ``data/jp2.py`` + ``csrc/jp2.cpp``, OpenJPEG 2.5's samples and OpenCV's
+  conversion to 8-bit BGR;
+* Radiance HDR (``#?RADIANCE``, ``#?RGBE``): ``data/hdr.py``, Greg Ward's
+  RGBE reader and ``convertTo`` as OpenCV uses them.
 
-Anything else raises ``IOError``, naming the other formats cv2 reads by
-their signatures (JPEG 2000, AVIF, Radiance HDR, PFM, PAM, Sun raster). A
-file a decoder takes but cannot read (a refused JPEG mode, a bad CRC,
+Anything else raises ``IOError``; AVIF, the one other format cv2 reads, is
+named. A file a decoder takes but cannot read (a refused mode, a bad CRC,
 truncated data) raises ``ValueError`` naming what failed, where
 ``cv2.imread`` returns None.
 
@@ -52,13 +70,11 @@ from typing import Union
 
 import numpy as np
 
-from feartracker_tpu_torch.data import gif, jpeg, tiff, webp
+from feartracker_tpu_torch.data import gif, hdr, jp2, jpeg, tiff, webp
 
 SOURCE = jpeg.PACKAGE_DIR / "csrc" / "imgcodecs.cpp"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# signatures of formats cv2 reads that this module does not, named in the error
-OTHER_FORMATS = ((b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
-                 (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"), (b"\x59\xa6\x6a\x95", "Sun raster"))
+READ = "JPEG, PNG, BMP, PNM, PAM, PFM, Sun raster, TIFF, GIF, WebP, JPEG 2000 and Radiance HDR"
 
 
 @functools.cache
@@ -78,13 +94,23 @@ def load_library() -> ctypes.CDLL:
     lib.gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
                             ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p, ctypes.c_int]
     lib.gif_lzw.restype = ctypes.c_int
+    lib.hdr_rle.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_char_p, ctypes.c_int]
+    lib.hdr_rle.restype = ctypes.c_int
     return lib
+
+
+def check_size(width: int, height: int, what: str) -> None:
+    """OpenCV's ``validateInputImageSize``: sides above 0 and at most 2^20,
+    at most 2^30 pixels."""
+    if not (0 < width <= 1 << 20 and 0 < height <= 1 << 20 and width * height <= 1 << 30):
+        raise ValueError(f"{what} of size {width}x{height}: outside cv2's image size limits")
 
 
 def format_of(data: bytes) -> str:
     """The format cv2 would pick for these leading bytes: "jpeg", "png",
-    "bmp", "pnm", "tiff", "gif", "webp", or the name of one this module does
-    not read, or ""."""
+    "bmp", "pnm", "pam", "pfm", "sun", "tiff", "gif", "webp", "jp2", "hdr",
+    "AVIF" (named, not read), or ""."""
     if data[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if data[:8] == PNG_SIGNATURE:
@@ -102,10 +128,16 @@ def format_of(data: bytes) -> str:
     if data[4:12] in (b"ftypavif", b"ftypavis"):
         return "AVIF"
     if len(data) >= 3 and data[:2] in (b"PF", b"Pf") and data[2:3].isspace():
-        return "PFM"
+        return "pfm"
     if len(data) >= 3 and data[:2] == b"P7" and data[2:3].isspace():
-        return "PAM"
-    return next((name for sig, name in OTHER_FORMATS if data.startswith(sig)), "")
+        return "pam"
+    if jp2.is_jp2(data):
+        return "jp2"
+    if hdr.is_hdr(data):
+        return "hdr"
+    if data.startswith(SUN_RASTER_SIGNATURE):
+        return "sun"
+    return ""
 
 
 def imread(src: Union[str, os.PathLike, bytes, bytearray, memoryview]) -> np.ndarray:
@@ -117,23 +149,12 @@ def imread(src: Union[str, os.PathLike, bytes, bytearray, memoryview]) -> np.nda
     else:
         data = bytes(src)
     kind = format_of(data)
-    if kind == "jpeg":
-        return jpeg.decode_jpeg(data)
-    if kind == "png":
-        return decode_png(data)
-    if kind == "bmp":
-        return decode_bmp(data)
-    if kind == "pnm":
-        return decode_pnm(data)
-    if kind == "tiff":
-        return tiff.decode_tiff(data)
-    if kind == "gif":
-        return gif.decode_gif(data)
-    if kind == "webp":
-        return webp.decode_webp(data)
+    decode = DECODERS.get(kind)
+    if decode is not None:
+        return decode(data)
     if kind:
-        raise IOError(f"{kind} images are not read here (JPEG, PNG, BMP, PNM, TIFF, GIF and WebP are)")
-    raise IOError("no JPEG, PNG, BMP, PNM, TIFF, GIF or WebP signature: not a format read here")
+        raise IOError(f"{kind} images are not read here ({READ} are)")
+    raise IOError(f"no {READ.replace(' and ', ' or ')} signature: not a format read here")
 
 
 # -- PNG ------------------------------------------------------------------------
@@ -459,3 +480,211 @@ def decode_pnm(data: bytes) -> np.ndarray:
         img = raw[0::2] if maxval > 255 else raw
     img = img.reshape(H, W, channels)
     return np.ascontiguousarray(img if channels == 3 else np.repeat(img, 3, axis=2))
+
+
+# -- PAM ------------------------------------------------------------------------
+
+PAM_TUPLTYPES = {b"BLACKANDWHITE": 1, b"GRAYSCALE": 1, b"GRAYSCALE_ALPHA": 2, b"RGB": 3, b"RGB_ALPHA": 4}
+PAM_FIELDS = (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL", b"TUPLTYPE", b"ENDHDR")
+
+
+def pam_header(data: bytes) -> dict:
+    """OpenCV's ``PAMDecoder::readHeader``: width, height, depth, maxval,
+    the tuple type's channel count (None where there is none) and the
+    offset of the samples; ``ValueError`` where it reads nothing."""
+    n, pos = len(data), 3
+    fields = {}
+    while True:
+        while pos < n and data[pos] in _SPACE:
+            pos += 1
+        if pos >= n:
+            raise ValueError("PAM header ends before ENDHDR")
+        if data[pos] == 35:  # '#': to the end of the line
+            while pos < n and data[pos] not in b"\n\r":
+                pos += 1
+            pos += 1
+            continue
+        start = pos
+        while pos < n and data[pos] not in _SPACE:
+            pos += 1
+        ident = data[start:pos]
+        if ident not in PAM_FIELDS:
+            raise ValueError(f"PAM header: unknown field {ident[:16]!r}")
+        value = b""
+        if pos < n and data[pos] not in b"\n\r":
+            while pos < n and data[pos] in _SPACE:
+                pos += 1
+            start = pos
+            while pos < n and data[pos] not in b"\n\r":
+                pos += 1
+            value = data[start:pos].rstrip(_SPACE)
+        pos += 1  # the line end
+        if ident == b"ENDHDR":
+            if value:
+                raise ValueError("PAM header: ENDHDR followed by more text")
+            break
+        if ident in fields:
+            raise ValueError(f"PAM header: {ident.decode()} given twice")
+        if ident == b"TUPLTYPE":
+            if value and value not in PAM_TUPLTYPES:
+                raise ValueError(f"PAM tuple type {value[:32]!r} is not read (cv2 reads "
+                                 f"{', '.join(t.decode() for t in PAM_TUPLTYPES)})")
+            fields[ident] = PAM_TUPLTYPES.get(value)
+        else:
+            if not value.isdigit():
+                raise ValueError(f"PAM header: {ident.decode()} {value[:16]!r} is not a number")
+            fields[ident] = int(value)
+    missing = [f.decode() for f in PAM_FIELDS[:4] if f not in fields]
+    if missing:
+        raise ValueError(f"PAM header without {', '.join(missing)}")
+    width, height, depth, maxval = (fields[f] for f in PAM_FIELDS[:4])
+    channels = fields.get(b"TUPLTYPE")
+    if maxval > 65535:
+        raise ValueError(f"PAM header: maxval {maxval}")
+    check_size(width, height, "PAM")
+    if channels is None:
+        if maxval >= 256 or depth not in (1, 3):
+            raise ValueError("PAM without a tuple type of depth other than 1 or 3 or maxval above 255: cv2 cannot "
+                             "determine its format")
+    elif channels != depth:
+        raise ValueError(f"PAM depth {depth} does not fit its tuple type")
+    return {"width": width, "height": height, "depth": depth, "maxval": maxval, "offset": pos}
+
+
+def decode_pam(data: bytes) -> np.ndarray:
+    """P7 bytes → (H, W, 3) uint8 RGB as ``cv2.imread`` gives them: maxval 1
+    reads the rows' first bytes as packed bits (1 = white), maxval above 255
+    reads big-endian 16-bit samples as ``v >> 8``, other samples are taken as
+    they are (maxval does not scale them); depth 3 lands in cv2's BGR order as
+    stored (an RGB file reads with red and blue swapped), depth 1 is grey.
+    Tuple types with alpha raise above maxval 1: cv2's pixels for them
+    come from memory past its row buffer."""
+    hd = pam_header(data)
+    W, H, D, maxval, off = hd["width"], hd["height"], hd["depth"], hd["maxval"], hd["offset"]
+    size = 2 if maxval > 255 else 1
+    rows = _bytes_at(data, off, H * W * D * size, "PAM data").reshape(H, W * D * size)
+    if maxval == 1:
+        bits = np.unpackbits(rows[:, :(W + 7) // 8], axis=1)[:, :W]
+        return np.repeat((bits * np.uint8(255))[..., None], 3, axis=2)
+    if D in (2, 4):
+        raise ValueError("PAM with alpha (GRAYSCALE_ALPHA, RGB_ALPHA) above maxval 1: OpenCV 5.0's conversion reads "
+                         "past its row buffer, so cv2.imread's pixels are not defined; not read")
+    samples = (rows[:, 0::2] if size == 2 else rows).reshape(H, W, D)
+    if D == 3:
+        return np.ascontiguousarray(samples[..., ::-1])
+    return np.repeat(samples, 3, axis=2)
+
+
+# -- PFM ------------------------------------------------------------------------
+
+_INT_PREFIX = re.compile(rb"[+-]?\d+")
+_FLOAT_PREFIX = re.compile(rb"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?")
+
+
+def _pfm_token(data: bytes, pos: int):
+    """OpenCV's ``read_number``: the bytes up to one white-space byte, which is
+    consumed. → (token, pos)."""
+    end = pos
+    while end < len(data) and data[end] not in _SPACE:
+        end += 1
+    if end >= len(data):
+        raise ValueError("PFM header ends early")
+    return data[pos:end], end + 1
+
+
+def pfm_header(data: bytes) -> dict:
+    """OpenCV's ``PFMDecoder::readHeader``: ``PF`` + a line break, then
+    width, height and scale, each ended by one white-space byte and read as
+    a stream reads a number from the token's start (0 where none)."""
+    if data[2:3] != b"\n":
+        raise ValueError("PFM: unexpected header format (expected a line break after PF)")
+    if data[1:2] == b"f":
+        raise ValueError("PFM with one channel (Pf): cv2.imread reads no grey PFM in colour mode")
+    tokens, pos = [], 3
+    for pattern in (_INT_PREFIX, _INT_PREFIX, _FLOAT_PREFIX):
+        tok, pos = _pfm_token(data, pos)
+        m = pattern.match(tok)
+        tokens.append(float(m.group(0)) if m and pattern is _FLOAT_PREFIX else int(m.group(0)) if m else 0)
+    width, height, scale = tokens
+    check_size(width, height, "PFM")
+    if scale == 0:
+        raise ValueError("PFM scale factor 0")
+    return {"width": width, "height": height, "scale": scale, "offset": pos}
+
+
+def decode_pfm(data: bytes) -> np.ndarray:
+    """PF bytes → (H, W, 3) uint8 RGB as ``cv2.imread`` gives them: rows
+    bottom-up, little-endian where the scale is negative; each sample times
+    float32(1 / |scale|), rounded half to even and saturated; NaN, ±inf and
+    anything that rounds outside int32 read 0."""
+    hd = pfm_header(data)
+    W, H = hd["width"], hd["height"]
+    raw = _bytes_at(data, hd["offset"], W * H * 12, "PFM data")
+    img = raw.view("<f4" if hd["scale"] < 0 else ">f4").astype(np.float32).reshape(H, W, 3)[::-1]
+    if abs(hd["scale"]) != 1:
+        with np.errstate(over="ignore", invalid="ignore"):
+            img = img * np.float32(1.0 / abs(hd["scale"]))
+    return saturate_u8(img)
+
+
+def saturate_u8(values: np.ndarray) -> np.ndarray:
+    """OpenCV's ``saturate_cast<uchar>`` of floats: rounded half to even,
+    then clamped to 0-255, except that NaN, ±inf and whatever rounds outside
+    int32 give 0 (the x86 conversion's out-of-range value, INT_MIN)."""
+    with np.errstate(invalid="ignore"):
+        r = np.rint(values.astype(np.float64))
+        bad = ~np.isfinite(r) | (r >= 2.0 ** 31) | (r < -(2.0 ** 31))
+        return np.where(bad, 0, np.clip(np.nan_to_num(r), 0, 255)).astype(np.uint8)
+
+
+# -- Sun raster -----------------------------------------------------------------
+
+SUN_RASTER_SIGNATURE = b"\x59\xa6\x6a\x95"
+
+
+def sun_raster_header(data: bytes) -> dict:
+    """OpenCV's ``SunRasterDecoder::readHeader``: 1, 8, 24 or 32 bits; the
+    old and standard types only (its check of the byte-encoded and RGB
+    types compares the wrong field, so cv2 reads neither); no colour map, or
+    an equal-RGB one of at most 3 * 2^bits bytes for 1 and 8 bits."""
+    if len(data) < 32:
+        raise ValueError("Sun raster header is truncated")
+    _, width, height, bpp, _, kind, maptype, maplength = struct.unpack(">8i", data[:32])
+    palsize = 3 * (1 << bpp) if 0 < bpp <= 8 else 0
+    if bpp not in (1, 8, 24, 32):
+        raise ValueError(f"Sun raster of {bpp} bits (cv2 reads 1, 8, 24 and 32)")
+    check_size(width, height, "Sun raster")
+    if kind not in (0, 1):
+        raise ValueError(f"Sun raster type {kind} (byte-encoded, RGB or experimental) is not read by cv2, which "
+                         f"reads the old and standard types only")
+    if not ((maptype == 0 and maplength == 0) or (maptype == 1 and 0 < maplength <= palsize)):
+        raise ValueError(f"Sun raster colour map (type {maptype}, {maplength} bytes) is not read by cv2")
+    pal = np.zeros((256, 3), np.uint8)
+    if maplength:
+        m = _bytes_at(data, 32, maplength, "Sun raster colour map")
+        n = maplength // 3
+        pal[:n] = m[:3 * n].reshape(3, n).T
+    elif bpp <= 8:
+        pal[:1 << bpp] = np.repeat(np.linspace(0, 255, 1 << bpp).astype(np.uint8)[:, None], 3, axis=1)
+    return {"width": width, "height": height, "bpp": bpp, "palette": pal, "offset": 32 + maplength}
+
+
+def decode_sun_raster(data: bytes) -> np.ndarray:
+    """Sun raster bytes → (H, W, 3) uint8 RGB as ``cv2.imread`` gives them:
+    rows padded to 16 bits; 1 and 8 bits through the colour map (grey ramp
+    without one: 1 = white); 24 bits B, G, R; 32 bits X, B, G, R."""
+    hd = sun_raster_header(data)
+    W, H, bpp = hd["width"], hd["height"], hd["bpp"]
+    pitch = ((W * bpp + 7) // 8 + 1) & -2
+    rows = _bytes_at(data, hd["offset"], H * pitch, "Sun raster data").reshape(H, pitch)
+    if bpp == 1:
+        return hd["palette"][np.unpackbits(rows, axis=1)[:, :W]]
+    if bpp == 8:
+        return hd["palette"][rows[:, :W]]
+    px = rows[:, :bpp // 8 * W].reshape(H, W, bpp // 8)
+    return np.ascontiguousarray(px[..., 2::-1] if bpp == 24 else px[..., 3:0:-1])
+
+
+DECODERS = {"jpeg": jpeg.decode_jpeg, "png": decode_png, "bmp": decode_bmp, "pnm": decode_pnm, "pam": decode_pam,
+            "pfm": decode_pfm, "sun": decode_sun_raster, "tiff": tiff.decode_tiff, "gif": gif.decode_gif,
+            "webp": webp.decode_webp, "jp2": jp2.decode_jp2, "hdr": hdr.decode_hdr}

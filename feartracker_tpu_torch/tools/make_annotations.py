@@ -14,9 +14,10 @@ tool's byte for byte (pandas' ``to_csv(index=False)``: minimal quoting,
 
 Frame sizes come from the file's header, not from decoding it: a JPEG's SOFn
 marker, a PNG's IHDR chunk (each swapped where its EXIF / eXIf orientation is
-5-8, as ``cv2.imread`` rotates such frames), a BMP or PNM header as OpenCV's
-decoders read it, an ``.npy`` header; ``(0, 0)`` for a file none of these
-reads, where ``cv2.imread`` returns None. GOT-10k, LaSOT and
+5-8, as ``cv2.imread`` rotates such frames), a BMP, PNM, PAM, PFM, Sun
+raster, TIFF, GIF, WebP, JPEG 2000 (SIZ, after cv2's checks) or Radiance
+HDR header as OpenCV's decoders read it, an ``.npy`` header; ``(0, 0)`` for
+a file none of these reads, where ``cv2.imread`` returns None. GOT-10k, LaSOT and
 TrackingNet frames are ``*.jpg``; a sequence without any takes its ``*.npy``
 frames (``tools/make_synthetic_dataset.py``'s trees).
 
@@ -37,8 +38,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from feartracker_tpu_torch.data import jp2
 from feartracker_tpu_torch.data.gif import first_image
-from feartracker_tpu_torch.data.imread import bmp_header, format_of, pnm_header, tiff_orientation
+from feartracker_tpu_torch.data.hdr import hdr_header
+from feartracker_tpu_torch.data.imread import (bmp_header, format_of, pam_header, pfm_header, pnm_header,
+                                               sun_raster_header, tiff_orientation)
 from feartracker_tpu_torch.data.tiff import tiff_header
 from feartracker_tpu_torch.data.webp import webp_header
 from feartracker_tpu_torch.data.sequence import _read_gt
@@ -121,8 +125,9 @@ def _png_shape(data: bytes) -> Tuple[int, int]:
 
 def frame_shape(img_path: str) -> Tuple[int, int]:
     """A frame's (W, H) from its header alone: what ``cv2.imread``'s array
-    gives for a JPEG, PNG, BMP, PNM, TIFF, GIF or WebP file (picked by
-    signature, as cv2 picks its decoder; after the orientation cv2 applies),
+    gives for a JPEG, PNG, BMP, PNM, PAM, PFM, Sun raster, TIFF, GIF, WebP,
+    JPEG 2000 or Radiance HDR file (picked by signature, as cv2 picks its
+    decoder; after the orientation cv2 applies),
     the array's for an ``.npy`` file; ``(0, 0)`` where none of these reads
     the header or the reader refuses what it names."""
     try:
@@ -151,6 +156,12 @@ def frame_shape(img_path: str) -> Tuple[int, int]:
             if kind == "webp":
                 hd = webp_header(head + fh.read())
                 return (hd["height"], hd["width"]) if hd["orientation"] in (5, 6, 7, 8) else (hd["width"], hd["height"])
+            if kind == "jp2":  # the image area after cv2's checks (signed, offset, sub-sampled, colour space, ...)
+                return jp2.frame_size(head + fh.read())
+            header = {"pam": pam_header, "pfm": pfm_header, "sun": sun_raster_header, "hdr": hdr_header}.get(kind)
+            if header is not None:
+                hd = header(head + fh.read())
+                return hd["width"], hd["height"]
     except (OSError, ValueError):
         pass
     return 0, 0

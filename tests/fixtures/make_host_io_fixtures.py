@@ -15,7 +15,12 @@
   P1-P6; CMYK, YCCK, sampling factors up to 4, progressive files with scans
   removed; a PNG named ``.JPEG``), a 1280x720 CMYK JPEG for phase 20a's
   timing, and ``manifest.json`` with the sha256 of ``cv2.imread``'s pixels
-  (RGB bytes) of each.
+  (RGB bytes) of each; phase 21's TIFF, WebP, GIF and JPEG-mode files
+  (``manifest_tiff_webp_gif.json``) and phase 22's JPEG 2000, PAM, PFM,
+  Sun raster and Radiance HDR files (``manifest_jp2_hdr_pam.json``);
+* ``tests/fixtures/jp2_got10k/``: phase 22b's GOT-10k val tree of JPEG 2000
+  frames (PIL's OpenJPEG) and ``record.json`` (each file's sha256 and the
+  port's OPE result over it on this host's CPU).
 
     python tests/fixtures/make_host_io_fixtures.py
 
@@ -1502,6 +1507,274 @@ TIMING_FILES = {
 FORMAT_MANIFEST = "manifest_tiff_webp_gif.json"
 
 
+# -- JPEG 2000, PAM, PFM, Sun raster and Radiance HDR (phase 22) ---------------
+
+def jp2_pil(img, **kw) -> bytes:
+    """A JPEG 2000 file (JP2, or a raw codestream with ``no_jp2=True``) of
+    an (H, W), (H, W, 3) or (H, W, 4) uint8 or (H, W) uint16 frame, written
+    by PIL's OpenJPEG with its keyword options."""
+    from PIL import Image
+
+    if img.dtype == np.uint16:
+        im = Image.fromarray(img).convert("I;16")
+    else:
+        im = Image.fromarray(img, "L" if img.ndim == 2 else {2: "LA", 3: "RGB", 4: "RGBA"}[img.shape[2]])
+    buf = io.BytesIO()
+    im.save(buf, "JPEG2000", **kw)
+    return buf.getvalue()
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_top_boxes(data: bytes):
+    """(type, whole box bytes) of each top-level box of a JP2 file."""
+    pos, out = 0, []
+    while pos < len(data):
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        size = size or len(data) - pos
+        out.append((kind, data[pos:pos + size]))
+        pos += size
+    return out
+
+
+def jp2_header_boxes(data: bytes, boxes) -> bytes:
+    """The JP2 file with its header box holding its ihdr and then
+    ``boxes`` (whole boxes: colr, pclr, cmap, cdef, ...) in their place."""
+    out = b""
+    for kind, whole in jp2_top_boxes(data):
+        if kind == b"jp2h":
+            kids = jp2_top_boxes(whole[8:])
+            whole = jp2_box(b"jp2h", b"".join(k for t, k in kids if t == b"ihdr") + b"".join(boxes))
+        out += whole
+    return out
+
+
+def colr(enumcs: int) -> bytes:
+    return jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+
+
+def jp2_palette(indices, palette, bits: int) -> bytes:
+    """A JP2 of one 8-bit index component mapped through ``palette``
+    ((n, 3) values below 2**bits) by pclr and cmap boxes, sRGB."""
+    n = len(palette)
+    k = (bits + 7) // 8
+    body = struct.pack(">HB", n, 3) + bytes([bits - 1] * 3) + b"".join(
+        int(v).to_bytes(k, "big") for v in np.asarray(palette).ravel())
+    cmap = b"".join(struct.pack(">HBB", 0, 1, i) for i in range(3))
+    return jp2_header_boxes(jp2_pil(indices.astype(np.uint8)),
+                            [colr(16), jp2_box(b"pclr", body), jp2_box(b"cmap", cmap)])
+
+
+def jp2_cdef(img, channels) -> bytes:
+    """An RGB JP2 with a cdef box of (channel, type, association) entries."""
+    body = struct.pack(">H", len(channels)) + b"".join(struct.pack(">HHH", *c) for c in channels)
+    return jp2_header_boxes(jp2_pil(img), [colr(16), jp2_box(b"cdef", body)])
+
+
+def jp2_siz(data: bytes, precision=None, sampling=None) -> bytes:
+    """The file with its SIZ segment edited: every component's precision
+    (bits), or component c's sub-sampling ``sampling[c]`` = (dx, dy)."""
+    b = bytearray(data)
+    at = data.index(b"\xff\x4f\xff\x51")
+    (n,) = struct.unpack(">H", b[at + 40:at + 42])
+    for c in range(n):
+        if precision is not None:
+            b[at + 42 + 3 * c] = precision - 1
+        if sampling and c in sampling:
+            b[at + 43 + 3 * c], b[at + 44 + 3 * c] = sampling[c]
+    return bytes(b)
+
+
+def pam(samples, maxval: int, tupltype=None) -> bytes:
+    """A PAM (P7) of (H, W, depth) integer samples, 16-bit big-endian above
+    maxval 255."""
+    h, w, d = samples.shape
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {d}\nMAXVAL {maxval}\n"
+    head += f"TUPLTYPE {tupltype}\n" if tupltype else ""
+    body = samples.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return (head + "ENDHDR\n").encode() + body
+
+
+def pfm(values, scale: float = -1.0) -> bytes:
+    """A PFM of (H, W, 3) (``PF``) or (H, W) (``Pf``) floats, rows
+    bottom-up, little-endian for a negative scale."""
+    h, w = values.shape[:2]
+    kind = "PF" if values.ndim == 3 else "Pf"
+    order = "<f4" if scale < 0 else ">f4"
+    return f"{kind}\n{w} {h}\n{scale}\n".encode() + np.ascontiguousarray(values[::-1]).astype(order).tobytes()
+
+
+def sun_raster(rows, w: int, h: int, bpp: int, kind: int = 1, cmap: bytes = b"", maptype=None) -> bytes:
+    """A Sun raster of ``rows`` ((h, bytes a row) uint8, unpadded), each row
+    padded to 16 bits; ``cmap`` an equal-RGB colour map (all reds, greens,
+    then blues)."""
+    pitch = ((w * bpp + 7) // 8 + 1) & ~1
+    body = np.zeros((h, pitch), np.uint8)
+    body[:, :rows.shape[1]] = rows
+    maptype = (1 if cmap else 0) if maptype is None else maptype
+    return struct.pack(">8I", 0x59A66A95, w, h, bpp, h * pitch, kind, maptype, len(cmap)) + cmap + body.tobytes()
+
+
+def hdr(values, rle=True) -> bytes:
+    """cv2's Radiance writer (run-length scanlines or flat) of (H, W, 3)
+    RGB floats."""
+    mode = cv2.IMWRITE_HDR_COMPRESSION_RLE if rle else cv2.IMWRITE_HDR_COMPRESSION_NONE
+    return cv2.imencode(".hdr", np.ascontiguousarray(values[..., ::-1]).astype(np.float32),
+                        [cv2.IMWRITE_HDR_COMPRESSION, mode])[1].tobytes()
+
+
+def _floats(seed, h, w, c=3, top=2.0):
+    rng = np.random.RandomState(seed)
+    return (rng.rand(h, w, c) * top).astype(np.float32)
+
+
+def _special_floats(seed, h, w):
+    """Floats around 0-255 with halves, NaN, ±inf and values past int32."""
+    v = _floats(seed, h, w, top=300.0) - 20
+    v[0, :8, 0] = [np.nan, np.inf, -np.inf, 3e9, 2.5, 254.5, 255.5, 0.5]
+    return v
+
+
+JP2_FILES = {
+    "jp2_53_rgb.jp2": ("JPEG 2000 5/3 RGB + RCT", lambda: jp2_pil(_img(60, 37, 45), mct=1)),
+    "jp2_97_rgb.jp2": ("JPEG 2000 9/7 RGB + ICT", lambda: jp2_pil(_img(61, 41, 53), irreversible=True, mct=1)),
+    "jp2_97_layers_pcrl.jp2": ("JPEG 2000 9/7, 3 layers, PCRL, precincts 32, 4 resolutions", lambda: jp2_pil(
+        _img(62, 70, 66), irreversible=True, mct=1, quality_mode="rates", quality_layers=[30, 10, 4],
+        progression="PCRL", precinct_size=(32, 32), num_resolutions=4, codeblock_size=(16, 16))),
+    "jp2_53_rlcp.jp2": ("JPEG 2000 5/3 RLCP, 2 layers", lambda: jp2_pil(_img(63, 33, 47), progression="RLCP",
+                                                                        quality_layers=[20, 1])),
+    "jp2_97_rpcl_tiles.jp2": ("JPEG 2000 9/7 RPCL, 24x17 tiles, precincts 16", lambda: jp2_pil(
+        _img(64, 50, 56), irreversible=True, mct=1, tile_size=(24, 17), progression="RPCL",
+        precinct_size=(16, 16), num_resolutions=3)),
+    "jp2_53_cprl.jp2": ("JPEG 2000 5/3 CPRL, precincts 32", lambda: jp2_pil(_img(65, 50, 61), progression="CPRL",
+                                                                            precinct_size=(32, 32))),
+    "jp2_97_cblk_4x64.jp2": ("JPEG 2000 9/7 code-blocks 4x64", lambda: jp2_pil(
+        _img(66, 45, 70), irreversible=True, codeblock_size=(4, 64))),
+    "jp2_53_res1.jp2": ("JPEG 2000 5/3, one resolution", lambda: jp2_pil(_img(67, 23, 31), num_resolutions=1)),
+    "jp2_97_res6.jp2": ("JPEG 2000 9/7, 6 resolutions", lambda: jp2_pil(_img(68, 48, 56), irreversible=True,
+                                                                        num_resolutions=6)),
+    "jp2_grey.jp2": ("JPEG 2000 grey", lambda: jp2_pil(_img(69, 40, 52)[..., 0], irreversible=True)),
+    "jp2_grey16.jp2": ("JPEG 2000 16-bit grey", lambda: jp2_pil(
+        (_img(70, 30, 38)[..., 0].astype(np.uint16) * 256 + _idx(70, 30, 38, 256).astype(np.uint16)))),
+    "jp2_rgba.jp2": ("JPEG 2000 RGBA (alpha dropped)", lambda: jp2_pil(_img(71, 29, 35, c=4))),
+    "jp2_97_mct0.jp2": ("JPEG 2000 9/7 RGB without MCT", lambda: jp2_pil(_img(72, 38, 44), irreversible=True)),
+    "jp2_97_plt.jp2": ("JPEG 2000 9/7 with PLT markers", lambda: jp2_pil(_img(73, 44, 39), irreversible=True, mct=1,
+                                                                         plt=True)),
+    "jp2_raw.j2k": ("JPEG 2000 raw codestream", lambda: jp2_pil(_img(74, 35, 42), irreversible=True, mct=1,
+                                                                no_jp2=True)),
+    "jp2_sycc.jp2": ("JPEG 2000 sYCC", lambda: jp2_header_boxes(jp2_pil(_img(75, 31, 37)), [colr(18)])),
+    "jp2_palette12.jp2": ("JPEG 2000 palette, 12-bit entries", lambda: jp2_palette(
+        _idx(76, 27, 33, 256), _pal(76, 256).astype(np.int64) * 16 + 5, 12)),
+    "jp2_cdef_bgr.jp2": ("JPEG 2000 cdef blue-first", lambda: jp2_cdef(_img(77, 26, 30), [(0, 0, 3), (1, 0, 2),
+                                                                                          (2, 0, 1)])),
+    "jp2_la_grey.jp2": ("JPEG 2000 grey + alpha", lambda: jp2_pil(_img(78, 24, 28, c=2))),
+    "jp2_12bit.jp2": ("JPEG 2000 12-bit (SIZ edited)", lambda: jp2_siz(jp2_pil(_img(79, 25, 27), mct=1), 12)),
+}
+PAM_PFM_SUN_HDR_FILES = {
+    "pam_rgb.pam": ("PAM RGB, no TUPLTYPE (cv2's writer)", lambda: cv2.imencode(".pam", _img(80, 23, 29))[1].tobytes()),
+    "pam_rgb16.pam": ("PAM RGB maxval 65535", lambda: pam(_idx(81, 19, 21, 65536).reshape(19, 7, 3), 65535, "RGB")),
+    "pam_grey100.pam": ("PAM GRAYSCALE maxval 100", lambda: pam(_idx(82, 17, 25, 101)[..., None], 100, "GRAYSCALE")),
+    "pam_bw.pam": ("PAM BLACKANDWHITE maxval 1 (packed bits)", lambda: pam(_idx(83, 13, 22, 2)[..., None], 1,
+                                                                          "BLACKANDWHITE")),
+    "pam_grey_alpha_bits.pam": ("PAM GRAYSCALE_ALPHA maxval 1", lambda: pam(_idx(84, 9, 17, 2).reshape(9, 17, 1)
+                                                                            .repeat(2, 2), 1, "GRAYSCALE_ALPHA")),
+    "pfm_le.pfm": ("PFM little-endian", lambda: pfm(_special_floats(85, 15, 19))),
+    "pfm_be_scale3.pfm": ("PFM big-endian, scale 3", lambda: pfm(_special_floats(86, 14, 18), 3.0)),
+    "sun_24.ras": ("Sun raster 24-bit (cv2's writer)", lambda: cv2.imencode(".ras", _img(87, 21, 27))[1].tobytes()),
+    "sun_32_old.ras": ("Sun raster 32-bit, old type", lambda: sun_raster(
+        _img(88, 11, 13, c=4).reshape(11, 52), 13, 11, 32, kind=0)),
+    "sun_8_map.ras": ("Sun raster 8-bit, colour map of 40", lambda: sun_raster(
+        _idx(89, 15, 21, 48).astype(np.uint8), 21, 15, 8, cmap=_pal(89, 40).astype(np.uint8).T.tobytes())),
+    "sun_8_grey.ras": ("Sun raster 8-bit, no map", lambda: sun_raster(_idx(90, 12, 17, 256).astype(np.uint8), 17, 12,
+                                                                      8)),
+    "sun_1.ras": ("Sun raster 1-bit", lambda: sun_raster(np.packbits(_idx(91, 10, 21, 2).astype(np.uint8), axis=1),
+                                                         21, 10, 1)),
+    "sun_1_map.ras": ("Sun raster 1-bit, colour map", lambda: sun_raster(
+        np.packbits(_idx(92, 9, 14, 2).astype(np.uint8), axis=1), 14, 9, 1, cmap=_pal(92, 2).astype(np.uint8).T.tobytes())),
+    "hdr_rle.hdr": ("Radiance HDR run-length (cv2's writer)", lambda: hdr(_floats(93, 21, 33))),
+    "hdr_flat.hdr": ("Radiance HDR flat", lambda: hdr(_floats(94, 13, 19), rle=False)),
+    "hdr_narrow.hdr": ("Radiance HDR 5 wide (flat by width)", lambda: hdr(_floats(95, 9, 5))),
+    "hdr_header.hdr": ("Radiance HDR #?RGBE, header lines", lambda: b"#?RGBE\n# made here\nEXPOSURE=2.0\n"
+                       b"FORMAT=32-bit_rle_rgbe\nGAMMA=2.2\n\n-Y 7 +X 12\n" + hdr(_floats(96, 7, 12)).split(
+                           b"+X 12\n", 1)[1]),
+}
+JP2_TIMING_FILES = {
+    "timing_jp2_97.jp2": ("JPEG 2000 9/7 rate 40", lambda: jp2_pil(_img(97, 720, 1280), irreversible=True, mct=1,
+                                                                   quality_mode="rates", quality_layers=[40])),
+    "timing_jp2_53.jp2": ("JPEG 2000 5/3", lambda: jp2_pil(_smooth(0, 720, 1280), mct=1)),
+    "timing_hdr_rle.hdr": ("Radiance HDR run-length", lambda: hdr(_smooth(0, 720, 1280).astype(np.float32) / 255)),
+}
+JP2_FORMAT_FILES = {**JP2_FILES, **PAM_PFM_SUN_HDR_FILES}
+JP2_MANIFEST = "manifest_jp2_hdr_pam.json"
+# phase 22b's tree: make_synthetic_dataset's 2 val sequences of 12 frames at a GOT-10k frame's size, each frame
+# written by PIL's OpenJPEG irreversible (ICT) at this rate under its .jpg name
+JP2_TREE_SEED, JP2_TREE_RATE, JP2_TREE_HW = 22, 80, (720, 1280)
+
+
+def write_jp2_fixtures(images_dir: str) -> None:
+    """Phase 22a's files (``JP2_FORMAT_FILES``, ``JP2_TIMING_FILES``) and
+    their manifest of cv2's pixels."""
+    files = {**JP2_FORMAT_FILES, **JP2_TIMING_FILES}
+    for name, (_kind, make) in files.items():
+        with open(os.path.join(images_dir, name), "wb") as fh:
+            fh.write(make())
+    with open(os.path.join(images_dir, JP2_MANIFEST), "w") as fh:
+        json.dump(image_manifest(images_dir, files), fh, indent=1)
+
+
+def tree_files(root: str) -> dict:
+    """{path relative to root: sha256} of every file under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            if os.path.relpath(path, root) != chip_smoke.JP2_TREE_RECORD:
+                with open(path, "rb") as fh:
+                    out[os.path.relpath(path, root).replace(os.sep, "/")] = chip_smoke._sha(fh.read())
+    return dict(sorted(out.items()))
+
+
+def write_jp2_tree(root: str) -> dict:
+    """Phase 22b's GOT-10k val tree under ``root`` and its record: the
+    files' sha256s, the rate, the frame size, the bytes, and the port's OPE
+    result over it on this host's CPU (``FEARTracker`` FEAR-XS, float32)."""
+    import shutil
+
+    import torch
+
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
+
+    shutil.rmtree(root, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        generate(tmp, tracks=0, frames=12, val_sequences=2, seed=JP2_TREE_SEED, size=JP2_TREE_HW)
+        src = os.path.join(tmp, "got10k", "val")
+        for d, _, files in os.walk(src):
+            out = os.path.join(root, "val", os.path.relpath(d, src))
+            os.makedirs(out, exist_ok=True)
+            for f in files:
+                if f.endswith(".npy"):
+                    data = jp2_pil(np.load(os.path.join(d, f)), irreversible=True, mct=1, quality_mode="rates",
+                                   quality_layers=[JP2_TREE_RATE])
+                    with open(os.path.join(out, f[:-4] + ".jpg"), "wb") as fh:
+                        fh.write(data)
+                else:
+                    shutil.copyfile(os.path.join(d, f), os.path.join(out, f))
+    files = tree_files(root)
+    ds = GOT10kDataset(root, "val")
+    with torch.inference_mode():
+        ao = evaluate_tracker(chip_smoke._fear_tracker("cpu", torch.float32), ds)
+    size = sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    record = {"seed": JP2_TREE_SEED, "rate": JP2_TREE_RATE, "frame_hw": list(JP2_TREE_HW), "bytes": size,
+              "lengths": [len(ds[i][0]) for i in range(len(ds))], "files": files, "ope_cpu": ao}
+    with open(os.path.join(root, chip_smoke.JP2_TREE_RECORD), "w") as fh:
+        json.dump(record, fh, indent=1)
+    return record
+
+
 def image_manifest(images_dir: str, files=None) -> dict:
     """cv2's pixels of every file in ``images_dir`` that ``files`` (default
     ``IMAGE_FILES``) names."""
@@ -1567,6 +1840,8 @@ def main():
     with open(os.path.join(images_dir, "manifest.json"), "w") as fh:
         json.dump(image_manifest(images_dir), fh, indent=1)
     write_format_fixtures(images_dir)
+    write_jp2_fixtures(images_dir)
+    write_jp2_tree(os.path.join(REPO, *chip_smoke.JP2_TREE))
     print(f"wrote {len(DECODE_FILES)} JPEGs, the manifest, {chip_smoke.HOST_ITEM_COUNT} item digests and "
           f"{len(IMAGE_FILES)} image fixtures")
 

@@ -274,9 +274,10 @@ def test_png_named_jpeg_reads(tmp_path):
 # -- what is not read --------------------------------------------------------------
 
 def test_other_formats_raise_naming_the_format(tmp_path):
-    """TIFF, WebP and GIF, as cv2 and PIL write them, read equal to cv2;
-    the formats cv2 reads and the port does not yet raise ``IOError`` naming
-    them; bytes of no format name the signatures looked for."""
+    """TIFF, WebP and GIF, as cv2 and PIL write them, and JPEG 2000, PAM,
+    PFM, Radiance HDR and Sun raster, as cv2 writes them, read equal to cv2;
+    AVIF, which cv2 reads and the port does not yet, raises ``IOError``
+    naming it; bytes of no format name the signatures looked for."""
     img = W._img(1, 16, 16)
     from PIL import Image
 
@@ -292,10 +293,14 @@ def test_other_formats_raise_naming_the_format(tmp_path):
         path = tmp_path / f"a{ext}"
         path.write_bytes(data)
         assert jax_read_img(str(path)).shape == (64, 80, 3)  # cv2 reads it
-        with pytest.raises(IOError, match=name):
-            read_img(str(path))
-        with pytest.raises(IOError, match=name):
-            port_imread.imread(str(path))
+        if name == "AVIF":
+            with pytest.raises(IOError, match=name):
+                read_img(str(path))
+            with pytest.raises(IOError, match=name):
+                port_imread.imread(str(path))
+        else:
+            assert np.array_equal(read_img(str(path)), jax_read_img(str(path))), name
+            assert np.array_equal(port_imread.imread(str(path)), jax_read_img(str(path))), name
     for data in (b"not an image", b""):
         with pytest.raises(IOError, match="signature"):
             port_imread.imread(data)

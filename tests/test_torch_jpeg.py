@@ -178,8 +178,10 @@ def test_read_img_takes_jpeg_and_npy_and_names_the_rest(tmp_path):
     assert cv2.imwrite(str(tmp_path / "a.tif"), img)
     assert np.array_equal(read_img(str(tmp_path / "a.tif")), cv2.imread(str(tmp_path / "a.tif"))[..., ::-1])
     assert cv2.imwrite(str(tmp_path / "a.pam"), img)
-    with pytest.raises(IOError, match="PAM"):
-        read_img(str(tmp_path / "a.pam"))
+    assert np.array_equal(read_img(str(tmp_path / "a.pam")), cv2.imread(str(tmp_path / "a.pam"))[..., ::-1])
+    (tmp_path / "a.avif").write_bytes(cv2.imencode(".avif", img)[1].tobytes())
+    with pytest.raises(IOError, match="AVIF"):
+        read_img(str(tmp_path / "a.avif"))
     with pytest.raises(IOError, match="cannot read"):
         read_img(str(tmp_path / "missing.jpg"))
 

@@ -188,7 +188,7 @@ def test_port_imports_no_jax_or_reference():
         "train_flagship")} <= set(modules)
     # the frame reader of every format cv2.imread reads there, and the trace summary
     assert {f"feartracker_tpu_torch.{m}" for m in ("data.imread", "data.jpeg", "data.tiff", "data.gif", "data.webp",
-                                                   "tools.parse_trace")} <= set(modules)
+                                                   "data.jp2", "data.hdr", "tools.parse_trace")} <= set(modules)
 
 
 def test_chip_smoke_refuses_without_cuda():
