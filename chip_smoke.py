@@ -317,6 +317,25 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    (``pam_rgb``, ``pfm_rgb``, ``hdr_flat``, ``sun_raster`` below) and of
    22b's JPEG 2000 frames: rows equal to the same trees in JPEG, no zero
    frame size, no launch.
+23. CCITT fax, FillOrder 2, CMYK, CIELab and uncompressed YCbCr TIFF, cv2
+   blocked: 23a ``data/tiff.py`` + ``csrc/imgcodecs.cpp`` (``tiff_fax``,
+   ``tiff_cielab``) against the sha256s of cv2's pixels of the committed
+   ``tests/fixtures/images/manifest_tiff_fax_cmyk.json`` files (Modified
+   Huffman, RLEW, Group 3 1-D and 2-D, Group 4, strips and tiles, FillOrder
+   2; CMYK through every codec, planar, JPEG; CIELab 8 and 16 bits, a white
+   point, JPEG; YCbCr 1x1 to 4x4, tiles, ReferenceBlackWhite and
+   coefficients, planar; signed samples), and the decode ms of a 1280x720
+   Group 4 page, Group 3 2-D page, CMYK LZW, CIELab and YCbCr 2x2 frame on
+   one core; 23b the GOT-10k OPE over 19c's val frames rewritten (i) as
+   8-bit CMYK TIFF (``tiff_cmyk``: K = 0, so exact): the result equal to the
+   ``.npy`` run's, and (ii) as uncompressed YCbCr 2x2 TIFF
+   (``tiff_ycbcr22``, lossy): every file at the sha256 that
+   ``tests/fixtures/tiff_ope_record.json`` records from the CPU, the boxes
+   within 1 px and the AO within 0.01 of the CPU's there; K1 22 / K2 312
+   each; 23c ``make_annotations`` over GOT-10k and YouTube-BB trees of
+   Modified Huffman, CMYK, CIELab and YCbCr frames: rows equal to the same
+   trees in JPEG, no zero frame size, no launch, and the Modified Huffman
+   GOT-10k frames read back equal to their frames' thresholds.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -3520,6 +3539,7 @@ HOST_ITEM_COUNT = 64
 ISO_MEAN_ATOL = 1e-3
 HOSTAUG_STEPS, HOSTAUG_EPOCHS, HOSTAUG_WORKERS = 3, 2, 8
 HOSTAUG_FRAME_HW = (720, 1280)  # a GOT-10k frame's size
+HOST_OPE_SEED = 19  # phase 19b's generator seed
 HOST_CODEC_REPS = 20
 
 
@@ -3643,6 +3663,9 @@ def _phase_host_io(card, counters, lap, work: str, trace_dir: str):
         t22 = time.perf_counter()
         launches.update(_phase_jp2_hdr_pam(card, counters, lap, work, here))
         print(f"[22] phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
+        t23 = time.perf_counter()
+        launches.update(_phase_tiff_fax_cmyk(card, counters, lap, work, here, ope))
+        print(f"[23] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
     finally:
         del sys.modules["cv2"]
         if earlier is not None:
@@ -3651,6 +3674,21 @@ def _phase_host_io(card, counters, lap, work: str, trace_dir: str):
     _phase_trace_ops(card, lap, trace_dir)
     print(f"[20] phase 20 in {time.perf_counter() - t20:.1f} s", flush=True)
     return launches
+
+
+def host_ope_tree(data_root: str) -> str:
+    """Phase 19b's GOT-10k tree under ``data_root``: ``make_synthetic_dataset``
+    seed 19, 8 tracks (96 rows: 3 batches of 32 an epoch) and 2 val sequences
+    of 12 JPEG frames of a GOT-10k frame's size, the val split moved to
+    ``got10k/val``. → the tree's root (phase 19c's and 23b's OPE tree)."""
+    import os
+
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
+
+    generate(os.path.join(data_root, "got10k"), tracks=8, frames=12, val_sequences=2, seed=HOST_OPE_SEED,
+             size=HOSTAUG_FRAME_HW, fmt="jpg")
+    os.rename(os.path.join(data_root, "got10k", "got10k", "val"), os.path.join(data_root, "got10k", "val"))
+    return os.path.join(data_root, "got10k")
 
 
 def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
@@ -3666,7 +3704,6 @@ def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
     from feartracker_tpu_torch.data.loader import BatchLoader
     from feartracker_tpu_torch.data.sequence import GOT10kDataset
     from feartracker_tpu_torch.evaluate.got10k_eval import evaluate_tracker
-    from feartracker_tpu_torch.tools.make_synthetic_dataset import generate
     from feartracker_tpu_torch.train import loop as L
     from feartracker_tpu_torch.train.loop import Trainer
     from feartracker_tpu_torch.train.summary import read_events, scalars
@@ -3707,9 +3744,7 @@ def _phase_host_io_body(card, counters, lap, work, here, cv2_present, t19):
     # JPEG tree that the port's generator writes here
     data_root = os.path.join(work, "hostaug_data")
     t0 = time.perf_counter()
-    generate(os.path.join(data_root, "got10k"), tracks=8, frames=12, val_sequences=2, seed=19,
-             size=HOSTAUG_FRAME_HW, fmt="jpg")  # 96 rows: 3 batches of 32 an epoch
-    os.rename(os.path.join(data_root, "got10k", "got10k", "val"), os.path.join(data_root, "got10k", "val"))
+    host_ope_tree(data_root)
     gen_s = time.perf_counter() - t0
     exp = os.path.join(work, "hostaug_exp")
     cfg = _loop_config(data_root, exp, "HOSTAUG", [
@@ -3858,6 +3893,10 @@ UNREAD_SIGNATURES = (("AVIF", b"\x00\x00\x00\x20ftypavif"),)
 JP2_MANIFEST = "manifest_jp2_hdr_pam.json"  # phase 22a's files and cv2's pixels of each
 JP2_TREE = ("tests", "fixtures", "jp2_got10k")  # phase 22b's GOT-10k val tree of JPEG 2000 frames
 JP2_TREE_RECORD = "record.json"  # its files' sha256s, how it was written and the CPU's OPE result over it
+FAX_CMYK_MANIFEST = "manifest_tiff_fax_cmyk.json"  # phase 23a's files and cv2's pixels of each
+# phase 23b(ii): the sha256 of each frame of 19c's val tree rewritten by tiff_ycbcr22, and the CPU's OPE over it
+TIFF_OPE_RECORD = ("tests", "fixtures", "tiff_ope_record.json")
+YCBCR_OPE_PX, YCBCR_OPE_AO = 1.0, 0.01  # 23b(ii)'s gate against that record: PERF.md section 2's f32 gate
 PRETRAIN_MIX = ("cmyk.jpg", "cmyk_progressive.jpg", "ycck.jpg", "s411.jpg", "png_named.JPEG")
 VIDEO_FRAMES = 30
 
@@ -3881,15 +3920,16 @@ def _pack_codes(codes, widths, lsb_first: bool) -> bytes:
     least significant bit first (GIF), numpy only."""
     import numpy as np
 
+    codes, widths = np.asarray(codes, np.int64), np.asarray(widths, np.int64)
     ends = np.cumsum(widths)
-    bits = np.zeros(int(ends[-1]) + (-int(ends[-1]) % 8), np.uint8)
     starts = ends - widths
-    for w in np.unique(widths):
-        sel = widths == w
-        for b in range(int(w)):
-            shift = b if lsb_first else int(w) - 1 - b
-            bits[starts[sel] + b] = (codes[sel] >> shift) & 1
-    return np.packbits(bits, bitorder="little" if lsb_first else "big").tobytes()
+    # a code (at most 16 bits) lies in the 3 bytes from its first bit's byte on; the codes' bits do not
+    # overlap, so summing each byte's parts ORs them
+    v = codes << (starts % 8) if lsb_first else codes << (24 - starts % 8 - widths)
+    parts = [(v >> (8 * k if lsb_first else 16 - 8 * k)) & 255 for k in range(3)]
+    at = np.concatenate([starts // 8 + k for k in range(3)])
+    out = np.bincount(at, np.concatenate(parts), minlength=-(-int(ends[-1]) // 8) + 2)
+    return out[:-(-int(ends[-1]) // 8)].astype(np.uint8).tobytes()
 
 
 def _literal_lzw(data: bytes, tiff: bool):
@@ -3939,23 +3979,152 @@ def _ifd(entries, at: int) -> bytes:
 def tiff_lzw(img, rows: int = 16) -> bytes:
     """(H, W, 3) RGB uint8 → a TIFF of strips of ``rows`` rows, LZW
     compression (literal codes: ``_literal_lzw``) after predictor 2."""
+    return _tiff_strips(img, rows, 5, [(262, 3, [2])])
+
+
+def _tiff_file(strips, w: int, h: int, rows: int, bits, entries) -> bytes:
+    """A little-endian TIFF: the 8-byte header, ``strips`` (``rows`` image
+    rows each), then the IFD: the size, ``bits`` (one a sample), the strips'
+    offsets and counts, contiguous samples, and ``entries`` ((tag, type,
+    values): compression, photometric, ...)."""
     import struct
 
+    offsets, pos = [], 8
+    for st in strips:
+        offsets.append(pos)
+        pos += len(st)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, list(bits)), (273, 4, offsets), (277, 3, [len(bits)]),
+               (278, 4, [rows]), (279, 4, [len(st) for st in strips]), (284, 3, [1])] + list(entries)
+    return b"II" + struct.pack("<HI", 42, pos) + b"".join(strips) + _ifd(entries, pos)
+
+
+def _tiff_strips(samples, rows: int, compression: int, entries) -> bytes:
+    """A TIFF of (H, W, C) uint8 ``samples`` (contiguous) in strips of
+    ``rows`` rows: compression 1 (none) or 5 (LZW of literal codes, after
+    predictor 2); ``entries`` adds the photometric tag and any other."""
+    import numpy as np
+
+    h, w, c = samples.shape
+    v = samples.reshape(h, c * w)
+    if compression == 5:
+        d = v.astype(np.int16)
+        d[:, c:] = d[:, c:] - d[:, :-c]
+        v = (d & 255).astype(np.uint8)
+        strips = [_pack_codes(*_literal_lzw(v[y:y + rows].tobytes(), True), lsb_first=False)
+                  for y in range(0, h, rows)]
+        entries = list(entries) + [(317, 3, [2])]
+    else:
+        strips = [v[y:y + rows].tobytes() for y in range(0, h, rows)]
+    return _tiff_file(strips, w, h, rows, [8] * c, [(259, 3, [compression])] + list(entries))
+
+
+def tiff_cmyk(img, rows: int = 16) -> bytes:
+    """(H, W, 3) RGB uint8 → an 8-bit CMYK TIFF (photometric 5), LZW after
+    predictor 2: C, M, Y = 255 - R, G, B and K = 0, which libtiff's
+    ``k * (255 - C) / 255`` takes back to R, G, B exactly."""
+    import numpy as np
+
+    cmyk = np.concatenate([255 - img, np.zeros(img.shape[:2] + (1,), np.uint8)], axis=2)
+    return _tiff_strips(cmyk, rows, 5, [(262, 3, [5])])
+
+
+def tiff_ycbcr22(img, rows: int = 16) -> bytes:
+    """(H, W, 3) RGB uint8 → an uncompressed YCbCr TIFF (photometric 6),
+    YCbCrSubsampling 2x2: JPEG's full-range BT.601 conversion, each 2x2
+    block's Cb and Cr its four pixels' mean (lossy: the chroma is shared)."""
     import numpy as np
 
     h, w = img.shape[:2]
-    v = img.reshape(h, 3 * w).astype(np.int16)
-    diff = v.copy()
-    diff[:, 3:] = v[:, 3:] - v[:, :-3]
-    diff = (diff & 255).astype(np.uint8)
-    strips = [_pack_codes(*_literal_lzw(diff[y:y + rows].tobytes(), True), lsb_first=False) for y in range(0, h, rows)]
-    offsets, pos = [], 8
-    for s in strips:
-        offsets.append(pos)
-        pos += len(s)
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]), (259, 3, [5]), (262, 3, [2]), (273, 4, offsets),
-               (277, 3, [3]), (278, 4, [rows]), (279, 4, [len(s) for s in strips]), (284, 3, [1]), (317, 3, [2])]
-    return b"II" + struct.pack("<HI", 42, pos) + b"".join(strips) + _ifd(entries, pos)
+    ph, pw = -(-h // 2) * 2, -(-w // 2) * 2
+    rgb = np.pad(img.astype(np.float64), ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = np.clip(np.rint(0.299 * r + 0.587 * g + 0.114 * b), 0, 255).astype(np.uint8)
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+    mean = [np.clip(np.rint(c.reshape(ph // 2, 2, pw // 2, 2).mean(axis=(1, 3))), 0, 255).astype(np.uint8)
+            for c in (cb, cr)]
+    yb = y.reshape(ph // 2, 2, pw // 2, 2).transpose(0, 2, 1, 3).reshape(ph // 2, pw // 2, 4)
+    blocks = np.concatenate([yb, mean[0][..., None], mean[1][..., None]], axis=2)  # a block row = 2 pixel rows
+    per = max(1, rows // 2)  # block rows a strip
+    strips = [blocks[y:y + per].tobytes() for y in range(0, blocks.shape[0], per)]
+    return _tiff_file(strips, w, h, 2 * per, [8, 8, 8], [(259, 3, [1]), (262, 3, [6]), (530, 3, [2, 2])])
+
+
+def tiff_lab(img, rows: int = 16) -> bytes:
+    """(H, W, 3) RGB uint8 → an uncompressed 8-bit CIELab TIFF (photometric
+    8): sRGB (D65) to XYZ to L*a*b* against D50, L scaled to 0-255, a and b
+    as signed bytes."""
+    import numpy as np
+
+    c = img.astype(np.float64) / 255
+    c = np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+    xyz = c @ np.array([[0.4124, 0.2126, 0.0193], [0.3576, 0.7152, 0.1192], [0.1805, 0.0722, 0.9505]])
+    t = xyz / np.array([0.9642, 1.0, 0.8249])
+    f = np.where(t > 216 / 24389, np.cbrt(t), (24389 / 27 * t + 16) / 116)
+    lab = np.stack([116 * f[..., 1] - 16, 500 * (f[..., 0] - f[..., 1]), 200 * (f[..., 1] - f[..., 2])], axis=2)
+    out = np.empty(img.shape, np.uint8)
+    out[..., 0] = np.clip(np.rint(lab[..., 0] * 255 / 100), 0, 255)
+    out[..., 1:] = np.clip(np.rint(lab[..., 1:]), -128, 127).astype(np.int8).view(np.uint8)
+    return _tiff_strips(out, rows, 1, [(262, 3, [8])])
+
+
+# T.4's run-length codes, first bit first: white and black terminating codes
+# (runs 0-63), their make-up codes (64-1728), the shared make-up codes (1792-2560)
+T4_WHITE = ("00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 110100 110101 101010 "
+            "101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 0101011 0010011 0100100 0011000 00000010 "
+            "00000011 00011010 00011011 00010010 00010011 00010100 00010101 00010110 00010111 00101000 00101001 "
+            "00101010 00101011 00101100 00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 "
+            "01010101 00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 00110011 "
+            "00110100").split()
+T4_WHITE_MAKEUP = ("11011 10010 010111 0110111 00110110 00110111 01100100 01100101 01101000 01100111 011001100 "
+                   "011001101 011010010 011010011 011010100 011010101 011010110 011010111 011011000 011011001 "
+                   "011011010 011011011 010011000 010011001 010011010 011000 010011011").split()
+T4_BLACK = ("0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 00000100 00000111 "
+            "000011000 0000010111 0000011000 0000001000 00001100111 00001101000 00001101100 00000110111 00000101000 "
+            "00000010111 00000011000 000011001010 000011001011 000011001100 000011001101 000001101000 000001101001 "
+            "000001101010 000001101011 000011010010 000011010011 000011010100 000011010101 000011010110 "
+            "000011010111 000001101100 000001101101 000011011010 000011011011 000001010100 000001010101 "
+            "000001010110 000001010111 000001100100 000001100101 000001010010 000001010011 000000100100 "
+            "000000110111 000000111000 000000100111 000000101000 000001011000 000001011001 000000101011 "
+            "000000101100 000001011010 000001100110 000001100111").split()
+T4_BLACK_MAKEUP = ("0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 000000110101 "
+                   "0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 0000001001101 "
+                   "0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 0000001110111 "
+                   "0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 0000001011011 "
+                   "0000001100100 0000001100101").split()
+T4_MAKEUP = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 000000010101 000000010110 "
+             "000000010111 000000011100 000000011101 000000011110 000000011111").split()
+
+
+def _mh_run(n: int, black: bool) -> str:
+    """One run's Modified Huffman codes: 2560 make-ups, a make-up, a terminating code."""
+    out = []
+    while n > 2623:
+        out.append(T4_MAKEUP[-1])
+        n -= 2560
+    if n >= 64:
+        m = n // 64
+        out.append((T4_BLACK_MAKEUP if black else T4_WHITE_MAKEUP)[m - 1] if m <= 27 else T4_MAKEUP[m - 28])
+        n -= 64 * m
+    out.append((T4_BLACK if black else T4_WHITE)[n])
+    return "".join(out)
+
+
+def tiff_fax_mh(img) -> bytes:
+    """(H, W, 3) RGB uint8 → a bilevel TIFF, CCITT Modified Huffman
+    (compression 2: each row's runs, white first, byte-aligned), MinIsWhite:
+    black where the pixel's channel mean is below 128."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    black = img.astype(np.int32).sum(axis=2) < 3 * 128
+    data = bytearray()
+    for row in black:
+        runs = np.diff([0] + (np.flatnonzero(row[1:] != row[:-1]) + 1).tolist() + [w]).tolist()
+        bits = "".join(_mh_run(n, k % 2 == 1) for k, n in enumerate([0] * bool(row[0]) + runs))
+        bits += "0" * (-len(bits) % 8)
+        data += int(bits, 2).to_bytes(len(bits) // 8, "big")
+    return _tiff_file([bytes(data)], w, h, h, [1], [(259, 3, [2]), (262, 3, [0])])
 
 
 def webp_lossless(img) -> bytes:
@@ -4462,6 +4631,139 @@ def _phase_jp2_hdr_pam(card, counters, lap, work: str, here: str) -> dict:
     lap("22c")
     if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
         raise AssertionError("phase 22 imported cv2")
+    return launches
+
+
+def _phase_tiff_fax_cmyk(card, counters, lap, work: str, here: str, ope: dict) -> dict:
+    """Phase 23, cv2 blocked: the CCITT, FillOrder 2, CMYK, CIELab, YCbCr and
+    signed-sample TIFF fixtures against cv2's pixels and 1280x720 decode ms
+    (23a); phase 19c's OPE over its val frames rewritten as CMYK TIFF (exact)
+    and as YCbCr 2x2 TIFF against the CPU's recorded result (23b);
+    ``make_annotations`` over trees of fax, CMYK, CIELab and YCbCr frames
+    against the same trees in JPEG, the fax frames read back (23c). → each path's launches."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.data.dataset import read_img
+    from feartracker_tpu_torch.data.imread import imread
+    from feartracker_tpu_torch.data.jpeg import encode_jpeg
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.data.tiff import tiff_header
+    from feartracker_tpu_torch.evaluate import got10k_eval as ge
+
+    launches = {}
+    # 23a: the fixtures against cv2's pixels, made on the CPU with cv2 and PIL
+    images = os.path.join(here, *IMAGE_FIXTURES)
+    with open(os.path.join(images, FAX_CMYK_MANIFEST)) as fh:
+        manifest = json.load(fh)["decode"]
+    bad, timing = [], {}
+    for c in manifest:
+        path = os.path.join(images, c["file"])
+        img = read_img(path)
+        if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
+            bad.append(c["file"])
+        if c["file"].startswith("timing_"):
+            with open(path, "rb") as fh:
+                timing[c["kind"]] = fh.read()
+    if bad or len(timing) != 5:
+        raise AssertionError(f"23a: {bad} differ from cv2's pixels ({len(timing)} timing files)")
+    ms = {k: _decode_p50_ms(v, imread) for k, v in timing.items()}
+    print(f"[23a] data/tiff.py (+ csrc/imgcodecs.cpp tiff_fax, tiff_cielab), cv2 blocked: {len(manifest)} fixtures "
+          f"equal to cv2's pixels; 1280x720 decode p50 on one core "
+          f"{', '.join(f'{k} ({len(timing[k]) / 1e3:.0f} kB) {v:.2f} ms' for k, v in ms.items())} [{card}]",
+          flush=True)
+    lap("23a")
+
+    # 23b: phase 19c's OPE over its val frames rewritten as CMYK TIFF and as YCbCr 2x2 TIFF
+    with open(os.path.join(here, *TIFF_OPE_RECORD)) as fh:
+        record = json.load(fh)
+    want = _sequential_launches(ope["lengths"], _n_fused("fear_xs"))
+    results = {}
+    for fmt, encode in (("cmyk", tiff_cmyk), ("ycbcr", tiff_ycbcr22)):
+        root = os.path.join(work, f"tiff_{fmt}")
+        n = _rewrite_tree(ope["jpeg_root"], root, encode)
+        ds = GOT10kDataset(root, "val")
+        with open(ds[0][0][0], "rb") as fh:
+            first = fh.read()
+        if first[:4] != b"II*\x00" or tiff_header(first)["photometric"] != {"cmyk": 5, "ycbcr": 6}[fmt]:
+            raise AssertionError(f"23b: the {fmt} tree holds {first[:4]!r}")
+        differ = []
+        if fmt == "ycbcr":
+            for rel, digest in record["files"].items():
+                with open(os.path.join(root, rel), "rb") as fh:
+                    if _sha(fh.read()) != digest:
+                        differ.append(rel)
+        if differ:
+            raise AssertionError(f"23b: the YCbCr tree's files {differ} differ from the CPU's record")
+        tracker = _fear_tracker("cuda", torch.float32)
+        _zero(counters)
+        overlaps, names, precision, boxes = [], [], [], []
+        for i in range(len(ds)):  # evaluate_tracker's loop, the boxes kept
+            files, anno, _ = ds[i]
+            m = min(len(files), len(anno))
+            preds, _ = ge.run_sequence(tracker, files, anno[0], m)
+            gt = np.asarray(anno[1:m], np.float64)
+            overlaps.append(ge._overlap(preds[1:], gt))
+            precision.append(ge.precision_stats(preds[1:], gt))
+            names.append(ds.sequence_name(i))
+            boxes.append(np.asarray(preds, np.float64))
+        torch.cuda.synchronize()
+        got = _read(counters)
+        results[fmt] = (ge.summarize(overlaps, names, precision), boxes, got, n)
+        launches[f"tiff_{fmt}_ope"] = got
+        shutil.rmtree(root)
+    ao, _, got, n = results["cmyk"]
+    if ao != ope["ao"] or got != ope["launches"] or got != want or want != {"K1": 22, "K2": 312}:
+        raise AssertionError(f"23b(i): CMYK AO {ao['ao']!r} launches {got} against .npy {ope['ao']['ao']!r} "
+                             f"{ope['launches']}, schedule {want}")
+    ao_y, boxes_y, got_y, _ = results["ycbcr"]
+    px = max(float(np.abs(b - np.asarray(r)).max()) for b, r in zip(boxes_y, record["boxes_cpu"]))
+    d_ao = abs(ao_y["ao"] - record["ope_cpu"]["ao"])
+    if got_y != want or px > YCBCR_OPE_PX or d_ao > YCBCR_OPE_AO or len(boxes_y) != len(record["boxes_cpu"]):
+        raise AssertionError(f"23b(ii): YCbCr boxes {px} px, AO {ao_y['ao']!r} against the CPU's "
+                             f"{record['ope_cpu']['ao']!r}; launches {got_y}, schedule {want}")
+    print(f"[23b] GOT-10k OPE (FEARTracker FEAR-XS f32) over phase 19c's {len(ope['lengths'])} val sequences ({n} "
+          f"frames) rewritten under their .jpg names (i) as 8-bit CMYK TIFF (K = 0, LZW): every result equal to the "
+          f"run over .npy (AO {ao['ao']:.6f}), launches {got}; (ii) as uncompressed YCbCr 2x2 TIFF (lossy, every "
+          f"file at the CPU record's sha256): AO {ao_y['ao']:.6f} against the CPU's {record['ope_cpu']['ao']:.6f} "
+          f"(|d| {d_ao:.2e} <= {YCBCR_OPE_AO}), boxes within {px:.2e} px (<= {YCBCR_OPE_PX}) of the CPU's, launches "
+          f"{got_y}; each = the schedule [{card}]", flush=True)
+    lap("23b")
+
+    # 23c: make_annotations over trees of each layout against the same trees in JPEG
+    _zero(counters)
+    ann = os.path.join(work, "annotations23")
+    writers = {"jpg": lambda img: encode_jpeg(img, 90), "fax": tiff_fax_mh, "cmyk": tiff_cmyk, "lab": tiff_lab,
+               "ycbcr": tiff_ycbcr22}
+    rows = _annotation_rows(ann, writers, 23)
+    got = _read(counters)
+    if got != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"23c: make_annotations launched {got}")
+    # the fax tree's GOT-10k frames read back: each the threshold of its source frame
+    src_val, n_fax = os.path.join(ann, "src", "got10k", "val"), 0
+    for d, _, files in os.walk(src_val):
+        for f in files:
+            if f.endswith(".npy"):
+                black = np.load(os.path.join(d, f)).astype(np.int32).sum(axis=2) < 3 * 128
+                path = os.path.join(ann, "fax", "got10k", "val", os.path.relpath(d, src_val), f[:-4] + ".jpg")
+                if not np.array_equal(read_img(path), np.repeat(np.where(black, 0, 255)[..., None], 3, 2)):
+                    raise AssertionError(f"23c: {path} is not its frame's threshold")
+                n_fax += 1
+    if not n_fax:
+        raise AssertionError("23c: the fax tree holds no frame")
+    launches["tiff_fax_cmyk_annotations"] = got
+    n_rows = [len(t.splitlines()) - 1 for t in rows["jpg"]]
+    print(f"[23c] make_annotations over GOT-10k ({n_rows[0]} rows) and YouTube-BB ({n_rows[1]} rows) trees of CCITT "
+          f"Modified Huffman, CMYK, CIELab and YCbCr 2x2 TIFF frames: rows equal to the JPEG trees', no zero frame "
+          f"size, no launch; the {n_fax} Modified Huffman GOT-10k frames read back equal to their thresholds "
+          f"[{card}]", flush=True)
+    shutil.rmtree(ann)
+    lap("23c")
+    if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
+        raise AssertionError("phase 23 imported cv2")
     return launches
 
 

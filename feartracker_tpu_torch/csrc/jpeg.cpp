@@ -1279,7 +1279,7 @@ void smooth_idct(Component& c, int total_imcu_rows, uint8_t* plane, int ps) {
   }
 }
 
-enum { DECODE_BLUE_FIRST = 1, DECODE_AS_IS = 2, DECODE_YCBCR = 4 };
+enum { DECODE_BLUE_FIRST = 1, DECODE_AS_IS = 2, DECODE_YCBCR = 4, DECODE_FOUR = 8, DECODE_ONE = 16 };
 
 // a lossless image: the samples shifted back by the point transform; 3
 // components only as RGB and 4 only as CMYK, where libjpeg-turbo converts
@@ -1318,8 +1318,11 @@ void decode_lossless_image(const Decoder& dec, int mode, std::vector<uint8_t>& o
 }
 
 // mode: DECODE_BLUE_FIRST for BGR out; DECODE_AS_IS takes 3 components as
-// they are (libtiff's JCS_UNKNOWN for an RGB TIFF), DECODE_YCBCR as YCbCr
-// whatever the markers say (libtiff's JPEGCOLORMODE_RGB for a YCbCr TIFF)
+// they are (libtiff's JCS_UNKNOWN for an RGB or CIELab TIFF), DECODE_YCBCR as
+// YCbCr whatever the markers say (libtiff's JPEGCOLORMODE_RGB for a YCbCr
+// TIFF); with either, DECODE_ONE asks for one component (a grey or planar
+// TIFF's), DECODE_FOUR for four, given as they are (a CMYK TIFF's), and
+// neither for three
 
 void decode_image(const uint8_t* data, size_t len, int mode, std::vector<uint8_t>& out, int& H, int& W,
                   int& orientation) {
@@ -1331,6 +1334,11 @@ void decode_image(const uint8_t* data, size_t len, int mode, std::vector<uint8_t
   W = dec.W;
   orientation = dec.orientation;
   int nc = dec.ncomp;
+  if (mode & (DECODE_AS_IS | DECODE_YCBCR)) {
+    const int want = (mode & DECODE_ONE) ? 1 : (mode & DECODE_FOUR) ? 4 : 3;
+    if (nc != want) fail("a TIFF JPEG strip or tile of another component count than its samples");
+    if (want == 4 && dec.lossless) fail("a lossless 4-component JPEG strip or tile is not read");
+  }
   if (dec.lossless) {
     decode_lossless_image(dec, mode, out);
     return;
@@ -1363,6 +1371,12 @@ void decode_image(const uint8_t* data, size_t len, int mode, std::vector<uint8_t
   if (nc == 1) {
     const uint8_t* g = full[0].data();
     for (size_t i = 0; i < (size_t)W * H; i++) out[i * 3] = out[i * 3 + 1] = out[i * 3 + 2] = g[i];
+    return;
+  }
+  if (nc == 4 && (mode & DECODE_FOUR)) {  // a CMYK TIFF's strip: C, M, Y, K as they are
+    out.resize((size_t)W * H * 4);
+    for (size_t i = 0; i < (size_t)W * H; i++)
+      for (int ci = 0; ci < 4; ci++) out[i * 4 + ci] = full[ci][i];
     return;
   }
   if (nc == 4) {

@@ -97,6 +97,13 @@ def load_library() -> ctypes.CDLL:
     lib.hdr_rle.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                             ctypes.c_char_p, ctypes.c_int]
     lib.hdr_rle.restype = ctypes.c_int
+    lib.tiff_fax.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                             ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int]
+    lib.tiff_fax.restype = ctypes.c_int
+    lib.tiff_cielab.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+                                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.tiff_cielab.restype = ctypes.c_int
     return lib
 
 

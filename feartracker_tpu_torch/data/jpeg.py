@@ -114,10 +114,10 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 
 # jpg_decode's mode bits (csrc/jpeg.cpp)
-DECODE_BLUE_FIRST, DECODE_AS_IS, DECODE_YCBCR = 1, 2, 4
+DECODE_BLUE_FIRST, DECODE_AS_IS, DECODE_YCBCR, DECODE_FOUR, DECODE_ONE = 1, 2, 4, 8, 16
 
 
-def _decode(data: bytes, blue_first: bool, mode: int = 0, orient: bool = True) -> np.ndarray:
+def _decode(data: bytes, blue_first: bool, mode: int = 0, orient: bool = True, channels: int = 3) -> np.ndarray:
     lib = load_library()
     out = _U8P()
     h, w, o = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -128,7 +128,7 @@ def _decode(data: bytes, blue_first: bool, mode: int = 0, orient: bool = True) -
     if rc != 0:
         raise ValueError(f"cannot decode JPEG: {err.value.decode()}")
     try:
-        img = np.ctypeslib.as_array(out, shape=(h.value, w.value, 3)).copy()
+        img = np.ctypeslib.as_array(out, shape=(h.value, w.value, channels)).copy()
     finally:
         lib.jpg_free(out)
     return apply_orientation(img, o.value) if orient else img
@@ -145,12 +145,14 @@ def decode_jpeg(src: Union[bytes, bytearray, memoryview, str, os.PathLike]) -> n
     return _decode(data, blue_first=False)
 
 
-def decode_tiff_jpeg(data: bytes, ycbcr: bool) -> np.ndarray:
+def decode_tiff_jpeg(data: bytes, ycbcr: bool, components: int = 3) -> np.ndarray:
     """One JPEG strip or tile of a TIFF (its JPEGTables already in front)
-    → (h, w, 3) uint8: YCbCr converted to RGB where ``ycbcr`` (libtiff's
-    JPEGCOLORMODE_RGB), else the components as they are (JCS_UNKNOWN); no
-    EXIF orientation."""
-    return _decode(data, False, DECODE_YCBCR if ycbcr else DECODE_AS_IS, orient=False)
+    holding ``components`` components (1, 3 or 4, else ``ValueError``) →
+    (h, w, 3) uint8, or (h, w, 4) for four: YCbCr converted to RGB where
+    ``ycbcr`` (libtiff's JPEGCOLORMODE_RGB), else the components as they are
+    (JCS_UNKNOWN; one replicated); no EXIF orientation."""
+    mode = (DECODE_YCBCR if ycbcr else DECODE_AS_IS) | {1: DECODE_ONE, 3: 0, 4: DECODE_FOUR}[components]
+    return _decode(data, False, mode, orient=False, channels=4 if components == 4 else 3)
 
 
 def _encode(img: np.ndarray, quality: int, blue_first: bool) -> bytes:

@@ -16,11 +16,16 @@
   removed; a PNG named ``.JPEG``), a 1280x720 CMYK JPEG for phase 20a's
   timing, and ``manifest.json`` with the sha256 of ``cv2.imread``'s pixels
   (RGB bytes) of each; phase 21's TIFF, WebP, GIF and JPEG-mode files
-  (``manifest_tiff_webp_gif.json``) and phase 22's JPEG 2000, PAM, PFM,
-  Sun raster and Radiance HDR files (``manifest_jp2_hdr_pam.json``);
+  (``manifest_tiff_webp_gif.json``), phase 22's JPEG 2000, PAM, PFM,
+  Sun raster and Radiance HDR files (``manifest_jp2_hdr_pam.json``) and
+  phase 23's CCITT, FillOrder 2, CMYK, CIELab, YCbCr and signed-sample TIFF
+  files (``manifest_tiff_fax_cmyk.json``);
 * ``tests/fixtures/jp2_got10k/``: phase 22b's GOT-10k val tree of JPEG 2000
   frames (PIL's OpenJPEG) and ``record.json`` (each file's sha256 and the
-  port's OPE result over it on this host's CPU).
+  port's OPE result over it on this host's CPU);
+* ``tests/fixtures/tiff_ope_record.json``: phase 23b(ii)'s record, the
+  sha256 of each frame of phase 19c's tree written as YCbCr 2x2 TIFF and the
+  port's OPE result and boxes over them on this host's CPU.
 
     python tests/fixtures/make_host_io_fixtures.py
 
@@ -389,6 +394,9 @@ def keep_scans(data, keep):
 
 # -- TIFF ---------------------------------------------------------------------------
 
+REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
 def packbits(data: bytes) -> bytes:
     """PackBits: runs of 2-128 equal bytes as (257 - n, byte), the rest as
     literals of up to 128 bytes."""
@@ -457,10 +465,28 @@ def tiff_lzw(data: bytes) -> bytes:
     return bytes(out)
 
 
-def _tiff_segments(samples, bits, planar, rows, tile, predictor, end):
+def _ycbcr_block_bytes(b, sub):
+    """(h, w, 3) Y, Cb, Cr samples → TIFF's packed YCbCr blocks: each
+    hs x vs block's luma row by row, then one Cb and one Cr (the block's
+    first pixel's), the blocks of a row left to right."""
+    hs, vs = sub
+    h, w, _ = b.shape
+    bh, bv = -(-w // hs), -(-h // vs)
+    p = np.zeros((bv * vs, bh * hs, 3), np.uint8)
+    p[:h, :w] = b
+    p[h:, :w] = p[h - 1:h, :w]  # edge blocks: the last row and column repeated
+    p[:, w:] = p[:, w - 1:w]
+    y = p[..., 0].reshape(bv, vs, bh, hs).transpose(0, 2, 1, 3).reshape(bv, bh, hs * vs)
+    return np.concatenate([y, p[::vs, ::hs, 1:]], axis=2).reshape(-1)
+
+
+def _tiff_segments(samples, bits, planar, rows, tile, predictor, end, ycbcr=None):
     """The raw bytes of each strip (``rows`` a strip) or tile (``tile`` =
     (height, width)), plane-major where ``planar`` is 2, with predictor 2's
-    horizontal differences taken."""
+    horizontal differences taken; ``ycbcr`` = (hs, vs) packs Y, Cb, Cr
+    samples into subsampled blocks, differenced (predictor 2) over
+    libtiff's rows of them (a scanline: a row of blocks over vs; a tile's
+    width times 3), 3 samples apart."""
     H, W, C = samples.shape
     planes = [samples[..., c:c + 1] for c in range(C)] if planar == 2 else [samples]
     segs = []
@@ -474,6 +500,16 @@ def _tiff_segments(samples, bits, planar, rows, tile, predictor, end):
             blocks = [p[y:y + rows] for y in range(0, H, rows)]
         for b in blocks:
             h, w, c = b.shape
+            if ycbcr:
+                v = _ycbcr_block_bytes(b, ycbcr).astype(np.int64)
+                step = tile[1] * 3 if tile else -(-w // ycbcr[0]) * (ycbcr[0] * ycbcr[1] + 2) // ycbcr[1]
+                if predictor == 2 and len(v) % step == 0 and step % 3 == 0:
+                    r = v.reshape(-1, step // 3, 3)
+                    d = r.copy()
+                    d[:, 1:] = r[:, 1:] - r[:, :-1]
+                    v = (d & 255).reshape(-1)
+                segs.append(v.astype(np.uint8).tobytes())
+                continue
             v = b.reshape(h, w * c).astype(np.int64)
             if predictor == 2:
                 d = v.copy()
@@ -487,15 +523,20 @@ def _tiff_segments(samples, bits, planar, rows, tile, predictor, end):
 
 
 def tiff(samples, bits=8, photometric=2, compression=1, predictor=1, planar=1, rows=None, tile=None, extra=None,
-         colormap=None, orientation=None, bigtiff=False, big_endian=False, tags=(), segments=None, jpeg_tables=None):
+         colormap=None, orientation=None, bigtiff=False, big_endian=False, tags=(), segments=None, jpeg_tables=None,
+         ycbcr=None, fill_order=None):
     """A TIFF of ``samples`` ((H, W) or (H, W, C) integers below 2**bits),
     one IFD: strips of ``rows`` rows or tiles of ``tile`` = (h, w), planar
     configuration 1 or 2, compression 1 (none), 5 (LZW), 8 / 32946
     (Deflate) or 32773 (PackBits), predictor 1 or 2, ExtraSamples ``extra``,
     a palette ``colormap`` ((2**bits, 3) 16-bit values), the Orientation
     tag, classic or BigTIFF, either byte order; ``tags`` adds (tag, type,
-    values) entries. ``segments`` (compressed strips or tiles) and
-    ``jpeg_tables`` replace the samples' own for JPEG (compression 7)."""
+    values) entries (RATIONAL and SRATIONAL values as (numerator,
+    denominator) pairs or floats). ``segments`` (compressed strips or tiles)
+    and ``jpeg_tables`` replace the samples' own, as for JPEG (compression
+    7) and CCITT. ``ycbcr`` = (hs, vs): 8-bit Y, Cb, Cr samples packed in
+    subsampled blocks, with the YCbCrSubsampling tag. ``fill_order`` 2:
+    each segment's bits reversed, with the FillOrder tag."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[:, :, None]
@@ -503,9 +544,15 @@ def tiff(samples, bits=8, photometric=2, compression=1, predictor=1, planar=1, r
     end = ">" if big_endian else "<"
     rows = rows or H
     if segments is None:
-        raw = _tiff_segments(samples, bits, planar, rows, tile, predictor, end)
+        raw = _tiff_segments(samples, bits, planar, rows, tile, predictor, end, ycbcr)
         enc = {1: lambda b: b, 5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress, 32773: packbits}[compression]
         segments = [enc(s) for s in raw]
+    if fill_order is not None:
+        if fill_order == 2:
+            segments = [s.translate(REVERSED_BITS) for s in segments]
+        tags = list(tags) + [(266, 3, [fill_order])]
+    if ycbcr is not None:
+        tags = list(tags) + [(530, 3, list(ycbcr))]
     off_type = 16 if bigtiff else 4
     entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bits] * C), (259, 3, [compression]), (262, 3, [photometric]),
                (277, 3, [C]), (284, 3, [planar])]
@@ -532,8 +579,15 @@ def tiff(samples, bits=8, photometric=2, compression=1, predictor=1, planar=1, r
         data += s + b"\0" * (len(s) & 1)
     ifd_at = head + len(data)
     entries = sorted((t, ty, offsets if v is None else v) for t, ty, v in entries)
-    size = {1: 1, 2: 1, 3: 2, 4: 4, 7: 1, 16: 8}
-    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 7: 1, 10: 8, 16: 8}
+    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 10: "ii", 16: "Q"}
+
+    def pack(ty, x):
+        if ty in (5, 10):
+            num, den = x if isinstance(x, tuple) else (round(x * 1_000_000), 1_000_000)
+            return struct.pack(end + fmt[ty], num, den)
+        return struct.pack(end + fmt[ty], x)
+
     inline = 8 if bigtiff else 4
     n = len(entries)
     after = ifd_at + (8 + 20 * n + 8 if bigtiff else 2 + 12 * n + 4)
@@ -541,7 +595,7 @@ def tiff(samples, bits=8, photometric=2, compression=1, predictor=1, planar=1, r
     ifd += struct.pack(end + ("Q" if bigtiff else "H"), n)
     for t, ty, v in entries:
         payload = bytes(v) if ty in (2, 7) and isinstance(v, (bytes, bytearray)) else b"".join(
-            struct.pack(end + fmt[ty], x) for x in v)
+            pack(ty, x) for x in v)
         count = len(payload) // size[ty]
         if len(payload) <= inline:
             field = payload.ljust(inline, b"\0")
@@ -1775,6 +1829,225 @@ def write_jp2_tree(root: str) -> dict:
     return record
 
 
+# -- CCITT, FillOrder 2, CMYK, CIELab, YCbCr and signed TIFF (phase 23) ----------
+
+PIL_FAX = {2: "tiff_ccitt", 3: "group3", 4: "group4", 32771: "tiff_raw_16"}  # PIL's names of libtiff's codecs
+
+
+def ccitt_segments(bits, compression, rows=None, tile=None, t4=0):
+    """libtiff's CCITT coding (through PIL) of each strip (``rows`` rows) or
+    tile (``tile`` = (h, w), padded with zero bits) of the (H, W) 0/1 array
+    ``bits``: each block saved as a one-strip image and its strip taken.
+    A set bit is a black run's (the fax coders' 1)."""
+    from PIL import Image
+
+    bits = np.asarray(bits, bool)
+    H, W = bits.shape
+    if tile:
+        th, tw = tile
+        pad = np.zeros((-(-H // th) * th, -(-W // tw) * tw), bool)
+        pad[:H, :W] = bits
+        blocks = [pad[y:y + th, x:x + tw] for y in range(0, H, th) for x in range(0, W, tw)]
+    else:
+        rows = rows or H
+        blocks = [bits[y:y + rows] for y in range(0, H, rows)]
+    segs = []
+    for b in blocks:
+        buf = io.BytesIO()
+        Image.fromarray(b).save(buf, "TIFF", compression=PIL_FAX[compression], strip_size=1 << 30,
+                                **({"tiffinfo": {292: t4}} if compression == 3 else {}))
+        (off,), (n,) = Image.open(buf).tag_v2[273], Image.open(buf).tag_v2[279]
+        segs.append(buf.getvalue()[off:off + n])
+    return segs
+
+
+def tiff_ccitt(bits, compression, rows=None, tile=None, t4=0, photometric=0, fill_order=None):
+    """A bilevel TIFF of the 0/1 array ``bits`` coded by libtiff's CCITT
+    encoder: compression 2 (Modified Huffman), 3 (Group 3, ``t4`` its
+    T4Options), 4 (Group 4) or 32771 (RLEW); strips or tiles; MinIsWhite
+    (0) or MinIsBlack (1); FillOrder 2 reverses each segment's bits."""
+    segs = ccitt_segments(bits, compression, rows, tile, t4)
+    return tiff(np.asarray(bits, np.uint8), bits=1, photometric=photometric, compression=compression, rows=rows,
+                tile=tile, segments=segs, tags=[(292, 4, [t4])] if compression == 3 else [], fill_order=fill_order)
+
+
+def _bw(seed, h, w):
+    """A seeded bilevel frame: ``_img``'s first channel thresholded (blobs
+    with noisy edges)."""
+    return _img(seed, h, w)[..., 0] > 128
+
+
+def _pil_mode(img, mode, **kw):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+def _pil_samples(img, mode):
+    from PIL import Image
+
+    return np.asarray(Image.fromarray(img).convert(mode))
+
+
+def tiff_planar_jpeg(samples, photometric, rows=16, tags=()):
+    """A planar TIFF of 8-bit ``samples``, each plane's strips a one-component
+    JPEG (cv2's encoder) sharing one JPEGTables."""
+    H, _, C = samples.shape
+    segs, tables = [], None
+    for c in range(C):
+        for y in range(0, H, rows):
+            data = cv2.imencode(".jpg", np.ascontiguousarray(samples[y:y + rows, :, c]),
+                                [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+            t, seg = jpeg_segments(data)
+            tables = tables or t
+            segs.append(seg)
+    return tiff(samples, photometric=photometric, compression=7, planar=2, rows=rows, segments=segs,
+                jpeg_tables=tables, tags=tags)
+
+
+def _cmyk(seed, h, w):
+    return np.concatenate([_img(seed, h, w), _img(seed + 1, h, w)[..., :1]], axis=2)
+
+
+# name: (kind, the function that makes the file's bytes)
+FAX_CMYK_FILES = {
+    "tiff_ccitt_mh.tif": ("TIFF CCITT Modified Huffman, strips of 8, MinIsWhite", lambda: tiff_ccitt(
+        _bw(80, 37, 45), 2, rows=8)),
+    "tiff_ccitt_rlew.tif": ("TIFF CCITT RLEW (word-aligned rows), MinIsBlack", lambda: tiff_ccitt(
+        _bw(81, 29, 50), 32771, rows=5, photometric=1)),
+    "tiff_g3_1d_fill2.tif": ("TIFF Group 3 1-D, EOLs byte-aligned, FillOrder 2", lambda: tiff_ccitt(
+        _bw(82, 40, 61), 3, rows=16, t4=4, fill_order=2)),
+    "tiff_g3_2d_tiles.tif": ("TIFF Group 3 2-D, tiles 16x32", lambda: tiff_ccitt(_bw(83, 45, 70), 3, tile=(16, 32),
+                                                                                  t4=1)),
+    "tiff_g4_strips.tif": ("TIFF Group 4, strips of 10, MinIsBlack", lambda: tiff_ccitt(
+        _bw(84, 43, 66), 4, rows=10, photometric=1)),
+    "tiff_g4_tiles_fill2.tif": ("TIFF Group 4, tiles 32x16, FillOrder 2", lambda: tiff_ccitt(
+        _bw(85, 50, 41), 4, tile=(32, 16), fill_order=2)),
+    "tiff_fill2_lzw_pred2.tif": ("TIFF RGB LZW predictor 2, FillOrder 2", lambda: tiff(
+        _img(86, 33, 41), compression=5, predictor=2, rows=8, fill_order=2)),
+    "tiff_fill2_packbits_1bit.tif": ("TIFF 1-bit PackBits, FillOrder 2", lambda: tiff(
+        _bw(87, 30, 45).astype(np.uint8), bits=1, photometric=0, compression=32773, fill_order=2)),
+    "tiff_cmyk_lzw_pred2.tif": ("TIFF CMYK LZW predictor 2", lambda: tiff(
+        _cmyk(88, 31, 39), photometric=5, compression=5, predictor=2, rows=8)),
+    "tiff_cmyk_planar_deflate_tiles.tif": ("TIFF CMYK planar Deflate tiles 16x16", lambda: tiff(
+        _cmyk(90, 35, 40), photometric=5, compression=8, planar=2, tile=(16, 16))),
+    "tiff_cmyk_packbits.tif": ("TIFF CMYK PackBits", lambda: tiff(_cmyk(92, 27, 33), photometric=5,
+                                                                  compression=32773, rows=9)),
+    "tiff_cmyk_jpeg.tif": ("TIFF CMYK JPEG (PIL)", lambda: _pil_mode(_img(94, 37, 45), "CMYK", compression="jpeg")),
+    "tiff_cmyk_planar_jpeg.tif": ("TIFF CMYK planar JPEG", lambda: tiff_planar_jpeg(_cmyk(95, 33, 41), 5)),
+    "tiff_lab8.tif": ("TIFF CIELab 8-bit (PIL)", lambda: _pil_mode(_img(97, 31, 43), "LAB")),
+    "tiff_lab16_lzw_be.tif": ("TIFF CIELab 16-bit LZW big-endian", lambda: tiff(
+        np.random.RandomState(98).randint(0, 65536, (23, 29, 3)), bits=16, photometric=8, compression=5,
+        big_endian=True, rows=6)),
+    "tiff_lab_whitepoint_tiles.tif": ("TIFF CIELab WhitePoint D65, tiles 16x16", lambda: tiff(
+        _pil_samples(_img(99, 35, 37), "LAB"), photometric=8, tile=(16, 16),
+        tags=[(318, 5, [(3127, 10000), (3290, 10000)])])),
+    "tiff_lab_jpeg.tif": ("TIFF CIELab JPEG (PIL)", lambda: _pil_mode(_img(100, 37, 45), "LAB", compression="jpeg")),
+    "tiff_ycbcr_pil.tif": ("TIFF YCbCr 1x1 with ReferenceBlackWhite (PIL)", lambda: _pil_mode(
+        _img(101, 31, 43), "YCbCr")),
+    "tiff_ycbcr_22.tif": ("TIFF YCbCr 2x2, strips of 8", lambda: tiff(
+        _img(102, 37, 45), photometric=6, ycbcr=(2, 2), rows=8)),
+    "tiff_ycbcr_21_lzw_pred2.tif": ("TIFF YCbCr 2x1 LZW predictor 2", lambda: tiff(
+        _img(103, 33, 47), photometric=6, ycbcr=(2, 1), compression=5, predictor=2, rows=12)),
+    "tiff_ycbcr_12.tif": ("TIFF YCbCr 1x2", lambda: tiff(_img(104, 35, 29), photometric=6, ycbcr=(1, 2), rows=10)),
+    "tiff_ycbcr_41_deflate.tif": ("TIFF YCbCr 4x1 Deflate", lambda: tiff(
+        _img(105, 26, 45), photometric=6, ycbcr=(4, 1), compression=8)),
+    "tiff_ycbcr_42_tiles.tif": ("TIFF YCbCr 4x2 PackBits tiles 16x32", lambda: tiff(
+        _img(106, 37, 45), photometric=6, ycbcr=(4, 2), compression=32773, tile=(16, 32))),
+    "tiff_ycbcr_44_tiles.tif": ("TIFF YCbCr 4x4 tiles 16x16, cut by the right edge", lambda: tiff(
+        _img(107, 37, 45), photometric=6, ycbcr=(4, 4), tile=(16, 16))),
+    "tiff_ycbcr_rbw_709.tif": ("TIFF YCbCr 2x2, ReferenceBlackWhite 16-235/240, BT.709 coefficients", lambda: tiff(
+        _img(108, 31, 37), photometric=6, ycbcr=(2, 2), compression=5, rows=8,
+        tags=[(532, 5, [16, 235, 128, 240, 128, 240]), (529, 5, [(2126, 10000), (7152, 10000), (722, 10000)])])),
+    "tiff_ycbcr_planar_11.tif": ("TIFF YCbCr 1x1 planar", lambda: tiff(
+        _img(109, 29, 35), photometric=6, planar=2, compression=5, tags=[(530, 3, [1, 1])])),
+    "tiff_ycbcr_planar_jpeg.tif": ("TIFF YCbCr 1x1 planar JPEG", lambda: tiff_planar_jpeg(
+        _img(110, 33, 41), 6, tags=[(530, 3, [1, 1])])),
+    "tiff_grey16_edge_tiles.tif": ("TIFF grey 16-bit tiles 16x32, cut by the right edge", lambda: tiff(
+        np.random.RandomState(112).randint(0, 65536, (37, 45)), bits=16, photometric=1, tile=(16, 32),
+        compression=5, predictor=2)),
+    "tiff_signed_rgb16.tif": ("TIFF RGB 16-bit, SampleFormat 2 (signed)", lambda: tiff(
+        np.random.RandomState(111).randint(0, 65536, (19, 23, 3)), bits=16, compression=5, predictor=2,
+        tags=[(339, 3, [2, 2, 2])])),
+}
+_PAGE = (720, 1280)  # phase 23a's timing pages
+
+
+def _bw_page():
+    return _smooth(0, *_PAGE, cell=16).astype(np.int32).sum(axis=2) < 384
+
+
+FAX_CMYK_TIMING_FILES = {
+    "timing_tiff_g4.tif": ("TIFF Group 4 page", lambda: tiff_ccitt(_bw_page(), 4)),
+    "timing_tiff_g3_2d.tif": ("TIFF Group 3 2-D page", lambda: tiff_ccitt(_bw_page(), 3, t4=1)),
+    "timing_tiff_cmyk_lzw.tif": ("TIFF CMYK LZW", lambda: tiff(
+        np.concatenate([255 - _smooth(0, *_PAGE), _smooth(1, *_PAGE)[..., :1] // 4], axis=2), photometric=5,
+        compression=5, predictor=2, rows=16)),
+    "timing_tiff_lab.tif": ("TIFF CIELab LZW", lambda: tiff(_pil_samples(_smooth(0, *_PAGE), "LAB"), photometric=8,
+                                                            compression=5, predictor=2, rows=16)),
+    "timing_tiff_ycbcr22.tif": ("TIFF YCbCr 2x2 Deflate", lambda: tiff(
+        _pil_samples(_smooth(0, *_PAGE), "YCbCr"), photometric=6, ycbcr=(2, 2), compression=8, rows=16)),
+}
+FAX_CMYK_MANIFEST = "manifest_tiff_fax_cmyk.json"
+
+
+def write_fax_cmyk_fixtures(images_dir: str) -> None:
+    """Phase 23a's files (``FAX_CMYK_FILES``, ``FAX_CMYK_TIMING_FILES``) and
+    their manifest of cv2's pixels."""
+    files = {**FAX_CMYK_FILES, **FAX_CMYK_TIMING_FILES}
+    for name, (_kind, make) in files.items():
+        with open(os.path.join(images_dir, name), "wb") as fh:
+            fh.write(make())
+    with open(os.path.join(images_dir, FAX_CMYK_MANIFEST), "w") as fh:
+        json.dump(image_manifest(images_dir, files), fh, indent=1)
+
+
+def ope_boxes(tracker, ds):
+    """``evaluate_tracker``'s result over ``ds`` and each sequence's boxes
+    (``run_sequence``'s, frame 0's the initial box)."""
+    from feartracker_tpu_torch.evaluate import got10k_eval as ge
+
+    overlaps, names, precision, boxes = [], [], [], []
+    for s in range(len(ds)):
+        files, anno, _ = ds[s]
+        n = min(len(files), len(anno))
+        preds, _ = ge.run_sequence(tracker, files, anno[0], n)
+        gt = np.asarray(anno[1:n], np.float64)
+        overlaps.append(ge._overlap(preds[1:], gt))
+        precision.append(ge.precision_stats(preds[1:], gt))
+        names.append(ds.sequence_name(s))
+        boxes.append(np.asarray(preds, np.float64).tolist())
+    return ge.summarize(overlaps, names, precision), boxes
+
+
+def write_tiff_ope_record(path: str) -> dict:
+    """Phase 23b(ii)'s record: phase 19c's GOT-10k val tree (made here as
+    phase 19b makes it: ``make_synthetic_dataset`` seed 19, JPEG frames of a
+    GOT-10k frame's size) rewritten by ``chip_smoke.tiff_ycbcr22``: each
+    frame's sha256 and the port's OPE result and boxes over it on this
+    host's CPU (``FEARTracker`` FEAR-XS, float32)."""
+    import torch
+
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+
+    torch.set_num_threads(1)  # as the test that holds this record runs
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg_root = chip_smoke.host_ope_tree(tmp)
+        root = os.path.join(tmp, "ycbcr")
+        chip_smoke._rewrite_tree(jpeg_root, root, chip_smoke.tiff_ycbcr22)
+        ds = GOT10kDataset(root, "val")
+        with torch.inference_mode():
+            ao, boxes = ope_boxes(chip_smoke._fear_tracker("cpu", torch.float32), ds)
+        record = {"seed": chip_smoke.HOST_OPE_SEED, "frame_hw": list(chip_smoke.HOSTAUG_FRAME_HW),
+                  "lengths": [len(ds[i][0]) for i in range(len(ds))], "files": tree_files(root),
+                  "ope_cpu": json.loads(json.dumps(ao)), "boxes_cpu": boxes}
+    with open(path, "w") as fh:
+        json.dump(record, fh, indent=1)
+    return record
+
+
 def image_manifest(images_dir: str, files=None) -> dict:
     """cv2's pixels of every file in ``images_dir`` that ``files`` (default
     ``IMAGE_FILES``) names."""
@@ -1842,6 +2115,8 @@ def main():
     write_format_fixtures(images_dir)
     write_jp2_fixtures(images_dir)
     write_jp2_tree(os.path.join(REPO, *chip_smoke.JP2_TREE))
+    write_fax_cmyk_fixtures(images_dir)
+    write_tiff_ope_record(os.path.join(REPO, *chip_smoke.TIFF_OPE_RECORD))
     print(f"wrote {len(DECODE_FILES)} JPEGs, the manifest, {chip_smoke.HOST_ITEM_COUNT} item digests and "
           f"{len(IMAGE_FILES)} image fixtures")
 

@@ -32,6 +32,16 @@ from feartracker_tpu_torch.ops.resize import _fma_f32, warp_affine_linear_u8
 SETTINGS = dict(max_examples=60, deadline=None, derandomize=True, database=None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The crops run torch on the CPU: one intra-op thread, as the other
+    heavy port files pin it (six test workers share the host)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _equal(got, want):
     if isinstance(want, dict):
         assert got.keys() == want.keys()
