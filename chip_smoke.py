@@ -8,7 +8,8 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build both kernels from ``feartracker_tpu_torch/csrc``, one ``nvcc`` per
-   source started together (seconds, ptxas registers and spills);
+   source started together, and beside them the host codecs (``*.cpp``),
+   one ``g++`` each (seconds, ptxas registers and spills);
 3. K1 against its plain twins on the card: the batched step's decode
    region (``decode_step_cuda`` against ``decode_step_plain``) at S=1, 128
    and 300, with float32 and bfloat16 head outputs, both ``smooth`` modes
@@ -51,7 +52,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    pipelined = serial, ``step_chunk`` = ``track``, blank frames
    re-templated under ``reinit``, and a 3 s pipelined online run at 30 fps,
    depth 2;
-9. the sequential tracker ``FEARTracker`` (S=1) on a 60-frame 480×256
+9. the sequential tracker ``FEARTracker`` (S=1) on a 30-frame 480×256
    clip rendered with numpy: ``get_extended_crop`` on the card equal to the
    CPU byte for byte; 9c: K2 at all 26 FEAR-XS block shapes and K1 (the
    decode alone, both ``smooth`` modes) at S=1 against their plain twins,
@@ -61,11 +62,11 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    floor; 9d: float32 boxes within 1
    px of the CPU port in the static, dual-EMA (``update_interval=4``) and
    recovery configurations, with the launch counts over ``initialize`` +
-   59 updates, and the static one again under torch's TF32 defaults; 9f:
+   29 updates, and the static one again under torch's TF32 defaults; 9f:
    ``update`` wall p50/p99, device busy time and ``initialize`` time in
-   float32 and bfloat16; 9g: the OPE, VOT and batched protocols on four
+   float32 and bfloat16; 9g: the OPE, VOT and batched protocols on two
    24-frame clips, card against CPU, in float32; 9h: the bfloat16 path end
-   to end: ``track`` at S=4, T=8 on the card against the port in bfloat16
+   to end: ``track`` at S=2, T=8 on the card against the port in bfloat16
    on the CPU and against the card's float32 boxes (``BF16_BOX_PX``), and
    9g's protocols in bfloat16, card against CPU (AO within 0.02, VOT
    failures within one);
@@ -91,7 +92,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    operator, the ms of an exported ``tracker`` call against the eager
    path's at S=1, and the operator's dispatcher cost per call against the
    wrapper's (the main path, 5b, calls the wrapper: no operator calls
-   there); 11b ``ExportedTracker`` on phase 9's clip and four more seeds
+   there); 11b ``ExportedTracker`` on phase 9's clip and two more seeds
    against ``FEARTracker`` on the card (each pair within 1 px of the
    tracker in its own dtype; the quantized pair within ``BF16_BOX_PX`` of
    the f32 tracker, the spread over the seeds printed), K1 once a frame;
@@ -110,11 +111,11 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    the CPU's, held to the same step in float64 on the CPU: within 1e-3 of
    the gradient's max, 5e-2 of each tensor's own); 12b ``python -m feartracker_tpu_torch.tools.train_profile
    --batches 32,64,128`` in its own process, bfloat16 (its JSON lines
-   printed; each loss finite and lower after 10 steps on its fixed batch
+   printed; each loss finite and lower after 4 steps on its fixed batch
    than at the first); 12c the card's data path: a CSV dataset of
    numpy-rendered ``.npy`` frames → ``SiameseTrackingDataset`` in staged
    mode → ``BatchLoader`` → ``prefetch_to_device`` → the step with device
-   augmentations, B=32, 10 steps, bfloat16 (neither kernel launched), the
+   augmentations, B=32, 4 steps, bfloat16 (neither kernel launched), the
    loader's host ms per batch beside the step's ms, and ``augment_batch``
    on the card against the CPU with the same drawn parameters (pixels rtol
    1e-4); 12d a checkpoint saved after 12c, restored into a fresh state,
@@ -128,7 +129,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    (bfloat16), warm start from ``fear_xs.npz`` (a full transfer), device
    augmentations over phase 12c's ``.npy`` clips on 8 loader threads,
    B=32, 3 steps an epoch, 2 epochs, the frame-offset curriculum from
-   epoch 1, validation over three rendered 40-frame clips held in memory
+   epoch 1, validation over three rendered 20-frame clips held in memory
    (each its own dataset; the sanity check runs all three): 6 steps with
    finite losses, launches 0/0 in the steps and K1 once and K2 13 times
    an update (K2 13 more an ``initialize``) in validation, the curriculum
@@ -159,7 +160,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    one process's step (local BatchNorm statistics: atol 1e-6 / 2e-5; with
    cross-process statistics printed), bf16 Adam on different halves of 12c's
    batch for 3 steps, the ranks bit-identical; 14c ``Trainer.fit`` with
-   ``backend=gpu_dp``, ``num_devices`` 2 (16 a process), 2 epochs of 3
+   ``backend=gpu_dp``, ``num_devices`` 2 (16 a process), 1 epoch of 3
    steps, the sanity check and validation over 13b's three clips as one
    dataset: launches 0/0 in the steps, K1/K2 summed over the ranks equal to
    one process's, the sanity rows gathered equal 13c's one-process rows,
@@ -181,7 +182,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    ``ir_block_micro``, all 16 blocks, K2 against its twin (atol 0.15 or
    2^-5 of the block's max|out|), the sums beside phase 6's; 15e
    ``loader_throughput`` on 12c's clips, B=32, 8 threads, ``device_augs``
-   with and without the cache, with ``--step``; 15f ``export_weights`` of
+   with and without the cache (2 batches each), with ``--step``; 15f ``export_weights`` of
    12d's checkpoint, the ``.npz`` through ``build_scan_tracker`` against a
    tracker on the checkpoint's model: 0.0 px; and the xla trunk's
    ``scan_unroll=4`` graphs after ``set_variables`` to that model equal to a
@@ -190,8 +191,8 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    (``feartracker_tpu_torch/tools``), each through its ``run`` on the card,
    FEAR-XS bf16 from ``fear_xs.npz`` unless named, each counted into
    ``launches_by_path``: 16a the numpy scenario generator writes drift,
-   occlusion, pose and swap at seeds 7 and 13 (one track and 4 val
-   sequences of 24 frames each, 160×224) and drift again at 2× (320×448),
+   occlusion, pose and swap at seed 7 (one track and one val
+   sequence of 24 frames each, 160×224) and drift again at 2× (320×448),
    with no cv2 or pandas, its seconds printed; 16b ``dual_template_ablation``,
    ``recovery_ablation`` (with the dual arms), ``gate_v2_ablation``,
    ``occlusion_signal_probe``, ``letterbox_penalty`` (160×224 canvas, 2×
@@ -215,18 +216,18 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    finite, every exported encoder array transferred into FEAR-XS by
    ``transfer_variables``, launches 0/0); 17c the eight drivers at full
    width with cut depth (epochs, samples, tracks and arms, never widths;
-   staged batches and device augmentations): ``train_run`` (2 epochs, then 1
+   staged batches and device augmentations): ``train_run`` (1 epoch, then 1
    resumed: the step count continues), ``pretrain_chain`` (three arms),
    ``family_train`` (FEAR-XS scratch, FEAR-M warm-started, FEAR-L scratch),
    ``warm_start_comparison``, ``synthetic_e2e``, ``train_template_gate``,
-   ``train_feature_gate`` (one seed a scenario, 2 sequences of 24 frames) and
+   ``train_feature_gate`` (one seed a scenario, 2 sequences of 12 frames) and
    ``train_flagship`` (the JAX tool's smoke budget, the export and the
    quality gate), each one's K1/K2 launches equal to its validation and
    rollout schedule (K1 once an update or batched step; K2 once a fused
    block a step or update, and again an ``init`` or refresh); 17d the card
    against the port on the CPU, float32 with TF32 off, each side from the
    same initial values: the template gate's logit after 4 Adam steps on the
-   same batches (1e-3), ``pretrain_trunk``'s per-epoch loss at lr 1e-5 (rtol
+   same batches (1e-3), ``pretrain_trunk``'s loss after one epoch at lr 1e-5 (rtol
    1e-3), the feature-gate rollout's boxes (1 px) and ``train_mlp`` on the
    card's observations at 100 epochs (AUC within 0.005, parameters 1e-4;
    the tool's 3000 epochs printed);
@@ -254,7 +255,7 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    cv2-made files (progressive, restart, 4:4:4, 4:2:2, 4:4:0, gray, 1x1,
    EXIF 6), and the ms of a 1280x720 4:2:0 q95 decode and encode on one
    core; 19b ``Trainer.fit`` at the default ``device_augs: false`` (host
-   augmentations, 8 loader threads, B=32, 2 epochs x 3 steps) over a JPEG
+   augmentations, 8 loader threads, B=32, 1 epoch x 3 steps) over a JPEG
    GOT-10k tree of 1280x720 frames that the port's generator writes there
    with ``--format jpg``, validated by ``FEARTracker`` over the JPEG frames:
    K1/K2 launches equal to the validation schedule, the loader alone's ms a
@@ -336,6 +337,23 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    Modified Huffman, CMYK, CIELab and YCbCr frames: rows equal to the same
    trees in JPEG, no zero frame size, no launch, and the Modified Huffman
    GOT-10k frames read back equal to their frames' thresholds.
+24. VP8 WebP of 2, 4 and 8 token partitions and the JPEG 2000 coding modes,
+   cv2 blocked: 24a ``data/webp.py`` + ``csrc/webp.cpp`` and ``data/jp2.py`` +
+   ``csrc/jp2.cpp`` against the sha256s of cv2's pixels of the committed
+   ``tests/fixtures/images/manifest_webp_parts_jp2_modes.json`` files
+   (libwebp at methods 0-2 with 2, 4 and 8 partitions, fewer macroblock rows
+   than partitions, VP8X; OpenJPEG's six code-block styles alone and
+   together, ROI max-shift, two POC records, SOP/EPH, tile-parts by
+   resolution, layer and component and in every progression), and the decode
+   ms of a 1280x720 4-partition WebP and an all-styles JPEG 2000 frame on one
+   core; 24b the GOT-10k OPE (``FEARTracker`` FEAR-XS f32) over the committed
+   ``tests/fixtures/webp_parts_got10k`` (phase 19c's val sequences written by
+   libwebp with 4 token partitions under their ``.jpg`` names): every file at
+   its recorded sha256, K1 22 / K2 312 launches, the boxes within 1 px and
+   the AO within 0.01 of the result recorded from the port on the CPU; 24c
+   ``make_annotations`` over GOT-10k and YouTube-BB trees of 24b's WebP
+   frames and of the JPEG 2000 mode fixtures: rows equal to the same trees in
+   JPEG, no zero frame size, no launch.
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
@@ -349,10 +367,20 @@ K2's with its practical floor of 13 launches at K1's S=1 time)
 and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result.
+
+Time budget: the whole run, the build included, must end within 1200 s; aim
+for half of it. The ``[time]`` line before the kernels line gives each
+phase's wall seconds (``1-2`` the build), their sum and the whole script's
+seconds. Earlier phases run at a cut depth (clips, seeds, epochs, steps,
+repetitions) so that a new phase fits; every check keeps its comparison and
+tolerance. The host (CPU) side of the card-vs-CPU checks of 9d-9h, 12a,
+16c, 17d and 18c runs in a process of its own (``--host-refs``), beside the
+card's side, and none of it is timed.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import subprocess
 import sys
@@ -571,6 +599,69 @@ def _trace_breakdown(fn, out_dir: str) -> dict:
 
 def _max_err(a, b, key) -> float:
     return (a[key].float().cpu() - b[key].float().cpu()).abs().max().item()
+
+
+def _stop(proc) -> None:
+    """Kill ``proc`` (a ``subprocess.Popen``) if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _host_refs(kind: str, work: str = ""):
+    """Start the host (CPU) side of phase ``kind``'s card-vs-CPU checks in
+    a process of its own (``python3 chip_smoke.py --host-refs <kind> <work>
+    <out>``; ``work`` the phase's directory where it reads or writes
+    files), beside the card's side in this one; → a function that waits
+    for it and returns its result."""
+    import os
+
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "result.pkl")
+    log = open(os.path.join(tmp.name, "log.txt"), "w+")
+    proc = subprocess.Popen([sys.executable, __file__, "--host-refs", kind, work or tmp.name, out], stdout=log,
+                            stderr=subprocess.STDOUT)
+    atexit.register(_stop, proc)  # should a check of the card's side raise first
+
+    def result():
+        import pickle
+
+        try:
+            rc = proc.wait(timeout=900)
+        finally:
+            _stop(proc)
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if rc:
+            raise AssertionError(f"the host side of phase {kind} exited {rc}:\n{text[-4000:]}")
+        with open(out, "rb") as fh:
+            got = pickle.load(fh)
+        tmp.cleanup()
+        return got
+
+    return result
+
+
+def _host_refs_main(kind: str, work: str, out: str) -> int:
+    """``--host-refs``: the host side of 12a or 18c (the float64 and
+    float32 steps on the CPU), or the CPU's run of phase 9's, 16c's or 17d's
+    witness (``_seq_witness``, ``_scenario_witness``, ``_driver_witness``),
+    pickled to ``out``."""
+    import pickle
+
+    import torch
+
+    torch.set_num_threads(4)  # the card's side keeps the other cores
+    if kind in ("12a", "18c"):
+        model, opt_state = _f32_start(kind == "18c")
+        result = {"f64": _f32_step(model, opt_state, "cpu", torch.float64),
+                  "cpu": _f32_step(model, opt_state, "cpu", torch.float32)}
+    else:
+        result = {"9": _seq_witness, "16": _scenario_witness, "17": _driver_witness}[kind]("cpu", work)
+    with open(out, "wb") as fh:
+        pickle.dump(result, fh)
+    return 0
 
 
 def _zero(counters) -> None:
@@ -845,6 +936,10 @@ SEQUENTIAL_CONFIGS = {
 }
 
 
+SEQ_CLIP_FRAMES = 30  # phase 9's clip (and 11b-c's): init + 29 updates
+PROTOCOL_CLIPS = 2  # 9g-9h's in-memory suite: clips of 24 frames
+
+
 def _fear_tracker(device, dtype, **kw):
     from feartracker_tpu_torch.convert.load import PACKAGED_FEAR_XS, load_fear_net, variables_from_npz
     from feartracker_tpu_torch.models.fear_net import build_family_model
@@ -922,6 +1017,36 @@ def _kernel_trace_ms(fn, n: int, out_dir: str):
     return busy / 1e3 / n if busy else None
 
 
+def _protocol_clips():
+    """9g-9h's in-memory suite: ``PROTOCOL_CLIPS`` rendered clips of 24
+    frames."""
+    return [_render_clip(seed=20 + i, n_frames=24) for i in range(PROTOCOL_CLIPS)]
+
+
+def _seq_witness(device: str, work: str = "", counters=None) -> dict:
+    """Phase 9's side of its card-vs-CPU checks on ``device`` (``work``
+    unused): 9d's three configurations over the clip in float32, each with
+    its launches where ``counters`` are given; 9g's protocols in float32;
+    9h's ``track`` and protocols in bfloat16."""
+    import torch
+
+    frames, boxes = _render_clip(seed=9, n_frames=SEQ_CLIP_FRAMES)
+    sequential = {}
+    for name, kw in SEQUENTIAL_CONFIGS.items():
+        tracker = _fear_tracker(device, torch.float32, **kw)
+        if counters:
+            torch.cuda.synchronize()
+            _zero(counters)
+        got = _track_clip(tracker, frames, boxes[0])
+        if counters:
+            torch.cuda.synchronize()
+        sequential[name] = (got, _read(counters) if counters else None)
+    seqs = _protocol_clips()
+    return {"sequential": sequential, "protocols": _protocols(device, seqs, torch.float32),
+            "bf16_track": _bf16_track(device, torch.bfloat16, seqs),
+            "bf16_protocols": _protocols(device, seqs, torch.bfloat16)}
+
+
 def _phase_sequential(card, n_fused, counters, gen):
     """Phase 9: the sequential tracker and the evaluation protocols at S=1.
     Returns (launch counts by path, kernel times at S=1, update p50 ms by
@@ -940,16 +1065,16 @@ def _phase_sequential(card, n_fused, counters, gen):
 
     dev = torch.device("cuda")
     # -- 9a: frames
-    frames, boxes = _render_clip(seed=9, n_frames=60)
+    frames, boxes = _render_clip(seed=9, n_frames=SEQ_CLIP_FRAMES)
     H, W = frames[0].shape[:2]
     print(f"[9a] clip: {len(frames)} frames {W}x{H}, object {boxes[:, 2].min():.0f}-{boxes[:, 2].max():.0f} px "
           f"wide", flush=True)
 
     # -- 9b: the crop, card against CPU, byte for byte
-    edge_boxes = [boxes[0], boxes[30], (2, 100, 40, 30), (W - 42, 100, 40, 30), (200, 1, 40, 30),
+    edge_boxes = [boxes[0], boxes[SEQ_CLIP_FRAMES // 2], (2, 100, 40, 30), (W - 42, 100, 40, 30), (200, 1, 40, 30),
                   (200, H - 31, 40, 30), (0, 0, 60, 50), (W - 61, H - 51, 60, 50), (10, 10, W - 20, H - 20)]
     n_crops = 0
-    for img in (frames[0], frames[45]):
+    for img in (frames[0], frames[3 * SEQ_CLIP_FRAMES // 4]):
         on_card = torch.from_numpy(img).to(dev)
         for box in edge_boxes:
             box = np.asarray(box, np.float64)
@@ -1037,49 +1162,6 @@ def _phase_sequential(card, n_fused, counters, gen):
     for t in k1_times.values():
         print(f"[9c] K1 S=1: " + _k1_line(t) + f" [{card}]", flush=True)
 
-    # -- 9d, 9e: boxes card vs CPU in float32; launch counts over init + N updates
-    N = len(frames) - 1
-    launches = {}
-    for name, kw in SEQUENTIAL_CONFIGS.items():
-        cpu_boxes, cpu_conf, cpu_ref, _ = _track_clip(_fear_tracker("cpu", torch.float32, **kw), frames, boxes[0])
-        tracker = _fear_tracker("cuda", torch.float32, **kw)
-        torch.cuda.synchronize()
-        _zero(counters)
-        got_boxes, got_conf, refreshes, recoveries = _track_clip(tracker, frames, boxes[0])
-        torch.cuda.synchronize()
-        counts = _read(counters)
-        box_err = np.abs(got_boxes - cpu_boxes).max()
-        conf_err = np.abs(got_conf - cpu_conf).max()
-        if not (box_err <= 1.0 and conf_err <= 1e-3 and refreshes == cpu_ref):
-            raise AssertionError(f"sequential {name} f32 card vs cpu: bbox {box_err} px, confidence {conf_err}, "
-                                 f"refreshes {refreshes} vs {cpu_ref}")
-        want = {"K1": N, "K2": n_fused * (1 + N + refreshes)}
-        if counts != want:
-            raise AssertionError(f"sequential {name}: launches {counts}, expected {want}")
-        if name == "dual_ema" and not refreshes:
-            raise AssertionError("sequential dual_ema: no refresh ran")
-        if name == "recover" and not recoveries:
-            raise AssertionError("sequential recover: the wider window was never taken")
-        launches["sequential" if name == "static" else f"sequential_{name}"] = counts
-        print(f"[9d] FEARTracker {name:8s} f32, init + {N} updates, card vs cpu: bbox max|err| {box_err} px "
-              f"(<= 1), confidence {conf_err:.2e} (<= 1e-3); {refreshes} refreshes, {recoveries} recovery "
-              f"crops; [9e] launches {counts} = K1 {N}, K2 {n_fused}*(1 + {N} + {refreshes})", flush=True)
-        if name == "static":
-            # the same under torch's defaults, as a user's process runs it:
-            # cuDNN convolutions (the stem, the head) may take TF32
-            flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-            try:
-                dflt_boxes, dflt_conf, _, _ = _track_clip(_fear_tracker("cuda", torch.float32), frames, boxes[0])
-            finally:
-                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-            dflt_err = np.abs(dflt_boxes - cpu_boxes).max()
-            if not dflt_err <= 1.0:
-                raise AssertionError(f"sequential static f32 under torch's TF32 defaults: bbox {dflt_err} px > 1")
-            print(f"[9d] FEARTracker static   f32 under torch's defaults (cudnn.allow_tf32=True), card vs cpu: "
-                  f"bbox max|err| {dflt_err} px (<= 1), confidence {np.abs(dflt_conf - cpu_conf).max():.2e}",
-                  flush=True)
-
     # -- 9f: timing on the card, after warmup
     seq_ms = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1115,24 +1197,66 @@ def _phase_sequential(card, n_fused, counters, gen):
               f"{span:.3f} ms per update; device busy {share}; initialize p50 {np.median(init_ms):.3f} ms "
               f"[{card}]", flush=True)
 
+    # -- 9d, 9e, 9g, 9h: the card's side of each card-vs-CPU check, the
+    # host's in its own process meanwhile (started after 9f's timing)
+    host = _host_refs("9")
+    mine = _seq_witness("cuda", counters=counters)
+    # the static configuration again under torch's defaults, as a user's
+    # process runs it: cuDNN convolutions (the stem, the head) may take TF32
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        dflt_boxes, dflt_conf, _, _ = _track_clip(_fear_tracker("cuda", torch.float32), frames, boxes[0])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    refs = host()
+
+    # -- 9d, 9e: boxes card vs CPU in float32; launch counts over init + N updates
+    N = len(frames) - 1
+    launches = {}
+    for name in SEQUENTIAL_CONFIGS:
+        (cpu_boxes, cpu_conf, cpu_ref, _), _ = refs["sequential"][name]
+        (got_boxes, got_conf, refreshes, recoveries), counts = mine["sequential"][name]
+        box_err = np.abs(got_boxes - cpu_boxes).max()
+        conf_err = np.abs(got_conf - cpu_conf).max()
+        if not (box_err <= 1.0 and conf_err <= 1e-3 and refreshes == cpu_ref):
+            raise AssertionError(f"sequential {name} f32 card vs cpu: bbox {box_err} px, confidence {conf_err}, "
+                                 f"refreshes {refreshes} vs {cpu_ref}")
+        want = {"K1": N, "K2": n_fused * (1 + N + refreshes)}
+        if counts != want:
+            raise AssertionError(f"sequential {name}: launches {counts}, expected {want}")
+        if name == "dual_ema" and not refreshes:
+            raise AssertionError("sequential dual_ema: no refresh ran")
+        if name == "recover" and not recoveries:
+            raise AssertionError("sequential recover: the wider window was never taken")
+        launches["sequential" if name == "static" else f"sequential_{name}"] = counts
+        print(f"[9d] FEARTracker {name:8s} f32, init + {N} updates, card vs cpu: bbox max|err| {box_err} px "
+              f"(<= 1), confidence {conf_err:.2e} (<= 1e-3); {refreshes} refreshes, {recoveries} recovery "
+              f"crops; [9e] launches {counts} = K1 {N}, K2 {n_fused}*(1 + {N} + {refreshes})", flush=True)
+        if name == "static":
+            dflt_err = np.abs(dflt_boxes - cpu_boxes).max()
+            if not dflt_err <= 1.0:
+                raise AssertionError(f"sequential static f32 under torch's TF32 defaults: bbox {dflt_err} px > 1")
+            print(f"[9d] FEARTracker static   f32 under torch's defaults (cudnn.allow_tf32=True), card vs cpu: "
+                  f"bbox max|err| {dflt_err} px (<= 1), confidence {np.abs(dflt_conf - cpu_conf).max():.2e}",
+                  flush=True)
+
     # -- 9g: the three protocols on an in-memory suite, card vs CPU
-    seqs = [_render_clip(seed=20 + i, n_frames=24) for i in range(4)]
-    res = {device: _protocols(device, seqs, torch.float32) for device in ("cuda", "cpu")}
-    card_r, cpu_r = res["cuda"], res["cpu"]
+    card_r, cpu_r, n_clips = mine["protocols"], refs["protocols"], PROTOCOL_CLIPS
     ao = {k: (card_r[k]["ao"], cpu_r[k]["ao"]) for k in ("ope", "batched")}
     vot = (card_r["vot"]["robustness_failures"], cpu_r["vot"]["robustness_failures"])
     if not (all(abs(a - b) <= 0.01 for a, b in ao.values()) and vot[0] == vot[1]
             and abs(card_r["vot"]["accuracy"] - cpu_r["vot"]["accuracy"]) <= 0.01):
         raise AssertionError(f"protocols card vs cpu: AO {ao}, VOT failures {vot}")
-    if not (card_r["ope"]["num_sequences"] == card_r["batched"]["num_sequences"] == len(seqs)
+    if not (card_r["ope"]["num_sequences"] == card_r["batched"]["num_sequences"] == n_clips
             and min(a for a, _ in ao.values()) > 0.5):
         raise AssertionError(f"protocols on the card: {card_r['ope']['num_sequences']} sequences, AO {ao}")
-    print(f"[9g] protocols, {len(seqs)} x 24 frames, f32, card vs cpu: OPE AO {ao['ope'][0]:.4f} vs "
-          f"{ao['ope'][1]:.4f}; batched (ScanTracker, S={len(seqs)}) AO {ao['batched'][0]:.4f} vs "
+    print(f"[9g] protocols, {n_clips} x 24 frames, f32, card vs cpu: OPE AO {ao['ope'][0]:.4f} vs "
+          f"{ao['ope'][1]:.4f}; batched (ScanTracker, S={n_clips}) AO {ao['batched'][0]:.4f} vs "
           f"{ao['batched'][1]:.4f}; VOT accuracy {card_r['vot']['accuracy']:.4f} vs "
           f"{cpu_r['vot']['accuracy']:.4f}, failures {vot[0]:.0f} vs {vot[1]:.0f}, EAO "
           f"{card_r['vot']['eao']:.4f}", flush=True)
-    return launches, {"K1": k1_times[torch.float32], "K2": k2_times}, seq_ms, seqs
+    return launches, {"K1": k1_times[torch.float32], "K2": k2_times}, seq_ms, mine, refs
 
 
 # phase 9h's tolerances for bfloat16 on the card: boxes at S=4, T=8 against
@@ -1145,47 +1269,56 @@ BF16_BOX_PX = {"cpu_bf16": 6.0, "card_f32": 6.0}
 BF16_AO, BF16_VOT_FAILURES = 0.02, 1
 
 
-def _phase_bf16(card, seqs):
-    """Phase 9h: the bfloat16 path end to end on the card. ``track`` at
-    S=4, T=8 on the first 9 frames of 9g's four clips (an object to track:
-    on random frames, as in 5a, bf16 and f32 boxes wander apart by 100 px
-    and more) against the port in bfloat16 on the CPU and against the
-    card's own float32 boxes; then 9g's protocols in bfloat16, card against
-    CPU."""
+BF16_TRACK_T = 8  # 9h's track: T frames after the template's
+
+
+def _bf16_track(device, dtype, seqs, T: int = BF16_TRACK_T) -> dict:
+    """9h's ``track`` at S=len(seqs), T on the first T+1 frames of ``seqs``
+    on ``device`` in ``dtype`` → its outputs as float32 on the CPU."""
     import numpy as np
     import torch
 
     from feartracker_tpu_torch.evaluate.harness import build_scan_tracker
 
-    T = 8
     f0 = np.stack([frames[0] for frames, _ in seqs])
     chunk = np.stack([np.stack([frames[t] for frames, _ in seqs]) for t in range(1, T + 1)])
     boxes = np.stack([b[0] for _, b in seqs]).astype(np.float32)
-    got = {}
-    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16), ("cuda", torch.float32)):
-        tracker, _ = build_scan_tracker(dtype=dtype, device=device)
-        _, out = tracker.track(tracker.init(f0, boxes), chunk)
-        got[device, dtype] = {k: v.float().cpu() for k, v in out.items()}
-        if not all(torch.isfinite(v).all() for v in got[device, dtype].values()):
-            raise AssertionError(f"bf16 phase: non-finite {dtype} outputs on {device}")
-    mine = got["cuda", torch.bfloat16]
-    errs = {"cpu_bf16": (mine["bbox"] - got["cpu", torch.bfloat16]["bbox"]).abs().max().item(),
-            "card_f32": (mine["bbox"] - got["cuda", torch.float32]["bbox"]).abs().max().item()}
-    conf = (mine["confidence"] - got["cpu", torch.bfloat16]["confidence"]).abs().max().item()
+    tracker, _ = build_scan_tracker(dtype=dtype, device=device)
+    _, out = tracker.track(tracker.init(f0, boxes), chunk)
+    got = {k: v.float().cpu() for k, v in out.items()}
+    if not all(torch.isfinite(v).all() for v in got.values()):
+        raise AssertionError(f"bf16 phase: non-finite {dtype} outputs on {device}")
+    return got
+
+
+def _phase_bf16(card, card9, host9):
+    """Phase 9h: the bfloat16 path end to end on the card. ``track`` at
+    S=2, T=8 on the first 9 frames of 9g's two clips (an object to track:
+    on random frames, as in 5a, bf16 and f32 boxes wander apart by 100 px
+    and more) against the port in bfloat16 on the CPU and against the
+    card's own float32 boxes; then 9g's protocols in bfloat16, card against
+    CPU (each side's bfloat16 runs from its ``_seq_witness``: ``card9`` and
+    ``host9``, phase 9's host process)."""
+    import torch
+
+    S, T = PROTOCOL_CLIPS, BF16_TRACK_T
+    mine, cpu, f32 = card9["bf16_track"], host9["bf16_track"], _bf16_track("cuda", torch.float32, _protocol_clips())
+    errs = {"cpu_bf16": (mine["bbox"] - cpu["bbox"]).abs().max().item(),
+            "card_f32": (mine["bbox"] - f32["bbox"]).abs().max().item()}
+    conf = (mine["confidence"] - cpu["confidence"]).abs().max().item()
     if not all(errs[k] <= BF16_BOX_PX[k] for k in errs):
-        raise AssertionError(f"bf16 track S=4 T=8: bbox max|err| {errs} px, limits {BF16_BOX_PX}")
-    print(f"[9h] slice bf16 S=4 T=8 (9g's clips) on the card: bbox max|err| {errs['cpu_bf16']:.4f} px vs the port in bf16 on the "
+        raise AssertionError(f"bf16 track S={S} T={T}: bbox max|err| {errs} px, limits {BF16_BOX_PX}")
+    print(f"[9h] slice bf16 S={S} T={T} (9g's clips) on the card: bbox max|err| {errs['cpu_bf16']:.4f} px vs the port in bf16 on the "
           f"cpu (<= {BF16_BOX_PX['cpu_bf16']}), {errs['card_f32']:.4f} px vs the card's f32 boxes (<= "
           f"{BF16_BOX_PX['card_f32']}); confidence vs cpu bf16 {conf:.2e}", flush=True)
 
-    res = {device: _protocols(device, seqs, torch.bfloat16) for device in ("cuda", "cpu")}
-    card_r, cpu_r = res["cuda"], res["cpu"]
+    card_r, cpu_r = card9["bf16_protocols"], host9["bf16_protocols"]
     ao = {k: (card_r[k]["ao"], cpu_r[k]["ao"]) for k in ("ope", "batched")}
     vot = (card_r["vot"]["robustness_failures"], cpu_r["vot"]["robustness_failures"])
     if not (all(abs(a - b) <= BF16_AO for a, b in ao.values()) and abs(vot[0] - vot[1]) <= BF16_VOT_FAILURES
             and min(a for a, _ in ao.values()) > 0.5):
         raise AssertionError(f"protocols bf16 card vs cpu: AO {ao}, VOT failures {vot}")
-    print(f"[9h] protocols, {len(seqs)} x 24 frames, bf16, card vs cpu: OPE AO {ao['ope'][0]:.4f} vs "
+    print(f"[9h] protocols, {S} x 24 frames, bf16, card vs cpu: OPE AO {ao['ope'][0]:.4f} vs "
           f"{ao['ope'][1]:.4f}; batched AO {ao['batched'][0]:.4f} vs {ao['batched'][1]:.4f} (each within "
           f"{BF16_AO}); VOT accuracy {card_r['vot']['accuracy']:.4f} vs {cpu_r['vot']['accuracy']:.4f}, "
           f"failures {vot[0]:.0f} vs {vot[1]:.0f} (within {BF16_VOT_FAILURES}) [{card}]", flush=True)
@@ -1593,6 +1726,7 @@ def _phase_deployment(card, n_fused, counters, lap):
           f"dispatcher adds {dispatch_us:.2f} us a call, {dispatch_us * n_fused / 1e3:.4f} ms a frame's {n_fused} "
           f"launches (outputs equal bit for bit); export of both pairs {export_s:.1f} s [{card}]", flush=True)
     lap("11a")
+    host12a = _host_refs("12a")  # 12a's host side, beside 11b-11d; phase 12 reads it
 
     # -- 11b: ExportedTracker on phase 9's clip (the launch counts) and four
     # more seeds against FEARTracker on the card: each pair against the
@@ -1601,8 +1735,8 @@ def _phase_deployment(card, n_fused, counters, lap):
                 for suffix in ("", "_quantized")}
     trackers = {"": _fear_tracker("cuda", torch.float32), "_quantized": _fear_tracker("cuda", torch.bfloat16)}
     err = {}  # seed -> {"": f32 pair vs f32, "_quantized": vs bf16, "vs_f32": quantized pair vs f32}
-    for seed in (9, 10, 11, 12, 13):
-        frames, true_boxes = _render_clip(seed=seed, n_frames=60)
+    for seed in (9, 10, 11):
+        frames, true_boxes = _render_clip(seed=seed, n_frames=SEQ_CLIP_FRAMES)
         N = len(frames) - 1
         want = {k: _track_clip(t, frames, true_boxes[0])[0] for k, t in trackers.items()}
         got = {}
@@ -1633,7 +1767,7 @@ def _phase_deployment(card, n_fused, counters, lap):
     if not all(e[""] <= 1.0 and e["_quantized"] <= 1.0 and e["vs_f32"] <= BF16_BOX_PX["card_f32"]
                for e in err.values()):
         raise AssertionError(f"11b ExportedTracker vs FEARTracker on the card: bbox max|err| by seed {err}")
-    frames, true_boxes = _render_clip(seed=9, n_frames=60)
+    frames, true_boxes = _render_clip(seed=9, n_frames=SEQ_CLIP_FRAMES)
     N = len(frames) - 1
     lap("11b")
 
@@ -1643,30 +1777,37 @@ def _phase_deployment(card, n_fused, counters, lap):
     box = [str(int(v)) for v in true_boxes[0]]
     other = ["40", "40", "60", "50"]
     want_final = list(map(int, seq[-1]))
-    runs = {}
+    runs, argvs, procs = {}, {}, {}
+    t0 = time.perf_counter()
     for name, extra in (("demo", ["--initial_bbox", *box]),
                         ("demo_scan", ["--runtime", "scan", "--initial_bbox", *box, *other])):
-        argv = ["--device", "cuda", "--weights_path", PACKAGED_FEAR_XS, "--video_path", clip,
-                "--output_path", os.path.join(tmp.name, f"{name}.npz"), *extra]
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "feartracker_tpu_torch.demo", *argv], capture_output=True,
-                              text=True, timeout=300)
-        finals = [line for line in proc.stdout.splitlines() if line.startswith("final bbox")]
-        if proc.returncode != 0 or not finals:
-            raise AssertionError(f"{name}: rc {proc.returncode}, stdout {proc.stdout[-1000:]!r}, stderr "
-                                 f"{proc.stderr[-2000:]!r}")
-        boxes = [[int(v) for v in line.split("[")[-1].rstrip("]").split(",")] for line in finals]
-        # the same entry point in this process, counted from 0
-        torch.cuda.synchronize()
-        _zero(counters)
-        demo.main(argv)
-        torch.cuda.synchronize()
-        counts = _read(counters)
-        want = {"K1": N, "K2": n_fused * (1 + N)}
-        if counts != want:
-            raise AssertionError(f"{name} in-process: launches {counts}, expected {want}")
-        launches[name] = counts
-        runs[name] = (boxes, time.perf_counter() - t0)
+        argvs[name] = ["--device", "cuda", "--weights_path", PACKAGED_FEAR_XS, "--video_path", clip,
+                       "--output_path", os.path.join(tmp.name, f"{name}.npz"), *extra]
+        # both processes at once: neither is timed
+        procs[name] = subprocess.Popen([sys.executable, "-m", "feartracker_tpu_torch.demo", *argvs[name]],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        for name, argv in argvs.items():
+            out, err = procs[name].communicate(timeout=300)
+            finals = [line for line in out.splitlines() if line.startswith("final bbox")]
+            if procs[name].returncode != 0 or not finals:
+                raise AssertionError(f"{name}: rc {procs[name].returncode}, stdout {out[-1000:]!r}, stderr "
+                                     f"{err[-2000:]!r}")
+            boxes = [[int(v) for v in line.split("[")[-1].rstrip("]").split(",")] for line in finals]
+            # the same entry point in this process, counted from 0
+            torch.cuda.synchronize()
+            _zero(counters)
+            demo.main(argv)
+            torch.cuda.synchronize()
+            counts = _read(counters)
+            want = {"K1": N, "K2": n_fused * (1 + N)}
+            if counts != want:
+                raise AssertionError(f"{name} in-process: launches {counts}, expected {want}")
+            launches[name] = counts
+            runs[name] = (boxes, time.perf_counter() - t0)
+    finally:
+        for p in procs.values():  # stop what still runs after a failure
+            _stop(p)
     if runs["demo"][0] != [want_final]:
         raise AssertionError(f"11c demo final bbox {runs['demo'][0]} != FEARTracker's {want_final} on the card")
     scan = runs["demo_scan"][0]
@@ -1675,8 +1816,8 @@ def _phase_deployment(card, n_fused, counters, lap):
     print(f"[11c] python -m feartracker_tpu_torch.demo --device cuda, {len(frames)} frames .npy -> .npz: exit 0, final "
           f"bbox {runs['demo'][0][0]} == FEARTracker's on the card; --runtime scan with 2 objects: finals {scan} "
           f"(object 0 within 1 px); launches in-process {launches['demo']} host, {launches['demo_scan']} scan "
-          f"(K1 one a frame for both objects); {runs['demo'][1]:.1f} / {runs['demo_scan'][1]:.1f} s with the "
-          f"process", flush=True)
+          f"(K1 one a frame for both objects); {runs['demo'][1]:.1f} / {runs['demo_scan'][1]:.1f} s from the start "
+          f"of both processes, run at once, to the end of each one's in-process run", flush=True)
     lap("11c")
 
     # -- 11d: a reference Lightning .ckpt through load_variables, card vs CPU
@@ -1707,7 +1848,7 @@ def _phase_deployment(card, n_fused, counters, lap):
           f"{spread:.1f} px; launches {launches['ckpt_scan']}", flush=True)
     tmp.cleanup()
     lap("11d")
-    return launches, dispatch_us
+    return launches, dispatch_us, host12a
 
 
 # phase 12's tolerances: float32 card (cuDNN, TF32 off) against the CPU
@@ -1764,39 +1905,65 @@ def _opt_to(opt, device, dtype):
     return opt.to(device, dtype) if opt.is_floating_point() else opt.to(device)
 
 
-def _phase_train_f32(card, dev, model=None, opt_state=None, tag="12a"):
-    """12a: one float32 Adam step of FEAR-XS at B=8, card against CPU, and
-    both against the same gradient in float64 on the CPU; from ``model``
-    and ``opt_state`` where given (18c: a state restored from the JAX
-    trainer's Orbax checkpoint), else ``fear_xs.npz`` and a fresh state."""
+def _f32_start(restored: bool):
+    """12a's starting point: FEAR-XS from ``fear_xs.npz`` and a fresh Adam
+    state, or (18c, ``restored``) the state the JAX trainer's Orbax
+    checkpoint restores → (model, opt_state or None)."""
+    import os
+
+    from feartracker_tpu_torch.models.fear_net import FEARNet
+    from feartracker_tpu_torch.tools.train_profile import build_model
+    from feartracker_tpu_torch.train.checkpoint import CheckpointManager
+    from feartracker_tpu_torch.train.optim import build_optimizer
+    from feartracker_tpu_torch.train.step import create_train_state
+
+    if not restored:
+        return build_model("fear_xs")[0], None
+    tx = build_optimizer({"name": "adam", "lr": 1e-4})
+    here = os.path.dirname(os.path.abspath(__file__))
+    state = CheckpointManager(os.path.join(here, *ORBAX_FIXTURE, "checkpoints"), optimizer=tx).restore_last(
+        create_train_state(FEARNet(), tx, device="cpu"))
+    return state.model, state.opt_state
+
+
+def _f32_step(model, opt_state, d, dt):
+    """One Adam step (lr 1e-4) of a copy of ``model`` on 12a's seeded batch
+    (B=8, 256²/128²) on ``d`` in ``dt`` → (loss, gradients, BatchNorm
+    statistics, seconds), on the CPU in float64."""
     import copy
 
     import torch
 
     from feartracker_tpu_torch.core.box_coder import BoxCoderSpec
-    from feartracker_tpu_torch.tools.train_profile import build_model, synthetic_train_batch
+    from feartracker_tpu_torch.tools.train_profile import synthetic_train_batch
     from feartracker_tpu_torch.train.optim import apply_updates, build_optimizer
     from feartracker_tpu_torch.train.step import make_loss_and_grads, params_of
 
-    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
-    if model is None:
-        model, _ = build_model("fear_xs")
     batch = synthetic_train_batch(8, 128, 256, BoxCoderSpec(), "cpu", seed=12)
-    res = {}
-    for name, d, dt in (("f64", "cpu", torch.float64), ("cpu", "cpu", torch.float32), ("card", dev, torch.float32)):
-        t0 = time.perf_counter()
-        net = copy.deepcopy(model).to(d, dt)
-        tx = build_optimizer({"name": "adam", "lr": 1e-4})
-        params = params_of(net)
-        opt = tx.init(params) if opt_state is None else _opt_to(opt_state, d, dt)
-        total, _, _, grads = make_loss_and_grads()(net, {k: v.to(d, dt) for k, v in batch.items()})
-        with torch.no_grad():
-            updates, opt = tx.update(grads, opt, {k: p.detach() for k, p in params.items()})
-            apply_updates(params, updates)
-        stats = {k: v.cpu().double() for k, v in net.state_dict().items()
-                 if k.endswith(("running_mean", "running_var"))}
-        res[name] = (float(total), {k: g.cpu().double() for k, g in grads.items()}, stats,
-                     time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    net = copy.deepcopy(model).to(d, dt)
+    tx = build_optimizer({"name": "adam", "lr": 1e-4})
+    params = params_of(net)
+    opt = tx.init(params) if opt_state is None else _opt_to(opt_state, d, dt)
+    total, _, _, grads = make_loss_and_grads()(net, {k: v.to(d, dt) for k, v in batch.items()})
+    with torch.no_grad():
+        updates, opt = tx.update(grads, opt, {k: p.detach() for k, p in params.items()})
+        apply_updates(params, updates)
+    stats = {k: v.cpu().double() for k, v in net.state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    return float(total), {k: g.cpu().double() for k, g in grads.items()}, stats, time.perf_counter() - t0
+
+
+def _phase_train_f32(card, dev, host, tag="12a"):
+    """12a: one float32 Adam step of FEAR-XS at B=8, card against CPU, and
+    both against the same gradient in float64 on the CPU, from
+    ``fear_xs.npz`` and a fresh state, or (18c) from the state the JAX
+    trainer's Orbax checkpoint restores; the CPU's two steps from ``host``,
+    a host process (``_host_refs``) started earlier."""
+    import torch
+
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    model, opt_state = _f32_start(tag == "18c")
+    res = {"card": _f32_step(model, opt_state, dev, torch.float32), **host()}
     (lc, gc, sc, tc), (lg, gg, sg, tg), g64 = res["cpu"], res["card"], res["f64"][1]
     loss_err = abs(lg - lc) / abs(lc)
     err_all, err_own, zero = _grad_errors(gg, gc)
@@ -1809,10 +1976,14 @@ def _phase_train_f32(card, dev, model=None, opt_state=None, tag="12a"):
           f"max, {err_own:.2e} of each tensor's own; against float64 on the CPU: card {card_all:.2e} / "
           f"{card_own:.2e} (limits {TRAIN_GRAD_F64_ATOL} / {TRAIN_GRAD_F64_OWN}), CPU f32 {cpu_all:.2e} / "
           f"{cpu_own:.2e}; "
-          f"wall {tg:.2f} s card with cuDNN's first calls, {tc:.2f} s CPU [{card}]", flush=True)
+          f"wall {tg:.2f} s card with cuDNN's first calls, {tc:.2f} s CPU (4 threads, in a process of its own "
+          f"beside the card's side) [{card}]", flush=True)
     assert loss_err <= TRAIN_LOSS_RTOL, loss_err
     assert stat_err <= TRAIN_STATS_RTOL, stat_err
     assert card_all <= TRAIN_GRAD_F64_ATOL and card_own <= TRAIN_GRAD_F64_OWN, (card_all, card_own)
+
+
+TRAIN_PROFILE_BATCHES, TRAIN_PROFILE_STEPS = (32, 64, 128), 4  # 12b: 2 warm-up + 2 timed steps a batch size
 
 
 def _phase_train_profile(card):
@@ -1820,22 +1991,23 @@ def _phase_train_profile(card):
     process."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "feartracker_tpu_torch.tools.train_profile",
-                           "--batches", "32,64,128", "--warmup", "2", "--timed", "8"],
+                           "--batches", ",".join(map(str, TRAIN_PROFILE_BATCHES)), "--warmup", "2",
+                           "--timed", str(TRAIN_PROFILE_STEPS - 2)],
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lines = proc.stdout.splitlines()
     assert lines[0] == card, lines[0]
     records = [json.loads(line) for line in lines if line.startswith("{")]
-    assert [r["batch"] for r in records] == [32, 64, 128], lines
+    assert [r["batch"] for r in records] == list(TRAIN_PROFILE_BATCHES), lines
     for line in lines[1:]:
         print(f"[12b] {line}", flush=True)
     for r in records:
-        assert r["steps"] == 10 and r["loss_first"] == r["loss_first"] and r["loss_last"] < r["loss_first"], r
-    print(f"[12b] train_profile bf16 B=32/64/128: step {', '.join(f'{r['step_ms']:.2f}' for r in records)} ms, "
+        assert r["steps"] == TRAIN_PROFILE_STEPS and r["loss_first"] == r["loss_first"] and r["loss_last"] < r["loss_first"], r
+    print(f"[12b] train_profile bf16 B={'/'.join(map(str, TRAIN_PROFILE_BATCHES))}: step {', '.join(f'{r['step_ms']:.2f}' for r in records)} ms, "
           f"{', '.join(f'{r['samples_per_s']:.1f}' for r in records)} samples/s, peak "
           f"{', '.join(f'{r['peak_mem_bytes'] / 2**30:.2f}' for r in records)} GiB, "
           f"{', '.join(f'{r['mfu_pct']:.2f}' for r in records)}% of 989 TFLOP/s; loss "
-          f"{', '.join(f'{r['loss_first']:.4f}→{r['loss_last']:.4f}' for r in records)} over 10 steps; first "
+          f"{', '.join(f'{r['loss_first']:.4f}→{r['loss_last']:.4f}' for r in records)} over {TRAIN_PROFILE_STEPS} steps; first "
           f"steps {', '.join(f'{r['first_step_ms'] / 1e3:.1f}' for r in records)} s (each shape's first calls); "
           f"{time.perf_counter() - t0:.1f} s in its own process [{card}]", flush=True)
     return records
@@ -1857,7 +2029,7 @@ def _phase_train_data(card, dev, counters, root):
     from feartracker_tpu_torch.train.optim import build_optimizer
     from feartracker_tpu_torch.train.step import create_train_state, make_train_step
 
-    B, n_steps = 32, 10
+    B, n_steps = 32, 4
     csv_path = write_npy_dataset(root)
     cfg = {"root": root, "name": "rendered", "sizes": dict(TRAIN_SIZES), "regression_weight_label_size": 16,
            "device_augs": True,
@@ -1991,14 +2163,15 @@ def _phase_train_handover(card, dev, counters, state):
     return launches
 
 
-def _phase_train(card, counters, lap, root: str):
+def _phase_train(card, counters, lap, root: str, host12a):
     """Phase 12: training on the card (12a-12e), 12c's clips and 12d's
-    checkpoints written under ``root`` (phase 15 reads them); → (each path's
-    launches, 12b's records)."""
+    checkpoints written under ``root`` (phase 15 reads them), 12a's CPU
+    side from ``host12a`` (``_host_refs``, started in phase 11); → (each
+    path's launches, 12b's records)."""
     import torch
 
     dev = torch.device("cuda")
-    _phase_train_f32(card, dev)
+    _phase_train_f32(card, dev, host12a)
     lap("12a")
     profile = _phase_train_profile(card)
     lap("12b")
@@ -2026,10 +2199,10 @@ def _counted(fn, counters, into: dict, times: list):
     return wrapped
 
 
-# phase 13's validation: three 40-frame clips, each its own val dataset so
+# phase 13's validation: three 20-frame clips, each its own val dataset so
 # that the per-dataset metrics are per-sequence ones; card against CPU
 LOOP_VAL_CLIPS = 3
-LOOP_VAL_FRAMES = 40
+LOOP_VAL_FRAMES = 20
 LOOP_SEQ_IOU_TOL = 0.02  # per-sequence mean IoU (phase 9's boxes: within 1 px)
 LOOP_BATCHED_TOL = 0.1  # batched against sequential mean IoU (JAX's own test's bound)
 
@@ -2144,6 +2317,18 @@ def _phase_loop(card, counters, lap, step_alone_ms: float):
               f"{', '.join(f'{t * 1e3:.1f}' for t in save_s)} ms; fit {fit_s:.1f} s [{card}]", flush=True)
         lap("13b")
 
+        # 13g's command line starts here, in its own process, beside 13c-13f
+        # (none of them timed), and is read after 13f
+        t_cli = time.perf_counter()
+        cli_log = tempfile.TemporaryFile("w+")
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "feartracker_tpu_torch.train", f"visual_object_tracking_datasets={data}",
+             f"experiment.folder={exp}", "experiment.name=CLI", "model.pretrained_weights=fear_xs",
+             "device_augs=true", "batch_size.train=8", "train_percent=2", "max_epochs=1", "sanity_steps=0",
+             "log_every_n_steps=1", "val.datasets=[]"],
+            stdout=cli_log, stderr=subprocess.STDOUT, text=True)
+        atexit.register(_stop, cli)  # should a check below raise
+
         # -- 13c: the card's validate() against a CPU Trainer's on the same
         # weights, the warm start (where the tracker follows the clips: a few
         # steps move the BatchNorm statistics of the packaged weights, whose
@@ -2163,7 +2348,7 @@ def _phase_loop(card, counters, lap, step_alone_ms: float):
         diffs = [abs(card_metrics[k] - cpu_metrics[k]) for k in names]
         print(f"[13c] validate() card vs CPU on the warm start, per-sequence mean IoU "
               f"{', '.join(f'{card_metrics[k]:.4f}/{cpu_metrics[k]:.4f}' for k in names)}, max diff "
-              f"{max(diffs):.2e} (tol {LOOP_SEQ_IOU_TOL}); CPU {cpu_s:.1f} s; after the 6 steps (card) "
+              f"{max(diffs):.2e} (tol {LOOP_SEQ_IOU_TOL}); CPU {cpu_s:.1f} s beside 13g's process; after the 6 steps (card) "
               f"{', '.join(f'{val_metrics[k]:.4f}' for k in names)} [{card}]", flush=True)
         assert sorted(card_metrics) == sorted(cpu_metrics) and max(diffs) <= LOOP_SEQ_IOU_TOL, (card_metrics,
                                                                                                 cpu_metrics)
@@ -2220,23 +2405,22 @@ def _phase_loop(card, counters, lap, step_alone_ms: float):
         assert abs(batched_metrics["box_iou"] - seq_mean) <= LOOP_BATCHED_TOL, (batched_metrics, seq_mean)
         print(f"[13f] _validate_batched val_streams=2: box_iou {batched_metrics['box_iou']:.4f} against the "
               f"sequential {seq_mean:.4f} (tol {LOOP_BATCHED_TOL}); launches {batched} ({frames} frames + 2 "
-              f"inits); {batched_s:.2f} s [{card}]", flush=True)
+              f"inits); {batched_s:.2f} s beside 13g's process [{card}]", flush=True)
         lap("13f")
 
-        # -- 13g: the command line in its own process
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "feartracker_tpu_torch.train", f"visual_object_tracking_datasets={data}",
-             f"experiment.folder={exp}", "experiment.name=CLI", "model.pretrained_weights=fear_xs",
-             "device_augs=true", "batch_size.train=8", "train_percent=2", "max_epochs=1", "sanity_steps=0",
-             "log_every_n_steps=1", "val.datasets=[]"],
-            capture_output=True, text=True, timeout=300)
-        assert proc.returncode == 0, proc.stderr[-4000:]
+        # -- 13g: the command line in its own process, started after 13b
+        try:
+            rc = cli.wait(timeout=300)
+        finally:
+            _stop(cli)
+        cli_log.seek(0)
+        assert rc == 0, cli_log.read()[-4000:]
+        cli_log.close()
         cli_losses = scalars(read_events(os.path.join(exp, "CLI", "logs")))["train/loss"]
         assert [s for s, _ in cli_losses] == [1, 2], cli_losses
         print(f"[13g] python -m feartracker_tpu_torch.train backend gpu, 1 epoch of 2 steps at B=8: exit 0, "
-              f"losses {', '.join(f'{v:.4f}' for _, v in cli_losses)}, {time.perf_counter() - t0:.1f} s in its "
-              f"own process [{card}]", flush=True)
+              f"losses {', '.join(f'{v:.4f}' for _, v in cli_losses)}, {time.perf_counter() - t_cli:.1f} s in its "
+              f"own process, beside 13c-13f [{card}]", flush=True)
         lap("13g")
     print(f"[13] phase 13 {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return ({"train_loop_step": step_k, "train_loop_val_sequential": val_k, "train_loop_val_batched": batched},
@@ -2348,7 +2532,8 @@ def _dp_worker(rank: int, world: int, port: int, root: str) -> int:
 
     # -- 14c: Trainer.fit, backend gpu_dp with num_devices 2, over Gloo
     cfg = _loop_config(os.path.join(root, "data"), os.path.join(root, "exp"), "DP", [
-        "backend=gpu_dp", "num_devices=2", "distributed.backend=gloo", "num_workers=4", "sanity_steps=3"])
+        "backend=gpu_dp", "num_devices=2", "distributed.backend=gloo", "num_workers=4", "sanity_steps=3",
+        "max_epochs=1"])
     cfg["distributed"].update(coordinator_address=addr, num_processes=world, process_id=rank)
     counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
     trainer = L.Trainer(cfg)
@@ -2455,8 +2640,9 @@ def _phase_dp_processes(card, counters, staged, loop_val: dict):
                    os.path.join(root, "inputs.pt"))
         port = _free_port()
         t0 = time.perf_counter()
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(2)]
         procs = [subprocess.Popen([sys.executable, __file__, "--dp-worker", str(r), "2", str(port), root],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+                                  stdout=log, stderr=subprocess.STDOUT, text=True) for r, log in enumerate(logs)]
         try:
             deadline = time.monotonic() + 420
             while any(p.poll() is None for p in procs):
@@ -2465,11 +2651,11 @@ def _phase_dp_processes(card, counters, staged, loop_val: dict):
                 time.sleep(0.2)
         finally:
             for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            logs = [p.communicate(timeout=60) for p in procs]
-        for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-            assert p.returncode == 0, f"phase 14 rank {r} exited {p.returncode}:\n{err[-4000:]}"
+                _stop(p)
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            assert p.returncode == 0, f"phase 14 rank {r} exited {p.returncode}:\n{log.read()[-4000:]}"
+            log.close()
         procs_s = time.perf_counter() - t0
         outs = [torch.load(os.path.join(root, f"out{r}.pt"), weights_only=True) for r in range(2)]
 
@@ -2510,7 +2696,7 @@ def _phase_dp_processes(card, counters, staged, loop_val: dict):
         fit = [o["fit"] for o in outs]
         names = [f"clip{i}_box_iou" for i in range(LOOP_VAL_CLIPS)]
         val = {k: fit[0]["val_k"][k] + fit[1]["val_k"][k] for k in ("K1", "K2")}
-        seqs = 3 * LOOP_VAL_CLIPS  # the sanity check and 2 epochs, every clip each
+        seqs = 2 * LOOP_VAL_CLIPS  # the sanity check and 1 epoch, every clip each
         updates, inits = seqs * (LOOP_VAL_FRAMES - 1), seqs
         sanity = fit[0]["rows"][0]
         # rank 0 tracked clips 0 and 2, rank 1 clip 1: gathered in rank order
@@ -2521,7 +2707,7 @@ def _phase_dp_processes(card, counters, staged, loop_val: dict):
         kept = sorted(int(d) for d in os.listdir(os.path.join(exp, "checkpoints")) if d.isdigit())
         fit_differ = [k for k in fit[0]["model"] if not torch.equal(fit[0]["model"][k], fit[1]["model"][k])]
         print(f"[14c] Trainer.fit in two processes on cuda:0 (backend gpu_dp, num_devices 2, Gloo), bf16 "
-              f"{fit[0]['batch_size']} a process, {fit[0]['step']} steps in 2 epochs on each: launches in the steps "
+              f"{fit[0]['batch_size']} a process, {fit[0]['step']} steps in 1 epoch on each: launches in the steps "
               f"{[f['step_k'] for f in fit]}, in validation {[f['val_k'] for f in fit]} (summed {val}, one "
               f"process {updates} K1 / {13 * (updates + inits)} K2); sanity rows gathered "
               f"{[round(r[1], 6) for r in sanity]} against phase 13c's one-process "
@@ -2530,12 +2716,12 @@ def _phase_dp_processes(card, counters, staged, loop_val: dict):
               f"{', '.join(f'{f['s']:.1f}' for f in fit)} s, step calls "
               f"{', '.join(f'{t * 1e3:.0f}' for t in fit[0]['step_s'])} ms (rank 0); both processes "
               f"{procs_s:.1f} s [{card}]", flush=True)
-        assert [f["is_master"] for f in fit] == [True, False] and all(f["step"] == 6 for f in fit), fit
+        assert [f["is_master"] for f in fit] == [True, False] and all(f["step"] == 3 for f in fit), fit
         assert all(f["step_k"] == {"K1": 0, "K2": 0} for f in fit), fit
         assert val == {"K1": updates, "K2": 13 * (updates + inits)}, val
         assert len(sanity) == LOOP_VAL_CLIPS and row_err <= DP_VAL_ROW_ATOL, (sanity, want)
         assert fit[0]["rows"] == fit[1]["rows"]
-        assert len(events) == 1 and kept == [3, 6] and os.path.isdir(os.path.join(exp, "checkpoints", "last"))
+        assert len(events) == 1 and kept == [3] and os.path.isdir(os.path.join(exp, "checkpoints", "last"))
         assert not fit_differ, fit_differ[:5]
     return {"dp_fit_2proc_step": {k: fit[0]["step_k"][k] + fit[1]["step_k"][k] for k in ("K1", "K2")},
             "dp_fit_2proc_val": val}
@@ -2631,6 +2817,8 @@ def _phase_parallel(card, counters, lap, staged, step_alone_ms: float, loop_val:
 
     t_phase = time.perf_counter()
     staged = {k: v for k, v in staged.items() if isinstance(v, torch.Tensor)}
+
+    # 14a and 14d time the card: they run before 14b-c's two processes start
     launches = {"dp_step_world1": _phase_dp_world1(card, counters, staged, step_alone_ms)}
     lap("14a")
     launches.update(_phase_sharded(card, counters, track_ms))
@@ -2826,7 +3014,7 @@ def _phase_tools(card, counters, lap, work: str, k2_phase6: dict):
     lap("15d")
 
     # 15e: the loader on 12c's clips against the step's demand
-    recs, got = _run_tool(loader_throughput, ["--root", work, "--batch", "32", "--steps", "6", "--num_workers", "8",
+    recs, got = _run_tool(loader_throughput, ["--root", work, "--batch", "32", "--steps", "2", "--num_workers", "8",
                                               "--modes", "device_augs,device_augs+cache", "--step"], counters, "15e")
     used("loader_throughput", got, k1=False, k2=False)
     for r in recs:
@@ -2877,7 +3065,7 @@ def _phase_tools(card, counters, lap, work: str, k2_phase6: dict):
 
 # phase 16: the scenario suites at reduced counts (16a-b), and the CPU
 # witness (16c) at one scenario, one seed, two 12-frame sequences a family
-SCENARIO_SEEDS, SCENARIO_SEQUENCES, SCENARIO_FRAMES = (7, 13), 4, 24
+SCENARIO_SEEDS, SCENARIO_SEQUENCES, SCENARIO_FRAMES = (7,), 1, 24
 WITNESS_SEQUENCES, WITNESS_FRAMES = 2, 12
 # 16c, card against the port on the CPU: 9g's limits in float32 (AO and VOT
 # accuracy 0.01, failures equal), 9h's in bfloat16 (AO 0.02, failures within
@@ -2938,6 +3126,36 @@ def _witness(rows_card, rows_cpu, keys, what: str, limits: dict) -> str:
                                   for k, v in gaps.items())
 
 
+def _scenario_witness(device: str, work: str) -> dict:
+    """16c's side on ``device``: ``recovery_ablation`` (batched) on swap and
+    ``vot_recovery`` on occlusion in each of ``SCENARIO_LIMITS``' dtypes,
+    and ``quantized_quality``'s exported pairs on swap, at one seed over
+    ``WITNESS_SEQUENCES`` × ``WITNESS_FRAMES``; each device writes its own
+    scenario roots and export under ``work`` (the card's pair is 16b's
+    export: graphs run where they were exported)."""
+    import os
+
+    import torch
+
+    from feartracker_tpu_torch.tools import quantized_quality, recovery_ablation, vot_recovery
+
+    on_card = device == "cuda"
+    root = os.path.join(work, "witness" if on_card else "witness_host")
+    kw = dict(seeds=[SCENARIO_SEEDS[0]], sequences=WITNESS_SEQUENCES, root=root, device=device)
+    rows = {}
+    for dtype_name in SCENARIO_LIMITS:
+        dtype = getattr(torch, dtype_name)
+        rows[dtype_name] = (
+            _quiet(lambda: recovery_ablation.run(scenarios=["swap"], contexts=[3.0], dtype=dtype,
+                                                 frames=WITNESS_FRAMES, **kw)),
+            _quiet(lambda: vot_recovery.run(scenarios=["occlusion"], contexts=[3.0], skip=2, burnin=3, dtype=dtype,
+                                            frames=WITNESS_FRAMES, **kw)))
+    rows["quantized"] = _quiet(lambda: quantized_quality.run(
+        export_dir=os.path.join(work, "export16" if on_card else "export16_cpu"), scenarios=["swap"],
+        seq_frames=WITNESS_FRAMES, **kw))
+    return rows
+
+
 def _phase_scenarios(card, counters, lap, work: str):
     """Phase 16: the numpy scenario generator on the card host (16a), the
     ten ablation and probe tools' ``run`` on the card, bf16, each launching
@@ -2945,15 +3163,15 @@ def _phase_scenarios(card, counters, lap, work: str):
     generated roots, float32 and bfloat16 (16c). → each tool's launches."""
     import os
 
-    import torch
-
     from feartracker_tpu_torch.ops.cuda.ir_block import ir_block_op_cuda
     from feartracker_tpu_torch.tools import (dual_template_ablation, family_pareto, gate_v2_ablation,
                                              letterbox_penalty, occlusion_signal_probe, quantized_quality,
                                              recovery_ablation, tune_tracker, vot_recovery, vot_unified)
     from feartracker_tpu_torch.tools.make_synthetic_dataset import SCENARIOS, generate
 
-    # 16a: every scenario at 2 seeds, and drift again at 2× (letterbox_penalty's)
+    host = _host_refs("16", work)  # 16c's host side, in its own process from here on
+
+    # 16a: every scenario at each seed, and drift again at 2× (letterbox_penalty's)
     root = os.path.join(work, "scenarios")
     n, frames, seeds = SCENARIO_SEQUENCES, SCENARIO_FRAMES, SCENARIO_SEEDS
     t0 = time.perf_counter()
@@ -3022,32 +3240,19 @@ def _phase_scenarios(card, counters, lap, work: str):
         print(f"[16b] {line}; {what} {min(aos):.4f}-{max(aos):.4f} [{card}]", flush=True)
     lap("16b")
 
-    # 16c: card against the port on the CPU, one family of tools at a time
-    wroot = os.path.join(work, "witness")
-    wkw = dict(seeds=[seeds[0]], sequences=WITNESS_SEQUENCES, frames=WITNESS_FRAMES, root=wroot)
+    # 16c: card against the port on the CPU (the host's side from its process), one family of tools at a time
+    card_rows = _scenario_witness("cuda", work)
+    host_rows = host()
     lines = []
     for dtype_name, limits in SCENARIO_LIMITS.items():
-        dtype = getattr(torch, dtype_name)
-        rows = {}
-        for device in ("cuda", "cpu"):
-            rows[device] = (
-                _quiet(lambda: recovery_ablation.run(scenarios=["swap"], contexts=[3.0], dtype=dtype, device=device,
-                                                     **wkw)),
-                _quiet(lambda: vot_recovery.run(scenarios=["occlusion"], contexts=[3.0], skip=2, burnin=3,
-                                                dtype=dtype, device=device, **wkw)))
+        rows = {"cuda": card_rows[dtype_name], "cpu": host_rows[dtype_name]}
         lines.append(_witness(rows["cuda"][0], rows["cpu"][0], ("mode", "scenario", "seed"),
                               f"{dtype_name} batched (recovery_ablation)", limits))
         lines.append(_witness(rows["cuda"][1], rows["cpu"][1], ("mode", "scenario", "seed"),
                               f"{dtype_name} VOT (vot_recovery)", limits))
         if not any(r.get("robustness_failures", 0) > 0 for r in rows["cuda"][1]):
             raise AssertionError(f"16c: no VOT failure on the occlusion witness to compare: {rows['cuda'][1]}")
-    # the card's pair is 16b's export; graphs run where they were exported
-    qrows = {device: _quiet(lambda: quantized_quality.run(export_dir=os.path.join(work, "export16" if device == "cuda"
-                                                                                  else "export16_cpu"),
-                                                          scenarios=["swap"], seeds=[seeds[0]],
-                                                          seq_frames=WITNESS_FRAMES, sequences=WITNESS_SEQUENCES,
-                                                          root=wroot, device=device))
-             for device in ("cuda", "cpu")}
+    qrows = {"cuda": card_rows["quantized"], "cpu": host_rows["quantized"]}
     for path, dtype_name in (("fp32_export", "float32"), ("quantized_export", "bfloat16")):
         lines.append(_witness([r for r in qrows["cuda"] if r.get("path") == path],
                               [r for r in qrows["cpu"] if r.get("path") == path], ("scenario", "seed", "path"),
@@ -3141,6 +3346,28 @@ def _sum_launches(*counts) -> dict:
     return {k: sum(c[k] for c in counts) for k in ("K1", "K2")}
 
 
+def _driver_witness(device: str, work: str) -> dict:
+    """17d's side on ``device``: ``pretrain_trunk``'s history over 17a's
+    classes under ``work`` (one epoch at ``PRETRAIN_WITNESS_LR``) and the
+    feature-gate rollouts in float32 (seed 51, two 12-frame sequences a
+    scenario), each device writing its own files under ``work``."""
+    import os
+
+    import torch
+
+    from feartracker_tpu_torch.tools import pretrain_trunk, train_feature_gate
+    from feartracker_tpu_torch.tools.make_synthetic_dataset import SCENARIOS
+
+    suffix = "" if device == "cuda" else "_host"
+    hist = _quiet(lambda: pretrain_trunk.run(os.path.join(work, "classes"), "fear_xs",
+                                             os.path.join(work, f"trunk_{device}.npz"), epochs=1, batch_size=16,
+                                             image_size=128, lr=PRETRAIN_WITNESS_LR, seed=0, device=device))
+    roll = train_feature_gate.collect_rollouts(SCENARIOS, (51,), 12, 2, 1.0,
+                                               os.path.join(work, "feature_gate_witness" + suffix),
+                                               dtype=torch.float32, device=device)
+    return {"pretrain": hist["history"], "obs": roll[0], "vis": roll[1], "iou": roll[2], "boxes": roll[5]}
+
+
 def _phase_drivers(card, counters, lap, work: str):
     """Phase 17: the dataset makers (17a) and classification pretraining
     (17b) on the card host with no cv2 or pandas, the eight training
@@ -3153,7 +3380,6 @@ def _phase_drivers(card, counters, lap, work: str):
     import os
 
     import numpy as np
-    import torch
 
     from feartracker_tpu_torch.convert.load import transfer_variables, variables_from_npz, variables_of
     from feartracker_tpu_torch.data.loader import BatchLoader
@@ -3190,6 +3416,7 @@ def _phase_drivers(card, counters, lap, work: str):
     print(f"[17a] make_class_dataset 12 classes x 8 images, 128x128 .npy, in {seconds:.1f} s; make_annotations "
           f"rows and frame shapes {made}; no cv2 or pandas imported", flush=True)
     lap("17a")
+    host = _host_refs("17", work)  # 17d's host side, in its own process from here on (17a made its classes)
 
     # 17b: classification pretraining of the FEAR-XS trunk, float32
     npz = os.path.join(work, "fear_xs_trunk.npz")
@@ -3221,7 +3448,7 @@ def _phase_drivers(card, counters, lap, work: str):
 
     def train_run_schedule():
         lengths = _val_lengths(os.path.join(paths["train_run"], "data", "got10k"), 12)
-        first = [_sequential_launches(lengths[:1], nf_xs)] + [_sequential_launches(lengths, nf_xs)] * 2
+        first = [_sequential_launches(lengths[:1], nf_xs), _sequential_launches(lengths, nf_xs)]
         resumed = [_sequential_launches(lengths[:1], nf_xs), _sequential_launches(lengths, nf_xs)]
         return _sum_launches(*first, *resumed)
 
@@ -3247,7 +3474,7 @@ def _phase_drivers(card, counters, lap, work: str):
                              one_gate, one_gate)
 
     drivers = {
-        "train_run": (lambda: train_run.run(os.path.join(paths["train_run"], "data"), epochs=2, resume_epochs=1,
+        "train_run": (lambda: train_run.run(os.path.join(paths["train_run"], "data"), epochs=1, resume_epochs=1,
                                             device_augs=True, device="cuda", overrides=cut),
                       train_run_schedule),
         "pretrain_chain": (lambda: pretrain_chain.run(epochs=1, batch=DRIVER_BATCH, num_samples=16, tracks=4,
@@ -3272,7 +3499,7 @@ def _phase_drivers(card, counters, lap, work: str):
                                                                 batch=DRIVER_BATCH, work=paths["train_template_gate"],
                                                                 device="cuda", device_augs=True, num_workers=8),
                                 lambda: {"K1": 0, "K2": 0}),
-        "train_feature_gate": (lambda: train_feature_gate.run(scenarios=SCENARIOS, train_seeds=(51,), frames=24,
+        "train_feature_gate": (lambda: train_feature_gate.run(scenarios=SCENARIOS, train_seeds=(51,), frames=12,
                                                               sequences=2, work=paths["train_feature_gate"],
                                                               device="cuda"),
                                feature_gate_schedule),
@@ -3298,7 +3525,7 @@ def _phase_drivers(card, counters, lap, work: str):
         "warm_start_comparison": len(records["warm_start_comparison"]) == 3,
         "synthetic_e2e": records["synthetic_e2e"][-1]["steps"] > 0,
         "train_template_gate": math.isfinite(records["train_template_gate"][-1]["gate_logit"]),
-        "train_feature_gate": records["train_feature_gate"][0]["collected"] == len(SCENARIOS) * 2 * 23,
+        "train_feature_gate": records["train_feature_gate"][0]["collected"] == len(SCENARIOS) * 2 * 11,
         "train_flagship": "summary" in records["train_flagship"][-1],
     }
     losses = [r["loss"] for rs in records.values() for r in rs if "loss" in r]
@@ -3324,18 +3551,12 @@ def _phase_drivers(card, counters, lap, work: str):
             step({k: v.to(device) for k, v in b.items()})
         logit[device] = float(model.template_gate.detach()[0])
     gate_gap = abs(logit["cuda"] - logit["cpu"])
-    hist = {device: _quiet(lambda: pretrain_trunk.run(cls_root, "fear_xs", os.path.join(work, f"trunk_{device}.npz"),
-                                                      epochs=2, batch_size=16, image_size=128,
-                                                      lr=PRETRAIN_WITNESS_LR, seed=0, device=device))["history"]
-            for device in ("cuda", "cpu")}
+    mine, refs = _driver_witness("cuda", work), host()
+    hist = {"cuda": mine["pretrain"], "cpu": refs["pretrain"]}
     loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist["cuda"], hist["cpu"]))
-    witness = os.path.join(work, "feature_gate_witness")
-    roll = {device: train_feature_gate.collect_rollouts(SCENARIOS, (51,), 24, 2, 1.0, witness, dtype=torch.float32,
-                                                        device=device)
-            for device in ("cuda", "cpu")}
-    box_px = float(np.abs(roll["cuda"][5] - roll["cpu"][5]).max())
-    obs_err = float(np.abs(roll["cuda"][0] - roll["cpu"][0]).max())
-    obs, vis, iou = roll["cuda"][:3]
+    box_px = float(np.abs(mine["boxes"] - refs["boxes"]).max())
+    obs_err = float(np.abs(mine["obs"] - refs["obs"]).max())
+    obs, vis, iou = mine["obs"], mine["vis"], mine["iou"]
     labels = ((vis >= 0.7) & (iou >= 0.5)).astype(np.float32)
     mlp = {(device, epochs): train_feature_gate.train_mlp(obs, labels, 8, epochs, 3e-2, 0, device=device)
            for epochs in (MLP_WITNESS_EPOCHS, 3000) for device in ("cuda", "cpu")}
@@ -3388,17 +3609,14 @@ def _phase_orbax(card, counters, lap, work: str):
     from feartracker_tpu_torch.convert.orbax import find_orbax_state, read_checkpoint
     from feartracker_tpu_torch.data.crops import get_subwindow_tracking, rescale_crop
     from feartracker_tpu_torch.evaluate.harness import build_scan_tracker, synthetic_streams
-    from feartracker_tpu_torch.models.fear_net import FEARNet
     from feartracker_tpu_torch.ops.resize import warp_affine_linear_u8
     from feartracker_tpu_torch.tools.make_npy_dataset import write_npy_dataset
-    from feartracker_tpu_torch.train.checkpoint import CheckpointManager
     from feartracker_tpu_torch.train.loop import Trainer
-    from feartracker_tpu_torch.train.optim import build_optimizer
-    from feartracker_tpu_torch.train.step import create_train_state
     from feartracker_tpu_torch.train.summary import read_events, scalars
 
     t18 = time.perf_counter()
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), *ORBAX_FIXTURE)
+    host = _host_refs("18c")  # 18c's host side, in its own process beside 18a-18c
     want = variables_from_npz("fear_xs")
 
     def same(got):
@@ -3424,7 +3642,8 @@ def _phase_orbax(card, counters, lap, work: str):
     print(f"[18a] the JAX trainer's Orbax checkpoint of FEAR-XS read in Python and numpy through "
           f"{', '.join(f'{k} ({s:.2f} s)' for k, (s, _) in reads.items())}: {len(want)} arrays bit-equal to "
           f"fear_xs.npz, step 1234; {reads['experiment'][1] / 1e6:.2f} MB read a time; zstandard importable "
-          f"{importlib.util.find_spec('zstandard') is not None} (not used) [{card}]", flush=True)
+          f"{importlib.util.find_spec('zstandard') is not None} (not used); read times beside 18c's host "
+          f"process [{card}]", flush=True)
     lap("18a")
 
     # 18b: the bench's shape from the Orbax dir and from the archive
@@ -3482,11 +3701,8 @@ def _phase_orbax(card, counters, lap, work: str):
     print(f"[18c] Trainer resume=true on the JAX experiment: step {seen['step']}, epoch {trainer.resumed_epoch} "
           f"(meta.json), lr {seen['lr']:.1e} (the injected hyperparameter), Adam count {seen['count']}; bf16 B=8, "
           f"steps 1235-1236 losses {', '.join(f'{v:.4f}' for _, v in losses)}; launches {_read(counters)}; fit "
-          f"{fit_s:.1f} s [{card}]", flush=True)
-    tx = build_optimizer({"name": "adam", "lr": 1e-4})
-    restored = CheckpointManager(os.path.join(fixture, "checkpoints"), optimizer=tx).restore_last(
-        create_train_state(FEARNet(), tx, device="cpu"))
-    _phase_train_f32(card, torch.device("cuda"), restored.model, restored.opt_state, tag="18c")
+          f"{fit_s:.1f} s beside 18c's host process [{card}]", flush=True)
+    _phase_train_f32(card, torch.device("cuda"), host, tag="18c")
     lap("18c")
 
     # 18d: the host crops on the card, against the CPU
@@ -3537,10 +3753,10 @@ HOST_ITEM_COUNT = 64
 # items are held to the mean of each image within this much of the CPU's
 # (normalised units; one grey level is 0.017) where their bytes differ
 ISO_MEAN_ATOL = 1e-3
-HOSTAUG_STEPS, HOSTAUG_EPOCHS, HOSTAUG_WORKERS = 3, 2, 8
+HOSTAUG_STEPS, HOSTAUG_EPOCHS, HOSTAUG_WORKERS = 3, 1, 8
 HOSTAUG_FRAME_HW = (720, 1280)  # a GOT-10k frame's size
 HOST_OPE_SEED = 19  # phase 19b's generator seed
-HOST_CODEC_REPS = 20
+HOST_CODEC_REPS = 5
 
 
 def fixture_frame(seed: int, h: int, w: int, gray: bool = False):
@@ -3666,6 +3882,9 @@ def _phase_host_io(card, counters, lap, work: str, trace_dir: str):
         t23 = time.perf_counter()
         launches.update(_phase_tiff_fax_cmyk(card, counters, lap, work, here, ope))
         print(f"[23] phase 23 in {time.perf_counter() - t23:.1f} s", flush=True)
+        t24 = time.perf_counter()
+        launches.update(_phase_webp_parts_jp2_modes(card, counters, lap, work, here))
+        print(f"[24] phase 24 in {time.perf_counter() - t24:.1f} s", flush=True)
     finally:
         del sys.modules["cv2"]
         if earlier is not None:
@@ -3897,6 +4116,11 @@ FAX_CMYK_MANIFEST = "manifest_tiff_fax_cmyk.json"  # phase 23a's files and cv2's
 # phase 23b(ii): the sha256 of each frame of 19c's val tree rewritten by tiff_ycbcr22, and the CPU's OPE over it
 TIFF_OPE_RECORD = ("tests", "fixtures", "tiff_ope_record.json")
 YCBCR_OPE_PX, YCBCR_OPE_AO = 1.0, 0.01  # 23b(ii)'s gate against that record: PERF.md section 2's f32 gate
+WEBP_PARTS_JP2_MANIFEST = "manifest_webp_parts_jp2_modes.json"  # phase 24a's files and cv2's pixels of each
+# phase 24b: 19c's val sequences written as 4-partition lossy WebP, each file's sha256 and the CPU's OPE over them
+WEBP_TREE = ("tests", "fixtures", "webp_parts_got10k")
+WEBP_TREE_RECORD = "record.json"
+WEBP_OPE_PX, WEBP_OPE_AO = 1.0, 0.01  # 24b's gate against that record: PERF.md section 2's f32 gate
 PRETRAIN_MIX = ("cmyk.jpg", "cmyk_progressive.jpg", "ycck.jpg", "s411.jpg", "png_named.JPEG")
 VIDEO_FRAMES = 30
 
@@ -4608,16 +4832,9 @@ def _phase_jp2_hdr_pam(card, counters, lap, work: str, here: str) -> dict:
                "sun": sun_raster}
     rows = _annotation_rows(ann, writers, 22)
     # JPEG 2000 (no writer here): 22b's tree and frames as they are, against JPEG encodes of their pixels
-    yt_frames = {vid: [os.path.join(root, "val", seq, f"{t:08d}.jpg") for t in range(3)]
-                  for vid, seq in (("vidA", "GOT-10k_Val_000000"), ("vidB", "GOT-10k_Val_000001"))}
-    jpg_root = os.path.join(ann, "jp2_as_jpg", "got10k")
-    _rewrite_tree(root, jpg_root, lambda img: encode_jpeg(img, 90))
-    for fmt, write in (("jp2", lambda path: open(path, "rb").read()),
-                       ("jp2_as_jpg", lambda path: encode_jpeg(imread(path), 90))):
-        _ytbb_tree(os.path.join(ann, fmt, "ytbb"), yt_frames, write)
-    jp2_rows = {"jp2": _annotations(ann, "jp2", root, os.path.join(ann, "jp2", "ytbb")),
-                "jp2_as_jpg": _annotations(ann, "jp2_as_jpg", jpg_root, os.path.join(ann, "jp2_as_jpg", "ytbb"))}
-    _check_rows("22c", jp2_rows, "jp2_as_jpg")
+    jp2_rows = _as_is_and_as_jpeg(ann, "jp2", root, {
+        vid: [os.path.join(root, "val", seq, f"{t:08d}.jpg") for t in range(3)]
+        for vid, seq in (("vidA", "GOT-10k_Val_000000"), ("vidB", "GOT-10k_Val_000001"))})
     got = _read(counters)
     if got != {"K1": 0, "K2": 0}:
         raise AssertionError(f"22c: make_annotations launched {got}")
@@ -4767,6 +4984,152 @@ def _phase_tiff_fax_cmyk(card, counters, lap, work: str, here: str, ope: dict) -
     return launches
 
 
+def _as_is_and_as_jpeg(ann: str, tag: str, got_root: str, yt_frames: dict) -> dict:
+    """make_annotations over a GOT-10k val tree and a YouTube-BB tree whose
+    frames are files as they are (``yt_frames``: {video: [path]}), and over
+    the same trees with each frame written as JPEG of its pixels; raises
+    unless the rows are equal and no frame size is zero. → {format: [GOT-10k
+    CSV text, YouTube-BB CSV text]}."""
+    import os
+
+    from feartracker_tpu_torch.data.imread import imread
+    from feartracker_tpu_torch.data.jpeg import encode_jpeg
+
+    jpg = f"{tag}_as_jpg"
+    jpg_root = os.path.join(ann, jpg, "got10k")
+    _rewrite_tree(got_root, jpg_root, lambda img: encode_jpeg(img, 90))
+    for fmt, write in ((tag, lambda path: open(path, "rb").read()), (jpg, lambda path: encode_jpeg(imread(path), 90))):
+        _ytbb_tree(os.path.join(ann, fmt, "ytbb"), yt_frames, write)
+    rows = {tag: _annotations(ann, tag, got_root, os.path.join(ann, tag, "ytbb")),
+            jpg: _annotations(ann, jpg, jpg_root, os.path.join(ann, jpg, "ytbb"))}
+    _check_rows(f"{tag}", rows, jpg)
+    return rows
+
+
+def _phase_webp_parts_jp2_modes(card, counters, lap, work: str, here: str) -> dict:
+    """Phase 24, cv2 blocked: the multi-partition VP8 WebP and JPEG 2000
+    coding-mode fixtures against cv2's pixels and 1280x720 decode ms (24a);
+    the GOT-10k OPE over the committed tree of phase 19c's val sequences as
+    4-partition lossy WebP against the CPU's recorded result (24b);
+    ``make_annotations`` over trees of those WebP frames and of the JPEG 2000
+    mode fixtures against the same trees in JPEG (24c). → each path's
+    launches."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from feartracker_tpu_torch.data.dataset import read_img
+    from feartracker_tpu_torch.data.imread import imread
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+    from feartracker_tpu_torch.evaluate import got10k_eval as ge
+
+    launches = {}
+    # 24a: the fixtures against cv2's pixels, made on the CPU with cv2 and pillow.libs' libwebp and OpenJPEG
+    images = os.path.join(here, *IMAGE_FIXTURES)
+    with open(os.path.join(images, WEBP_PARTS_JP2_MANIFEST)) as fh:
+        manifest = json.load(fh)["decode"]
+    bad, timing = [], {}
+    for c in manifest:
+        path = os.path.join(images, c["file"])
+        img = read_img(path)
+        if list(img.shape) != c["shape"] or _sha(img.tobytes()) != c["sha256"]:
+            bad.append(c["file"])
+        if c["file"].startswith("timing_"):
+            with open(path, "rb") as fh:
+                timing[c["kind"]] = fh.read()
+    if bad or len(timing) != 2:
+        raise AssertionError(f"24a: {bad} differ from cv2's pixels ({len(timing)} timing files)")
+    ms = {k: _decode_p50_ms(v, imread) for k, v in timing.items()}
+    print(f"[24a] data/webp.py + csrc/webp.cpp (2, 4 and 8 token partitions) and data/jp2.py + csrc/jp2.cpp (the six "
+          f"code-block styles, ROI, POC, SOP/EPH, tile-parts in every progression), cv2 blocked: {len(manifest)} "
+          f"fixtures equal to cv2's pixels; 1280x720 decode p50 of {HOST_CODEC_REPS} on one core "
+          f"{', '.join(f'{k} ({len(timing[k]) / 1e3:.0f} kB) {v:.2f} ms' for k, v in ms.items())} [{card}]",
+          flush=True)
+    lap("24a")
+
+    # 24b: the GOT-10k protocol over the committed 4-partition WebP tree
+    root = os.path.join(here, *WEBP_TREE)
+    with open(os.path.join(root, WEBP_TREE_RECORD)) as fh:
+        record = json.load(fh)
+    differ = []
+    for rel, digest in record["files"].items():
+        with open(os.path.join(root, rel), "rb") as fh:
+            data = fh.read()
+        if _sha(data) != digest or (rel.endswith(".jpg") and data[8:16] != b"WEBPVP8 "):
+            differ.append(rel)
+    ds = GOT10kDataset(root, "val")
+    lengths = [len(ds[i][0]) for i in range(len(ds))]
+    if differ or lengths != record["lengths"]:
+        raise AssertionError(f"24b: the WebP tree's files {differ} differ from its record; lengths {lengths}")
+    tracker = _fear_tracker("cuda", torch.float32)
+    _zero(counters)
+    overlaps, names, precision, boxes = [], [], [], []
+    for i in range(len(ds)):  # evaluate_tracker's loop, the boxes kept
+        files, anno, _ = ds[i]
+        m = min(len(files), len(anno))
+        preds, _ = ge.run_sequence(tracker, files, anno[0], m)
+        gt = np.asarray(anno[1:m], np.float64)
+        overlaps.append(ge._overlap(preds[1:], gt))
+        precision.append(ge.precision_stats(preds[1:], gt))
+        names.append(ds.sequence_name(i))
+        boxes.append(np.asarray(preds, np.float64))
+    torch.cuda.synchronize()
+    got = _read(counters)
+    ao = ge.summarize(overlaps, names, precision)
+    want = _sequential_launches(lengths, _n_fused("fear_xs"))
+    px = max(float(np.abs(b - np.asarray(r)).max()) for b, r in zip(boxes, record["boxes_cpu"]))
+    d_ao = abs(ao["ao"] - record["ope_cpu"]["ao"])
+    if got != want or want != {"K1": 22, "K2": 312} or len(boxes) != len(record["boxes_cpu"]):
+        raise AssertionError(f"24b: launches {got}, schedule {want}")
+    if px > WEBP_OPE_PX or d_ao > WEBP_OPE_AO:
+        raise AssertionError(f"24b: WebP boxes {px} px, AO {ao['ao']!r} against the CPU's {record['ope_cpu']['ao']!r}")
+    launches["webp_parts_ope"] = got
+    print(f"[24b] GOT-10k OPE (FEARTracker FEAR-XS f32) over the committed tree of phase 19c's {len(lengths)} val "
+          f"sequences ({sum(lengths)} frames of {record['frame_hw'][1]}x{record['frame_hw'][0]}) as lossy WebP with "
+          f"{record['partitions']} token partitions (libwebp q{record['quality']:g}, {record['bytes']} bytes, every file "
+          f"at its sha256): AO {ao['ao']:.6f} against the CPU's {record['ope_cpu']['ao']:.6f} (|d| {d_ao:.2e} <= "
+          f"{WEBP_OPE_AO}), boxes within {px:.2e} px (<= {WEBP_OPE_PX}) of the CPU's; launches {got} = the schedule "
+          f"[{card}]", flush=True)
+    lap("24b")
+
+    # 24c: make_annotations over trees of the WebP frames and of the JPEG 2000
+    # mode fixtures (no writer of either here: the files as they are), against
+    # the same trees in JPEG
+    _zero(counters)
+    ann = os.path.join(work, "annotations24")
+    seqs = sorted(d for d in os.listdir(os.path.join(root, "val")) if os.path.isdir(os.path.join(root, "val", d)))
+    webp_rows = _as_is_and_as_jpeg(ann, "webp", root, {
+        vid: [os.path.join(root, "val", seq, f"{t:08d}.jpg") for t in range(3)] for vid, seq in zip(("vidA", "vidB"), seqs)})
+    modes = [os.path.join(images, c["file"]) for c in manifest if c["file"].startswith("jp2_")]
+    jp2_root = os.path.join(ann, "jp2_modes_src", "got10k")
+    k = 0
+    for d, _, files in os.walk(os.path.join(root, "val")):
+        out = os.path.join(jp2_root, os.path.relpath(d, root))
+        os.makedirs(out, exist_ok=True)
+        for f in sorted(files):
+            if f.endswith(".jpg"):  # each frame one of the mode fixtures, in turn
+                shutil.copyfile(modes[k % len(modes)], os.path.join(out, f))
+                k += 1
+            else:
+                shutil.copyfile(os.path.join(d, f), os.path.join(out, f))
+    jp2_rows = _as_is_and_as_jpeg(ann, "jp2_modes", jp2_root, {"vidA": modes[:4], "vidB": modes[4:9]})
+    got = _read(counters)
+    if got != {"K1": 0, "K2": 0}:
+        raise AssertionError(f"24c: make_annotations launched {got}")
+    launches["webp_parts_jp2_modes_annotations"] = got
+    n_rows = {t: [len(x.splitlines()) - 1 for x in r[t]] for t, r in (("webp", webp_rows), ("jp2_modes", jp2_rows))}
+    print(f"[24c] make_annotations over GOT-10k and YouTube-BB trees of 24b's 4-partition WebP frames ({n_rows['webp']} "
+          f"rows) and of the JPEG 2000 mode fixtures ({n_rows['jp2_modes']} rows): rows equal to the same trees in "
+          f"JPEG, no zero frame size, no launch [{card}]", flush=True)
+    shutil.rmtree(ann)
+    lap("24c")
+    if "cv2" in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}:
+        raise AssertionError("phase 24 imported cv2")
+    return launches
+
+
 def _phase_video(card, counters, lap, work: str) -> dict:
     """Phase 20d: the demo over an mp4 that the host's cv2 writes (mp4v),
     with an mp4 out, against ``FEARTracker`` over the frames cv2 decodes from
@@ -4886,10 +5249,21 @@ def main() -> int:
     print(f"[1] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    # -- 2: build -------------------------------------------------------------
+    # -- 2: build: nvcc of the CUDA kernels beside g++ of the host codecs ------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from feartracker_tpu_torch.data import jpeg as host_codecs
+
     t0 = time.perf_counter()
-    kbuild.load_library()
-    print(f"[2] built {[p.name for p in kbuild.sources()]} in {time.perf_counter() - t0:.1f} s", flush=True)
+    host_sources = sorted((host_codecs.PACKAGE_DIR / "csrc").glob("*.cpp"))
+    with ThreadPoolExecutor(len(host_sources)) as pool:
+        host_builds = [pool.submit(host_codecs.build, src) for src in host_sources]
+        kbuild.load_library()
+        cuda_s = time.perf_counter() - t0
+        for b in host_builds:
+            b.result()
+    print(f"[2] built {[p.name for p in kbuild.sources()]} in {cuda_s:.1f} s and, at the same time, "
+          f"{[p.name for p in host_sources]} with g++: {time.perf_counter() - t0:.1f} s in all", flush=True)
     for line in (kbuild.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("[2]   " + line.strip())
@@ -5085,16 +5459,16 @@ def main() -> int:
     lap("7")
     pool_launches = _phase_pool(card, n_fused, counters, dual_tracker)
     lap("8")
-    seq_launches, s1_times, seq_ms, seqs = _phase_sequential(card, n_fused, counters, gen)
-    _phase_bf16(card, seqs)
+    seq_launches, s1_times, seq_ms, card9, host9 = _phase_sequential(card, n_fused, counters, gen)
+    _phase_bf16(card, card9, host9)
     print(f"[9] sequential vs batched: FEARTracker update p50 {seq_ms['float32']:.3f} ms f32, "
           f"{seq_ms['bfloat16']:.3f} ms bf16 = {1e3 / seq_ms['bfloat16']:.1f} frames/s; ScanTracker S={S} "
           f"T={T} bf16 {S * T / track_ms * 1e3:.1f} frames/s [{card}]", flush=True)
     lap("9")
     graph_launches = _phase_graphs(card, n_fused, counters, tracker, dual_tracker, lap)
-    deploy_launches, dispatch_us = _phase_deployment(card, n_fused, counters, lap)
+    deploy_launches, dispatch_us, host12a = _phase_deployment(card, n_fused, counters, lap)
     with tempfile.TemporaryDirectory() as work:
-        train_launches, profile, staged = _phase_train(card, counters, lap, work)
+        train_launches, profile, staged = _phase_train(card, counters, lap, work, host12a)
         step_alone_ms = next(r["step_ms"] for r in profile if r["batch"] == 32)
         loop_launches, loop_val = _phase_loop(card, counters, lap, step_alone_ms)
         parallel_launches = _phase_parallel(card, counters, lap, staged, step_alone_ms, loop_val, track_ms)
@@ -5141,4 +5515,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(_dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--host-refs"]:
+        sys.exit(_host_refs_main(*sys.argv[2:5]))
     sys.exit(main())

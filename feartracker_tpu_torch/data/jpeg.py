@@ -46,7 +46,8 @@ SOURCE = PACKAGE_DIR / "csrc" / "jpeg.cpp"
 BUILD_DIR = PACKAGE_DIR / "_kernels_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
-_build_lock = threading.Lock()
+_build_locks = {}  # source path → the lock its build holds: builds of different sources run at once
+_locks_lock = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
@@ -63,7 +64,9 @@ def build(source: Path = SOURCE) -> Path:
     ``_kernels_build/libfear_<stem>_<hash>.so``."""
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + source.read_bytes()).hexdigest()[:16]
     lib = BUILD_DIR / f"libfear_{source.stem}_{digest}.so"
-    with _build_lock:
+    with _locks_lock:
+        lock = _build_locks.setdefault(source, threading.Lock())
+    with lock:
         if lib.exists():
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -5,7 +5,7 @@ started together, and the objects link into one shared library with a plain
 C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
-         -Xcompiler -fPIC -Xptxas -v [source flags] -c -o <obj> csrc/<source>.cu   # one per source
+         -Xcompiler -fPIC -Xptxas -v --split-compile=0 [source flags] -c -o <obj> csrc/<source>.cu   # one per source
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <build>/libfear_kernels_<hash>.so <objs>
 
 The library is built at first use (never at import), only from the sources
@@ -14,7 +14,9 @@ by a hash of the sources and flags; ``build.log`` there keeps the compiler's
 output (ptxas registers, shared memory and spills per kernel). ``decode.cu``
 builds with ``-fmad=false`` (``SOURCE_FLAGS``): its plain twin is a chain of
 torch ops, each rounded on its own, and a fused multiply-add rounds once,
-which can move a frame box by a pixel at a .5 boundary.
+which can move a frame box by a pixel at a .5 boundary. ``--split-compile=0``
+lets nvcc optimise and assemble a source's kernels on every core at once
+(``ir_block.cu`` holds 16 kernel instances).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_kernels_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 # flags of one source beside NVCC_FLAGS

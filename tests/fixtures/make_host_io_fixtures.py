@@ -1,5 +1,6 @@
-"""Write the fixtures of ``chip_smoke.py``'s phases 19 and 20 with cv2
-(OpenCV 5.0) and PIL, on a host that has them:
+"""Write the fixtures of ``chip_smoke.py``'s phases 19-24 with cv2
+(OpenCV 5.0), PIL and the encoders PIL bundles (``pillow.libs``), on a
+host that has them:
 
 * ``tests/fixtures/jpeg/*.jpg``: small cv2-made JPEGs (progressive,
   restart, 4:4:4, 4:2:2, 4:4:0, gray, odd sizes, EXIF orientation 6);
@@ -19,13 +20,18 @@
   (``manifest_tiff_webp_gif.json``), phase 22's JPEG 2000, PAM, PFM,
   Sun raster and Radiance HDR files (``manifest_jp2_hdr_pam.json``) and
   phase 23's CCITT, FillOrder 2, CMYK, CIELab, YCbCr and signed-sample TIFF
-  files (``manifest_tiff_fax_cmyk.json``);
+  files (``manifest_tiff_fax_cmyk.json``) and phase 24's VP8 WebP of 2, 4
+  and 8 token partitions (libwebp) and JPEG 2000 coding-mode files
+  (OpenJPEG's encoder) (``manifest_webp_parts_jp2_modes.json``);
 * ``tests/fixtures/jp2_got10k/``: phase 22b's GOT-10k val tree of JPEG 2000
   frames (PIL's OpenJPEG) and ``record.json`` (each file's sha256 and the
   port's OPE result over it on this host's CPU);
 * ``tests/fixtures/tiff_ope_record.json``: phase 23b(ii)'s record, the
   sha256 of each frame of phase 19c's tree written as YCbCr 2x2 TIFF and the
-  port's OPE result and boxes over them on this host's CPU.
+  port's OPE result and boxes over them on this host's CPU;
+* ``tests/fixtures/webp_parts_got10k/``: phase 24b's tree, phase 19c's val
+  sequences written by libwebp with 4 token partitions, and ``record.json``
+  (each file's sha256, the port's OPE result and boxes on this host's CPU).
 
     python tests/fixtures/make_host_io_fixtures.py
 
@@ -36,6 +42,8 @@ cv2's decode of them, not the writers. ``tests/test_torch_jpeg.py``,
 hold the committed files to what cv2 and the port give.
 """
 
+import ctypes
+import functools
 import io
 import json
 import os
@@ -2048,6 +2056,482 @@ def write_tiff_ope_record(path: str) -> dict:
     return record
 
 
+# -- multi-partition VP8, the JPEG 2000 coding modes and SOF11 (phase 24) -----------
+#
+# The writers drive the encoders of the libraries PIL bundles (``pillow.libs``)
+# through ctypes: libwebp 1.6 for the options PIL does not pass on (token
+# partitions, segments, SNS), OpenJPEG 2.5 for the code-block styles, ROI,
+# POC, SOP/EPH and tile-parts, and libjpeg-turbo for lossless JPEG. The
+# decoder under test is cv2's, not these encoders'.
+
+def pillow_lib(stem: str, mode: int = ctypes.DEFAULT_MODE) -> ctypes.CDLL:
+    """The shared library ``lib<stem>-*.so*`` of ``pillow.libs`` beside PIL."""
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    (path,) = glob.glob(os.path.join(libs, f"lib{stem}-*.so*"))
+    return ctypes.CDLL(path, mode=mode)
+
+
+WEBP_ENCODER_ABI = 0x0210  # libwebp 1.5-1.6's WEBP_ENCODER_ABI_VERSION; the library checks its major byte
+_WEBP_FIELDS = ("lossless quality method image_hint target_size target_PSNR segments sns_strength filter_strength "
+                "filter_sharpness filter_type autofilter alpha_compression alpha_filtering alpha_quality pass "
+                "show_compressed preprocessing partitions partition_limit emulate_jpeg_size thread_level low_memory "
+                "near_lossless exact use_delta_palette use_sharp_yuv qmin qmax").split()
+
+
+class WebPConfig(ctypes.Structure):
+    """libwebp 1.6's ``WebPConfig`` (encode.h)."""
+    _fields_ = [(f, ctypes.c_float if f in ("quality", "target_PSNR") else ctypes.c_int) for f in _WEBP_FIELDS]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)), ("size", ctypes.c_size_t), ("max_size", ctypes.c_size_t),
+                ("pad", ctypes.c_uint32)]
+
+
+_WEBP_PICTURE_BYTES = 256  # sizeof(WebPPicture) on x86-64; width/height at 8, writer/custom_ptr at 96
+
+
+@functools.cache
+def _libwebp() -> ctypes.CDLL:
+    pillow_lib("sharpyuv", ctypes.RTLD_GLOBAL)  # libwebp's undefined SharpYuv* symbols
+    lib = pillow_lib("webp")
+    if lib.WebPGetEncoderVersion() < 0x10500:
+        raise RuntimeError(f"libwebp {lib.WebPGetEncoderVersion():#x}: the writer is laid out for 1.5-1.6")
+    lib.WebPConfigInitInternal.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+    return lib
+
+
+def webp_libwebp(img, quality: float = 75.0, **options) -> bytes:
+    """A lossy WebP (RIFF + VP8) of the (H, W, 3) uint8 RGB ``img``, written by
+    libwebp's ``WebPEncode`` with ``WebPConfig`` fields ``options``
+    (``partitions`` 0-3 = 1, 2, 4 or 8 token partitions, ``segments``,
+    ``sns_strength``, ``method``, ...) over the default preset at ``quality``."""
+    lib = _libwebp()
+    cfg = WebPConfig()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0, ctypes.c_float(quality), WEBP_ENCODER_ABI):
+        raise RuntimeError("WebPConfigInitInternal refused the ABI version")
+    assert (cfg.quality, cfg.method, cfg.segments, cfg.sns_strength, cfg.alpha_quality) == (quality, 4, 4, 50, 100)
+    for k, v in options.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses the options {options}")
+    pic = (ctypes.c_uint8 * _WEBP_PICTURE_BYTES)()
+    if not lib.WebPPictureInitInternal(pic, WEBP_ENCODER_ABI):
+        raise RuntimeError("WebPPictureInitInternal refused the ABI version")
+    h, w = img.shape[:2]
+    struct.pack_into("<ii", pic, 8, w, h)
+    rgb = np.ascontiguousarray(img, np.uint8)
+    writer = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    try:
+        if not lib.WebPPictureImportRGB(pic, rgb.ctypes.data_as(ctypes.c_void_p), 3 * w):
+            raise RuntimeError("WebPPictureImportRGB failed")
+        struct.pack_into("<QQ", pic, 96, ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value,
+                         ctypes.addressof(writer))
+        if not lib.WebPEncode(ctypes.byref(cfg), pic):
+            raise RuntimeError(f"WebPEncode failed: error {struct.unpack_from('<i', pic, 136)[0]}")
+        data = ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+        lib.WebPPictureFree(pic)
+    if vp8_header(data)["partitions"] != 1 << cfg.partitions:
+        raise ValueError(f"libwebp wrote {vp8_header(data)['partitions']} token partitions, not "
+                         f"{1 << cfg.partitions}: it writes one at methods 3-6")
+    return data
+
+
+def vp8_header(data: bytes) -> dict:
+    """A WebP file's VP8 key-frame header as far as its token partitions:
+    {"segments": segmentation on, "partitions": the count (1, 2, 4 or 8),
+    "mb_rows": macroblock rows}."""
+    _kind, frame = webp_bitstream(data)
+    size0 = (frame[0] | frame[1] << 8 | frame[2] << 16) >> 5
+    br = _BoolDecoder(frame[10:10 + size0])
+    br.value_bits(2)
+    segments = br.value_bits(1)
+    if segments:
+        update_map = br.value_bits(1)
+        if br.value_bits(1):
+            br.value_bits(1)
+            for n in (7, 7, 7, 7, 6, 6, 6, 6):
+                if br.value_bits(1):
+                    br.value_bits(n + 1)
+        if update_map:
+            for _ in range(3):
+                if br.value_bits(1):
+                    br.value_bits(8)
+    br.value_bits(10)  # filter type, level, sharpness
+    if br.value_bits(1) and br.value_bits(1):
+        for _ in range(8):
+            if br.value_bits(1):
+                br.value_bits(7)
+    h = (frame[8] | frame[9] << 8) & 0x3FFF
+    return {"segments": segments, "partitions": 1 << br.value_bits(2), "mb_rows": (h + 15) >> 4}
+
+
+class _OpjPoc(ctypes.Structure):
+    """OpenJPEG 2.5's ``opj_poc_t`` (openjpeg.h)."""
+    _fields_ = ([(n, ctypes.c_uint32) for n in "resno0 compno0 layno1 resno1 compno1 layno0 precno0 precno1".split()]
+                + [("prg1", ctypes.c_int), ("prg", ctypes.c_int), ("progorder", ctypes.c_char * 5),
+                   ("tile", ctypes.c_uint32)] + [(n, ctypes.c_int32) for n in "tx0 tx1 ty0 ty1".split()]
+                + [(n, ctypes.c_uint32) for n in ("layS resS compS prcS layE resE compE prcE txS txE tyS tyE dx dy "
+                                                  "lay_t res_t comp_t prc_t tx0_t ty0_t").split()])
+
+
+def _ints(names: str):
+    return [(n, ctypes.c_int) for n in names.split()]
+
+
+class OpjCParameters(ctypes.Structure):
+    """OpenJPEG 2.5's ``opj_cparameters_t`` (openjpeg.h, JPWL's 16-entry
+    arrays included); :func:`_libopenjp2` holds its size to the bytes
+    ``opj_set_default_encoder_parameters`` clears."""
+    _fields_ = (_ints("tile_size_on cp_tx0 cp_ty0 cp_tdx cp_tdy cp_disto_alloc cp_fixed_alloc cp_fixed_quality")
+                + [("cp_matrice", ctypes.c_void_p), ("cp_comment", ctypes.c_char_p), ("csty", ctypes.c_int),
+                   ("prog_order", ctypes.c_int), ("POC", _OpjPoc * 32), ("numpocs", ctypes.c_uint32),
+                   ("tcp_numlayers", ctypes.c_int), ("tcp_rates", ctypes.c_float * 100),
+                   ("tcp_distoratio", ctypes.c_float * 100)]
+                + _ints("numresolution cblockw_init cblockh_init mode irreversible roi_compno roi_shift res_spec")
+                + [("prcw_init", ctypes.c_int * 33), ("prch_init", ctypes.c_int * 33), ("infile", ctypes.c_char * 4096),
+                   ("outfile", ctypes.c_char * 4096), ("index_on", ctypes.c_int), ("index", ctypes.c_char * 4096)]
+                + _ints("image_offset_x0 image_offset_y0 subsampling_dx subsampling_dy decod_format cod_format "
+                        "jpwl_epc_on jpwl_hprot_MH")
+                + [(n, ctypes.c_int * 16) for n in ("jpwl_hprot_TPH_tileno jpwl_hprot_TPH jpwl_pprot_tileno "
+                                                    "jpwl_pprot_packno jpwl_pprot").split()]
+                + _ints("jpwl_sens_size jpwl_sens_addr jpwl_sens_range jpwl_sens_MH")
+                + [("jpwl_sens_TPH_tileno", ctypes.c_int * 16), ("jpwl_sens_TPH", ctypes.c_int * 16)]
+                + _ints("cp_cinema max_comp_size cp_rsiz")
+                + [("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char), ("tcp_mct", ctypes.c_char),
+                   ("jpip_on", ctypes.c_int), ("mct_data", ctypes.c_void_p), ("max_cs_size", ctypes.c_int),
+                   ("rsiz", ctypes.c_uint16)])
+
+
+class _OpjCmptParm(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_uint32) for n in "dx dy w h x0 y0 prec bpp sgnd".split()]
+
+
+class _OpjComp(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_uint32) for n in "dx dy w h x0 y0 prec bpp sgnd resno_decoded factor".split()]
+                + [("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)])
+
+
+class _OpjImage(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_uint32) for n in "x0 y0 x1 y1 numcomps".split()]
+                + [("color_space", ctypes.c_int), ("comps", ctypes.POINTER(_OpjComp)), ("icc", ctypes.c_void_p),
+                   ("icc_len", ctypes.c_uint32)])
+
+
+OPJ_PROGRESSIONS = {"LRCP": 0, "RLCP": 1, "RPCL": 2, "PCRL": 3, "CPRL": 4}
+
+
+@functools.cache
+def _libopenjp2() -> ctypes.CDLL:
+    lib = pillow_lib("openjp2")
+    # the known-good default: opj_set_default_encoder_parameters clears the
+    # whole struct first, so the bytes it touches are sizeof(opj_cparameters_t)
+    probe = (ctypes.c_uint8 * 65536)(*([0xAB] * 65536))
+    lib.opj_set_default_encoder_parameters(probe)
+    size = max(i for i, b in enumerate(bytes(probe)) if b != 0xAB) + 1
+    if size != ctypes.sizeof(OpjCParameters):
+        raise RuntimeError(f"opj_cparameters_t is {size} bytes in this OpenJPEG, "
+                           f"{ctypes.sizeof(OpjCParameters)} in the writer's layout")
+    P = ctypes.c_void_p
+    lib.opj_image_create.restype = ctypes.POINTER(_OpjImage)
+    lib.opj_create_compress.restype = P
+    lib.opj_stream_create_default_file_stream.restype = P
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.opj_setup_encoder.argtypes = [P, P, P]
+    lib.opj_start_compress.argtypes = [P, P, P]
+    lib.opj_encode.argtypes = [P, P]
+    lib.opj_end_compress.argtypes = [P, P]
+    for f in ("opj_destroy_codec", "opj_stream_destroy", "opj_image_destroy"):
+        getattr(lib, f).argtypes = [P]
+    return lib
+
+
+def jp2_openjpeg(img, jp2=True, rates=(0,), irreversible=False, mct=None, tile=None, tp_flag=None, progression="LRCP",
+                 poc=(), **params) -> bytes:
+    """A JPEG 2000 file (JP2, or a raw codestream with ``jp2=False``) of an
+    (H, W) or (H, W, 3) uint8 frame, written by OpenJPEG's encoder:
+    ``rates`` one compression ratio a quality layer (0 = lossless),
+    ``tile`` = (h, w), ``tp_flag`` "R", "L" or "C" (tile-parts split by
+    resolution, layer or component), ``poc`` = (tile, resno0, compno0,
+    layno1, resno1, compno1, progression) records, and any other
+    ``opj_cparameters_t`` field by name (``mode``: the code-block style bits;
+    ``roi_compno``/``roi_shift``; ``csty``: 2 SOP, 4 EPH; ``numresolution``;
+    ``cblockw_init``, ...)."""
+    lib = _libopenjp2()
+    p = OpjCParameters()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    assert (p.numresolution, p.cblockw_init, p.roi_compno, p.subsampling_dx, p.decod_format) == (6, 64, -1, 1, -1)
+    p.tcp_numlayers, p.cp_disto_alloc = len(rates), 1
+    for i, r in enumerate(rates):
+        p.tcp_rates[i] = r
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    p.irreversible = int(irreversible)
+    p.tcp_mct = bytes([int(c == 3 if mct is None else mct)])
+    p.prog_order = OPJ_PROGRESSIONS[progression]
+    if tile:
+        p.tile_size_on, p.cp_tdy, p.cp_tdx = 1, tile[0], tile[1]
+    if tp_flag:
+        p.tp_on, p.tp_flag = b"\x01", tp_flag.encode()
+    p.numpocs = len(poc)
+    for rec, (t, r0, c0, l1, r1, c1, prg) in zip(p.POC, poc):
+        rec.tile, rec.resno0, rec.compno0, rec.layno1, rec.resno1, rec.compno1 = t, r0, c0, l1, r1, c1
+        rec.prg1 = OPJ_PROGRESSIONS[prg]
+    for k, v in params.items():
+        setattr(p, k, v)
+    parms = (_OpjCmptParm * c)()
+    for q in parms:
+        q.dx = q.dy = 1
+        q.w, q.h, q.prec = w, h, 8
+    image = lib.opj_image_create(c, parms, 1 if c == 3 else 2)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    try:
+        im = image.contents
+        im.x1, im.y1 = w, h
+        for i, plane in enumerate(np.asarray(img).reshape(h, w, c).transpose(2, 0, 1)):
+            plane = np.ascontiguousarray(plane, np.int32)
+            ctypes.memmove(im.comps[i].data, plane.ctypes.data, plane.nbytes)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "out").encode()
+            if not lib.opj_setup_encoder(codec, ctypes.byref(p), image):
+                raise ValueError(f"OpenJPEG refuses the parameters {params}")
+            stream = lib.opj_stream_create_default_file_stream(path, 0)
+            ok = (lib.opj_start_compress(codec, image, stream) and lib.opj_encode(codec, stream)
+                  and lib.opj_end_compress(codec, stream))
+            lib.opj_stream_destroy(stream)
+            if not ok:
+                raise RuntimeError("OpenJPEG's encoder failed")
+            with open(path, "rb") as fh:
+                return fh.read()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(image)
+
+
+def j2k_markers(data: bytes) -> list:
+    """(header, marker, segment body) of every marker segment in the main
+    header ("main") and the tile-part headers ("tile"), and ("tile", SOT
+    marker, body) for each tile-part, of a JP2 file or raw codestream."""
+    pos = data.find(b"\xff\x4f\xff\x51")
+    out, pos, where = [], pos + 2, "main"
+    while pos + 4 <= len(data):
+        marker, length = struct.unpack(">HH", data[pos:pos + 4])
+        if marker == 0xFFD9:
+            break
+        body = data[pos + 4:pos + 2 + length]
+        if marker == 0xFF90:  # SOT: Isot, Psot, TPsot, TNsot
+            where = "tile"
+            out.append((where, marker, body))
+            _isot, psot = struct.unpack(">HI", body[:6])
+            tile_part_end = pos + psot
+            pos += 2 + length
+            while True:  # the tile-part header up to SOD
+                m, n = struct.unpack(">HH", data[pos:pos + 4])
+                if m == 0xFF93:
+                    break
+                out.append((where, m, data[pos + 4:pos + 2 + n]))
+                pos += 2 + n
+            pos = tile_part_end
+            continue
+        out.append((where, marker, body))
+        pos += 2 + length
+    return out
+
+
+def libjpeg_lossless(img, predictor: int, pt: int = 0, arith: bool = False, restart_rows: int = 0):
+    """libjpeg-turbo's lossless JPEG (``jpeg_enable_lossless``) of an (H, W)
+    or (H, W, 3) uint8 frame, in RGB or grey, Huffman (SOF3) or with
+    ``arith`` arithmetic coding (SOF11), in a child process: libjpeg's error
+    handler exits. → (the file or None, the child's error text)."""
+    import subprocess
+
+    img = np.ascontiguousarray(img, np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "in.npy"), os.path.join(tmp, "out.jpg")
+        np.save(src, img)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--libjpeg-lossless", src, out,
+                               str(predictor), str(pt), str(int(arith)), str(restart_rows)],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode:
+            return None, proc.stderr.strip()
+        with open(out, "rb") as fh:
+            return fh.read(), ""
+
+
+LIBJPEG_COMPRESS_BYTES = 520  # sizeof(struct jpeg_compress_struct) of libjpeg-turbo's 6.2 ABI on x86-64
+
+
+def _libjpeg_lossless_child(src, out, predictor, pt, arith, restart_rows) -> None:
+    """``libjpeg_lossless``'s child: jpeg_CreateCompress (the library checks
+    the struct's size), jpeg_mem_dest, jpeg_set_defaults,
+    jpeg_set_colorspace (no colour transform, as lossless needs),
+    ``arith_code``, jpeg_enable_lossless, ``restart_in_rows``, one
+    jpeg_write_scanlines."""
+    img = np.load(src)
+    h, w = img.shape[:2]
+    comps = 1 if img.ndim == 2 else img.shape[2]
+    lib = pillow_lib("jpeg")
+    lib.jpeg_std_error.restype = ctypes.c_void_p
+    err = (ctypes.c_uint8 * 1024)()
+    cinfo = (ctypes.c_uint8 * LIBJPEG_COMPRESS_BYTES)()
+    struct.pack_into("<Q", cinfo, 0, lib.jpeg_std_error(err))
+    lib.jpeg_CreateCompress(cinfo, 62, ctypes.c_size_t(LIBJPEG_COMPRESS_BYTES))
+    buf, size = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_ulong(0)
+    lib.jpeg_mem_dest(cinfo, ctypes.byref(buf), ctypes.byref(size))
+    space = 2 if comps == 3 else 1  # JCS_RGB, JCS_GRAYSCALE
+    struct.pack_into("<IIii", cinfo, 48, w, h, comps, space)  # image_width, image_height, input_components, in_color_space
+    lib.jpeg_set_defaults(cinfo)
+    assert struct.unpack_from("<ii", cinfo, 72) == (8, comps), "jpeg_compress_struct laid out otherwise"
+    lib.jpeg_set_colorspace(cinfo, space)
+    struct.pack_into("<i", cinfo, 260, int(arith))  # arith_code
+    struct.pack_into("<i", cinfo, 284, restart_rows)  # restart_in_rows
+    lib.jpeg_enable_lossless(cinfo, predictor, pt)
+    lib.jpeg_start_compress(cinfo, 1)
+    rows = (ctypes.POINTER(ctypes.c_uint8) * h)(*[img[y].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+                                                 for y in range(h)])
+    lib.jpeg_write_scanlines(cinfo, rows, h)
+    lib.jpeg_finish_compress(cinfo)
+    data = ctypes.string_at(buf, size.value)
+    lib.jpeg_destroy_compress(cinfo)
+    with open(out, "wb") as fh:
+        fh.write(data)
+
+
+def sof11_frame(data: bytes) -> bytes:
+    """A lossless Huffman JPEG's frame relabelled SOF11 (lossless,
+    arithmetic) and its DHT dropped: the header a SOF11 file starts with,
+    for the readers' refusals (no writer here codes SOF11's arithmetic
+    data: libjpeg-turbo's lossless compressor refuses ``arith_code``)."""
+    out, pos = data[:2], 2
+    while pos < len(data):
+        marker, length = data[pos + 1], struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg = data[pos:pos + 2 + length]
+        if marker == 0xC3:
+            out += b"\xff\xcb" + seg[2:]
+        elif marker != 0xC4:
+            out += seg
+        pos += 2 + length
+        if marker == 0xDA:
+            return out + data[pos:]
+    raise ValueError("no SOS")
+
+
+# libwebp writes one token partition at methods 3-6 (its token loop), so
+# these files are written at methods 0-2
+WEBP_PARTS_FILES = {
+    "webp_parts2_seg1.webp": ("WebP lossy, 2 token partitions, 1 segment, method 2", lambda: webp_libwebp(
+        _img(110, 45, 61), 80.0, partitions=1, segments=1, method=2)),
+    "webp_parts4.webp": ("WebP lossy, 4 token partitions, 4 segments, method 2", lambda: webp_libwebp(
+        _img(111, 67, 53), 75.0, partitions=2, method=2)),
+    "webp_parts8_sns90.webp": ("WebP lossy, 8 token partitions, SNS 90, method 1", lambda: webp_libwebp(
+        _img(112, 70, 70), 60.0, partitions=3, sns_strength=90, method=1)),
+    "webp_parts8_2rows.webp": ("WebP lossy, 8 token partitions over 2 macroblock rows", lambda: webp_libwebp(
+        _img(113, 24, 67), 70.0, partitions=3, segments=2, method=2)),
+    "webp_parts4_q20_seg3.webp": ("WebP lossy q20, 4 token partitions, 3 segments, SNS 0, method 0", lambda: webp_libwebp(
+        _img(114, 50, 39), 20.0, partitions=2, segments=3, sns_strength=0, method=0)),
+    "webp_parts2_q95.webp": ("WebP lossy q95, 2 token partitions, method 1", lambda: webp_libwebp(
+        _img(115, 33, 47), 95.0, partitions=1, method=1)),
+    "webp_parts8_vp8x.webp": ("WebP VP8X-wrapped, 8 token partitions", lambda: webp_extended(
+        (41, 36), [webp_chunk(b"VP8 ", webp_bitstream(webp_libwebp(_img(116, 36, 41), 85.0, partitions=3,
+                                                                   method=2))[1])])),
+    "webp_parts4_sharp.webp": ("WebP lossy, 4 token partitions, sharp YUV, simple filter", lambda: webp_libwebp(
+        _img(117, 29, 58), 85.0, partitions=2, use_sharp_yuv=1, filter_type=0, filter_strength=40, method=2)),
+}
+# the code-block styles (T.800 Table A.19): each bit alone, then all six
+JP2_CBLK_STYLES = {1: "bypass", 2: "reset", 4: "termall", 8: "vertically causal", 16: "predictable termination",
+                   32: "segmentation symbols"}
+JP2_MODE_FILES = {
+    **{f"jp2_mode{m}_97.jp2": (f"JPEG 2000 9/7, 3 layers, code-block style {name}", (lambda m: lambda: jp2_openjpeg(
+        _img(120 + i, 47, 53), irreversible=True, rates=(40, 12, 3), mode=m))(m))
+       for i, (m, name) in enumerate(JP2_CBLK_STYLES.items())},
+    "jp2_mode63_97.jp2": ("JPEG 2000 9/7, 3 layers, all six code-block styles", lambda: jp2_openjpeg(
+        _img(126, 58, 49), irreversible=True, rates=(30, 8, 2), mode=63)),
+    "jp2_mode63_53.jp2": ("JPEG 2000 5/3 lossless, 2 layers, all six code-block styles, 16x16 code-blocks",
+                          lambda: jp2_openjpeg(_img(127, 45, 39), rates=(10, 0), mode=63, cblockw_init=16,
+                                               cblockh_init=16)),
+    "jp2_roi_97.jp2": ("JPEG 2000 9/7, ROI max-shift 7 on component 0", lambda: jp2_openjpeg(
+        _img(128, 43, 51), irreversible=True, rates=(25, 5), roi_compno=0, roi_shift=7)),
+    "jp2_roi_53.jp2": ("JPEG 2000 5/3, ROI max-shift 4 on component 2", lambda: jp2_openjpeg(
+        _img(129, 38, 40), roi_compno=2, roi_shift=4)),
+    "jp2_poc.jp2": ("JPEG 2000 5/3, 3 layers, two POC records (RLCP then CPRL)", lambda: jp2_openjpeg(
+        _img(130, 52, 44), rates=(20, 5, 0), poc=[(1, 0, 0, 2, 3, 3, "RLCP"), (1, 0, 0, 3, 6, 3, "CPRL")])),
+    "jp2_sop_eph.jp2": ("JPEG 2000 9/7, 3 layers, SOP and EPH markers", lambda: jp2_openjpeg(
+        _img(131, 41, 57), irreversible=True, rates=(30, 8, 2), csty=6)),
+    "jp2_tp_res.jp2": ("JPEG 2000 5/3, 32x32 tiles, tile-parts by resolution", lambda: jp2_openjpeg(
+        _img(132, 57, 63), tile=(32, 32), tp_flag="R", numresolution=4)),
+    "jp2_tp_layer.jp2": ("JPEG 2000 9/7, 3 layers, 32x32 tiles, tile-parts by layer", lambda: jp2_openjpeg(
+        _img(133, 50, 61), irreversible=True, rates=(30, 8, 2), tile=(32, 32), tp_flag="L", numresolution=4)),
+    "jp2_tp_comp.jp2": ("JPEG 2000 5/3, 24x40 tiles, tile-parts by component", lambda: jp2_openjpeg(
+        _img(134, 53, 66), tile=(24, 40), tp_flag="C", numresolution=3)),
+    **{f"jp2_tp_{prog.lower()}.jp2": (f"JPEG 2000 9/7 {prog}, 2 layers, 32x32 tiles, tile-parts by resolution",
+                                      (lambda prog, i: lambda: jp2_openjpeg(
+                                          _img(135 + i, 61, 67), irreversible=True, rates=(20, 4), tile=(32, 32),
+                                          tp_flag="R", numresolution=4, progression=prog))(prog, i))
+       for i, prog in enumerate(OPJ_PROGRESSIONS)},
+}
+WEBP_PARTS_JP2_TIMING_FILES = {
+    "timing_webp_parts4.webp": ("WebP lossy q50, 4 token partitions", lambda: webp_libwebp(
+        _img(97, 720, 1280), 50.0, partitions=2, method=2)),
+    "timing_jp2_mode63.jp2": ("JPEG 2000 9/7 rate 40, all six code-block styles", lambda: jp2_openjpeg(
+        _smooth(0, 720, 1280), irreversible=True, rates=(40,), mode=63)),
+}
+WEBP_PARTS_JP2_MANIFEST = "manifest_webp_parts_jp2_modes.json"
+
+
+def write_webp_parts_jp2_fixtures(images_dir: str) -> None:
+    """Phase 24a's files (``WEBP_PARTS_FILES``, ``JP2_MODE_FILES``,
+    ``WEBP_PARTS_JP2_TIMING_FILES``) and their manifest of cv2's pixels."""
+    files = {**WEBP_PARTS_FILES, **JP2_MODE_FILES, **WEBP_PARTS_JP2_TIMING_FILES}
+    for name, (_kind, make) in files.items():
+        with open(os.path.join(images_dir, name), "wb") as fh:
+            fh.write(make())
+    with open(os.path.join(images_dir, WEBP_PARTS_JP2_MANIFEST), "w") as fh:
+        json.dump(image_manifest(images_dir, files), fh, indent=1)
+
+
+WEBP_TREE_QUALITY, WEBP_TREE_PARTITIONS = 20.0, 2  # phase 24b's frames: libwebp q20, 4 token partitions, method 2
+
+
+def write_webp_parts_tree(root: str) -> dict:
+    """Phase 24b's tree and record: phase 19c's GOT-10k val sequences (made
+    here as phase 19b makes them) with each JPEG frame decoded and written
+    by libwebp at ``WEBP_TREE_QUALITY`` with 4 token partitions under its
+    ``.jpg`` name; ``record.json`` holds each file's sha256 and the port's
+    OPE result and boxes over the tree on this host's CPU (``FEARTracker``
+    FEAR-XS, float32, one torch thread)."""
+    import shutil
+
+    import torch
+
+    from feartracker_tpu_torch.data.sequence import GOT10kDataset
+
+    torch.set_num_threads(1)  # as the test that holds this record runs
+    shutil.rmtree(root, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg_root = chip_smoke.host_ope_tree(tmp)
+        chip_smoke._rewrite_tree(jpeg_root, root, lambda img: webp_libwebp(
+            img, WEBP_TREE_QUALITY, partitions=WEBP_TREE_PARTITIONS, method=2))
+    files = tree_files(root)
+    ds = GOT10kDataset(root, "val")
+    with torch.inference_mode():
+        ao, boxes = ope_boxes(chip_smoke._fear_tracker("cpu", torch.float32), ds)
+    record = {"seed": chip_smoke.HOST_OPE_SEED, "frame_hw": list(chip_smoke.HOSTAUG_FRAME_HW),
+              "quality": WEBP_TREE_QUALITY, "partitions": 1 << WEBP_TREE_PARTITIONS,
+              "bytes": sum(os.path.getsize(os.path.join(root, f)) for f in files),
+              "lengths": [len(ds[i][0]) for i in range(len(ds))], "files": files,
+              "ope_cpu": json.loads(json.dumps(ao)), "boxes_cpu": boxes}
+    with open(os.path.join(root, chip_smoke.WEBP_TREE_RECORD), "w") as fh:
+        json.dump(record, fh, indent=1)
+    return record
+
+
 def image_manifest(images_dir: str, files=None) -> dict:
     """cv2's pixels of every file in ``images_dir`` that ``files`` (default
     ``IMAGE_FILES``) names."""
@@ -2117,9 +2601,14 @@ def main():
     write_jp2_tree(os.path.join(REPO, *chip_smoke.JP2_TREE))
     write_fax_cmyk_fixtures(images_dir)
     write_tiff_ope_record(os.path.join(REPO, *chip_smoke.TIFF_OPE_RECORD))
+    write_webp_parts_jp2_fixtures(images_dir)
+    write_webp_parts_tree(os.path.join(REPO, *chip_smoke.WEBP_TREE))
     print(f"wrote {len(DECODE_FILES)} JPEGs, the manifest, {chip_smoke.HOST_ITEM_COUNT} item digests and "
           f"{len(IMAGE_FILES)} image fixtures")
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--libjpeg-lossless"]:
+        _libjpeg_lossless_child(sys.argv[2], sys.argv[3], *map(int, sys.argv[4:8]))
+    else:
+        main()

@@ -80,8 +80,13 @@ def _variables(seed):
     """The tiny model's variables drawn as Flax's init draws them (kernels
     normal with variance 1/fan-in, biases zero) without compiling a Flax
     init, then moved off their identity values as
-    ``test_torch_train_step._variables`` moves them."""
-    flat = L.variables_of(FEARNet(TINY_TRUNK, adjust_channels=16, towernum=1, template_size=32))
+    ``test_torch_train_step._variables`` moves them. The values left as
+    torch's constructor draws them (the head's convolution biases) come from
+    a generator seeded with ``seed``: torch's default generator starts from
+    a random seed in every process."""
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        flat = L.variables_of(FEARNet(TINY_TRUNK, adjust_channels=16, towernum=1, template_size=32))
     rng = np.random.RandomState(seed)
     for k, a in flat.items():
         if k.endswith("/kernel"):
@@ -107,10 +112,11 @@ def fear_xs_fixture():
 def runs(tmp_path_factory):
     """Per chain: two JAX steps of the tiny model, saved by JAX's manager
     (ranked and last) as a JAX experiment folder would hold them."""
+    v = _variables(5)  # drawn here once: the threads below share torch's default generator
+
     def train(cfg):
         jtx = j_build_optimizer(cfg)
         jstep = j_make_train_step(_jax_model(), jtx, spec=JSPEC)
-        v = _variables(5)
         state = JTrainState(v["params"], v["batch_stats"], jtx.init(v["params"]), jnp.zeros((), jnp.int32))
         for s in (6, 7):
             state, _ = jstep(state, _batch(s))
@@ -268,6 +274,15 @@ def _holding(state, field):
 
 @pytest.mark.parametrize("chain", sorted(CHAINS))
 def test_first_step_after_restore_matches_jax(runs, chain):
+    """The first float32 step after the restore, the port's against JAX's
+    from the same checkpoint. Under load (six copies at once) neither side's
+    arithmetic varied: repeated, each step gave the same bits. The
+    checkpoint did: the head's convolution biases kept the draws of torch's
+    default generator, which starts from a random seed in every process,
+    made in the fixture's three threads at once, and from some starting
+    points Adam carried the steps' rounding past 2e-6. ``_variables`` now
+    draws them from a seeded generator, once, before the threads, so every
+    run compares the same step."""
     run = runs[chain]
     tx = build_optimizer(run.cfg)
     v = _variables(0)  # other weights: the restore must replace them
