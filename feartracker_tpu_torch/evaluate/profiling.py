@@ -1,5 +1,6 @@
-"""Profiling utilities: a ``torch.profiler`` trace and per-step wall timers,
-the counterpart of ``feartracker_tpu/evaluate/profiling.py``; the card's
+"""Profiling utilities: a ``torch.profiler`` trace, the counterpart of
+``feartracker_tpu/evaluate/profiling.py`` (its ``StepTimer`` is not ported:
+``utils/tracing.py`` holds the port's spans and counters); the card's
 device timer (:func:`time_ms`) and the H100's published peaks, with the
 bound of one fused block (:func:`ir_block_bound`) priced against them."""
 
@@ -8,9 +9,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Iterator
 
-import numpy as np
 import torch
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
@@ -36,36 +36,6 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Rolling wall-time stats for a repeated step (host clock; on a card,
-    end the timed block with ``torch.cuda.synchronize()``)."""
-
-    def __init__(self, window: int = 100):
-        self.window = window
-        self.samples: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.samples.append(time.time() - self._t0)
-        if len(self.samples) > self.window:
-            self.samples.pop(0)
-
-    def stats(self) -> Dict[str, float]:
-        if not self.samples:
-            return {}
-        d = np.asarray(self.samples)
-        return {
-            "mean_ms": float(d.mean() * 1e3),
-            "p50_ms": float(np.percentile(d, 50) * 1e3),
-            "p99_ms": float(np.percentile(d, 99) * 1e3),
-            "steps_per_sec": float(1.0 / d.mean()),
-        }
 
 
 def spin_cycles_per_ms() -> float:

@@ -52,6 +52,7 @@ SIGNATURES = {
     "fear_ir_block_bf16": [_P] * 6 + [_I] * 14 + [_P],
     "fear_ir_block_smem_bytes": [_I] * 7,
     "fear_ir_block_occupancy": [_I] * 7,
+    "fear_mark_launch": [_I, _P],
 }
 
 

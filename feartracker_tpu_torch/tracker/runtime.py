@@ -51,6 +51,7 @@ from feartracker_tpu_torch.ops.cuda.decode import decode_step_cuda, postprocess_
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block, stream_tickets
 from feartracker_tpu_torch.ops.fused_trunk import fold_fear_net, get_features_folded
 from feartracker_tpu_torch.tracker.config import TrackerConfig
+from feartracker_tpu_torch.utils import tracing
 from feartracker_tpu_torch.utils.constants import (
     TARGET_CLASSIFICATION_KEY,
     TARGET_REGRESSION_LABEL_KEY,
@@ -334,49 +335,63 @@ class ScanTracker:
         ``step_index`` (a Python int, the running frame count) paces the
         dual-template ``update_interval``; None = refresh-eligible on this
         frame. Nothing here waits for the card."""
-        cfg = self.config
-        frames = self._broadcast_shared(self._to_device(frames), state.bbox.shape[0])
-        H, W = frames.shape[1], frames.shape[2]
+        with tracing.span("fear.step"):
+            return self._step(state, frames, step_index)
 
-        if self.recover_context:
-            # per-stream context: widen the window after a low-confidence frame
-            ctx = torch.where(state.confidence < self.recover_threshold,
-                              self.recover_context, cfg.search_context)
-        else:
-            ctx = cfg.search_context
-        windows = extended_crop_window(state.bbox, ctx)
-        crops = self._crop(frames, windows, cfg.instance_size, state.mean_color)
-        search = self._features(normalize_imagenet(crops))
-        update = state.dyn_feats if self.dynamic_template else None
-        out = self.model.connector(state.template_feats, search, update)
-        # K1, one launch: the head's outputs in their own dtype → decode,
-        # frame-space box, per-frame map-sharpness diagnostic (APCE)
-        res, bbox, apce = decode_step_cuda(out[TARGET_CLASSIFICATION_KEY], out[TARGET_REGRESSION_LABEL_KEY],
-                                           cfg.postprocess, state.bbox, windows, (H, W))
+    def _step(self, state: StreamState, frames, step_index: Optional[int]):
+        # each layer a span, and inside a graph capture a mark, so that every
+        # kernel of a replay follows its layer's mark (utils/tracing.py)
+        cfg = self.config
+        with tracing.layer("fear.crop"):
+            frames = self._broadcast_shared(self._to_device(frames), state.bbox.shape[0])
+            H, W = frames.shape[1], frames.shape[2]
+            if self.recover_context:
+                # per-stream context: widen the window after a low-confidence frame
+                ctx = torch.where(state.confidence < self.recover_threshold,
+                                  self.recover_context, cfg.search_context)
+            else:
+                ctx = cfg.search_context
+            windows = extended_crop_window(state.bbox, ctx)
+            crops = normalize_imagenet(self._crop(frames, windows, cfg.instance_size, state.mean_color))
+        with tracing.layer("fear.trunk"):
+            search = self._features(crops)
+        with tracing.layer("fear.head"):
+            update = state.dyn_feats if self.dynamic_template else None
+            out = self.model.connector(state.template_feats, search, update)
+        with tracing.layer("fear.decode"):
+            # K1, one launch: the head's outputs in their own dtype → decode,
+            # frame-space box, per-frame map-sharpness diagnostic (APCE)
+            res, bbox, apce = decode_step_cuda(out[TARGET_CLASSIFICATION_KEY], out[TARGET_REGRESSION_LABEL_KEY],
+                                               cfg.postprocess, state.bbox, windows, (H, W))
 
         dyn, gate_obs = state.dyn_feats, None
-        if self.dynamic_template:
-            # the cadence is a host-side integer test (JAX: lax.cond)
-            if step_index is None or step_index % self.update_interval == 0:
+        # the dual template's cadence is a host-side integer test (JAX: lax.cond)
+        refresh = self.dynamic_template and (step_index is None or step_index % self.update_interval == 0)
+        if refresh:
+            with tracing.layer("fear.refresh"):
+                if tracing.enabled() and not tracing.capturing():
+                    # a graph's refreshes are counted at its replays (_Unrolled.run)
+                    tracing.count("step.refreshes")
                 dyn, gate_obs = self._refresh(state, frames, bbox, res, apce)
-            else:
-                gate_obs = torch.zeros((bbox.shape[0], N_OBS), dtype=torch.float32, device=self.device)
 
-        new_state = StreamState(
-            template_feats=state.template_feats,
-            dyn_feats=dyn,
-            bbox=bbox,
-            mean_color=state.mean_color,
-            confidence=res.confidence,
-        )
-        outputs = {
-            "bbox": bbox,
-            "confidence": res.confidence,
-            "apce": apce,
-            "failure": res.confidence < cfg.confidence_threshold,
-        }
-        if gate_obs is not None:
-            outputs["gate_obs"] = gate_obs
+        with tracing.layer("fear.state"):
+            if self.dynamic_template and not refresh:
+                gate_obs = torch.zeros((bbox.shape[0], N_OBS), dtype=torch.float32, device=self.device)
+            new_state = StreamState(
+                template_feats=state.template_feats,
+                dyn_feats=dyn,
+                bbox=bbox,
+                mean_color=state.mean_color,
+                confidence=res.confidence,
+            )
+            outputs = {
+                "bbox": bbox,
+                "confidence": res.confidence,
+                "apce": apce,
+                "failure": res.confidence < cfg.confidence_threshold,
+            }
+            if gate_obs is not None:
+                outputs["gate_obs"] = gate_obs
         return new_state, outputs
 
     def track(self, state: StreamState, frames, start_step: int = 0
@@ -389,14 +404,16 @@ class ScanTracker:
         ``scan_unroll`` K > 1 the chunk runs in units of K frames (a CUDA
         graph each on the card) and the last T mod K frames run eagerly,
         frame by frame. Returned tensors never alias a graph's memory."""
-        if self.scan_unroll > 1:
-            return self._track_unrolled(state, frames, start_step)
-        frames = self._to_device(frames)
-        per_frame = []
-        for t in range(frames.shape[0]):
-            state, out = self.step(state, frames[t], step_index=start_step + t)
-            per_frame.append(out)
-        stacked = {k: torch.stack([o[k] for o in per_frame]) for k in per_frame[0]}
+        with tracing.span("fear.track"):
+            if self.scan_unroll > 1:
+                state, stacked = self._track_unrolled(state, frames, start_step)
+            else:
+                frames = self._to_device(frames)
+                per_frame = []
+                for t in range(frames.shape[0]):
+                    state, out = self.step(state, frames[t], step_index=start_step + t)
+                    per_frame.append(out)
+                stacked = {k: torch.stack([o[k] for o in per_frame]) for k in per_frame[0]}
         return state, stacked
 
     # -- scan_unroll > 1 -----------------------------------------------------
@@ -428,10 +445,16 @@ class ScanTracker:
         for t0 in range(0, full, K):
             # the dual template's cadence is baked into a unit's steps
             phase = (start_step + t0) % self.update_interval if self.dynamic_template else 0
-            key = (S, tuple(frames.shape[1:]), frames.dtype, phase)
+            # a traced unit is captured with its layer marks, apart from the unmarked one
+            traced = tracing.enabled()
+            key = (S, tuple(frames.shape[1:]), frames.dtype, traced, phase)
             unit = self._unrolled.get(key)
             if unit is None:
-                unit = self._unrolled[key] = _Unrolled(self, state, frames[t0:t0 + K], phase)
+                # the other flag's units go, and their graphs' memory with them
+                for other in [k for k in self._unrolled if k[3] != traced]:
+                    del self._unrolled[other]
+                with tracing.span("fear.graph.capture"):
+                    unit = self._unrolled[key] = _Unrolled(self, state, frames[t0:t0 + K], phase)
             state, got = unit.run(state, frames[t0:t0 + K])
             write(slice(t0, t0 + K), got, True)
         for t in range(full, T):
@@ -476,6 +499,13 @@ class _Unrolled:
       is recorded as a graph node and nothing runs: ``kernels`` holds those
       node counts. Each replay launches them, and adds them to
       ``tracker.replayed_launches``; the wrappers count eager launches only.
+    * With tracing on (``utils/tracing.py``) each layer of each captured
+      step begins with a ``fear_mark`` kernel, the only way a replay's
+      kernels can be told apart by layer. The tracker keys its units by the
+      tracing flag, so an unmarked unit never holds a mark, and keeps the
+      units of one flag value at a time. A replay counts its unit's
+      dual-template refreshes (``refreshes``), which its Python ran once, at
+      capture.
 
     A failed capture or replay raises; nothing falls back to eager steps.
     """
@@ -487,6 +517,8 @@ class _Unrolled:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tickets: Optional[torch.Tensor] = None
         self.kernels = {"K1": 0, "K2": 0}
+        self.refreshes = sum(tracker.dynamic_template and (phase + k) % tracker.update_interval == 0
+                             for k in range(self.K))
         dev = tracker.device
         if dev.type != "cuda":
             self.state_in = StreamState(*(t.clone() for t in state))
@@ -504,6 +536,7 @@ class _Unrolled:
             before = (postprocess_cuda.launches, fused_ir_block.launches)
             with torch.cuda.graph(self.graph, stream=stream):
                 self.state_out, self.outputs = self._body()
+            tracing.count("graph.captures")
             self.kernels = {"K1": postprocess_cuda.launches - before[0],
                             "K2": fused_ir_block.launches - before[1]}
         torch.cuda.current_stream(dev).wait_stream(stream)
@@ -516,20 +549,25 @@ class _Unrolled:
         return state, {key: torch.stack([o[key] for o in per_frame]) for key in per_frame[0]}
 
     def run(self, state: StreamState, frames: torch.Tensor):
-        for buf, src in zip(self.state_in, state):
-            buf.copy_(src)
-        self.frames.copy_(frames)
-        if self.graph is None:
-            state_out, outputs = self._body()
-        else:
-            dev, stream = self.tracker.device, self.tracker._graph_stream()
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self.graph.replay()
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            state_out, outputs = self.state_out, self.outputs
-            for k, n in self.kernels.items():
-                self.tracker.replayed_launches[k] += n
+        with tracing.span("fear.graph.copy_in"):
+            for buf, src in zip(self.state_in, state):
+                buf.copy_(src)
+            self.frames.copy_(frames)
+        if tracing.enabled():
+            tracing.count("graph.copy_in_bytes", frames.nbytes + sum(t.nbytes for t in state))
+        with tracing.span("fear.graph.replay"):
+            if self.graph is None:
+                state_out, outputs = self._body()
+            else:
+                dev, stream = self.tracker.device, self.tracker._graph_stream()
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    self.graph.replay()
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                state_out, outputs = self.state_out, self.outputs
+                for k, n in self.kernels.items():
+                    self.tracker.replayed_launches[k] += n
+                tracing.count("step.refreshes", self.refreshes)
         # a field that passed through unchanged is the caller's own tensor
         new_state = StreamState(*(src if out is buf else out.clone()
                                   for src, buf, out in zip(state, self.state_in, state_out)))

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from feartracker_tpu_torch.tracker.runtime import ScanTracker, StreamState
+from feartracker_tpu_torch.utils import tracing
 
 _FETCHED = ("bbox", "confidence", "failure")
 
@@ -64,9 +65,11 @@ class PendingStep:
     def result(self) -> Dict[str, Any]:
         if self._result is None:
             if self.done is not None:
-                self.done.synchronize()
+                with tracing.span("fear.pool.wait"):
+                    self.done.synchronize()
             out, self._out = self._out, None
-            self._result = self._pool._drain(out, self._active, self._frames)
+            with tracing.span("fear.pool.drain"):
+                self._result = self._pool._drain(out, self._active, self._frames)
             self._frames = None
         return self._result
 
@@ -175,12 +178,17 @@ class StreamPool:
         tracker: one block a shard on its device (the stream axis is 1 for a
         ``chunk``, else 0; a shared video goes whole to every shard), each
         copied from the one staging buffer."""
+        with tracing.span("fear.pool.stage"):
+            return self._staged(frames, chunk)
+
+    def _staged(self, frames, chunk: bool):
         if isinstance(frames, torch.Tensor):
             # by type: a tracker on "cuda" gets tensors on "cuda:0"
             if frames.device.type == self._device.type:
                 return self._place(frames, chunk, lambda x, dev: x.to(dev))
             frames = frames.numpy()
         frames = np.asarray(frames)
+        tracing.count("pool.staged_bytes", frames.nbytes)
         if not self._cuda:
             return self._place(frames, chunk, lambda x, dev: torch.as_tensor(x, device=dev))
         # the caching host allocator hands this block out again only after
@@ -194,9 +202,12 @@ class StreamPool:
             pinned = torch.empty((n, T, self._per_shard) + frames.shape[2:], dtype=dtype, pin_memory=True)
             np.copyto(pinned.numpy(), frames.reshape((T, n, self._per_shard) + frames.shape[2:]).swapaxes(0, 1))
             return [block.to(r.device, non_blocking=True) for block, r in zip(pinned, self._shards)]
-        pinned = torch.empty(frames.shape, dtype=dtype, pin_memory=True)
-        np.copyto(pinned.numpy(), frames)  # one pass, broadcast views included
-        return self._place(pinned, chunk, lambda x, dev: x.to(dev, non_blocking=True))
+        with tracing.span("fear.pool.pin"):
+            pinned = torch.empty(frames.shape, dtype=dtype, pin_memory=True)
+        with tracing.span("fear.pool.host_copy"):
+            np.copyto(pinned.numpy(), frames)  # one pass, broadcast views included
+        with tracing.span("fear.pool.h2d"):
+            return self._place(pinned, chunk, lambda x, dev: x.to(dev, non_blocking=True))
 
     def _place(self, frames, chunk: bool, put):
         """``put(block, device)`` of the frames, or of each shard's block."""
@@ -235,9 +246,12 @@ class StreamPool:
         state advances at once, so further steps can be queued while earlier
         outputs are in flight; fetch them in dispatch order via
         ``PendingStep.result()``."""
-        self.state, out = self.tracker.step(self.state, self._stage(frames), step_index=self._step_count)
-        self._step_count += 1
-        return self._dispatch(out, frames)
+        with tracing.span("fear.pool.step_async"):
+            self.state, out = self.tracker.step(self.state, self._stage(frames), step_index=self._step_count)
+            self._step_count += 1
+            tracing.count("pool.steps")
+            with tracing.span("fear.pool.fetch"):
+                return self._dispatch(out, frames)
 
     def step_chunk(self, frames) -> Dict[str, Any]:
         """Advance all slots through a (T, capacity, H, W, 3) chunk — or a
@@ -262,6 +276,10 @@ class StreamPool:
             "failure": np.asarray(out["failure"]) & active,  # active broadcasts over T
             "active": active,
         }
+        if tracing.enabled() and getattr(self.tracker, "recover_context", 0.0):
+            # the slots whose next window widens to recover_context
+            low = result["confidence"] < self.tracker.recover_threshold
+            tracing.count("pool.recovering_slots", int((low & active).sum()))
         if self.auto_reinit:
             # chunked: a slot that failed on ANY frame of the chunk is
             # re-templated, from the chunk's last frame and prediction
@@ -273,4 +291,5 @@ class StreamPool:
                 frames = frames[-1]
             for slot in np.nonzero(failure & self.active)[0]:
                 self._init_slot(int(slot), frames if frames.ndim == 3 else frames[slot], bbox[slot])
+                tracing.count("pool.reinits")
         return result
