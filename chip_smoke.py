@@ -7,7 +7,7 @@ Needs one CUDA card, ``nvcc`` and this checkout; imports nothing of JAX or
 of ``feartracker_tpu``. Phases, each printing its own lines:
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build both kernels from ``feartracker_tpu_torch/csrc``, one ``nvcc`` per
+2. build the kernels from ``feartracker_tpu_torch/csrc``, one ``nvcc`` per
    source started together, and beside them the host codecs (``*.cpp``),
    one ``g++`` each (seconds, ptxas registers and spills);
 3. K1 against its plain twins on the card: the batched step's decode
@@ -18,7 +18,13 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
    fix-ups, an all-NaN map), and a channel-first ``reg``: coords equal,
    frame boxes within 1 px (the count of boxes that differ at all printed),
    APCE rtol 1e-5; then the decode alone (``postprocess_cuda``) at S=128,
-   both ``smooth`` modes and a tie-break case;
+   both ``smooth`` modes and a tie-break case; 3b: K3 (the crop kernel)
+   against its plain twin on the card, bit for bit, at S=128 on 1280x720
+   frames (uint8, uint8 shared with stream stride 0, float32, uint8 at
+   W-major strides) with ``tests/test_torch_crop_kernel.py``'s edge-case
+   windows, -> 256² and 128², float32 and bfloat16 output; then its time
+   beside its bound (bytes), its twin's and the "mm" and "gather" routes'
+   (crop, normalize and cast as the tracker ran them);
 4. K2 (fused inverted-residual block) against its plain twin on the card,
    every FEAR-XS block with expansion > 1 at its search (256²) and template
    (128²) shapes, S=8, in float32 and bfloat16 (bfloat16 at every tile that
@@ -357,7 +363,8 @@ of ``feartracker_tpu``. Phases, each printing its own lines:
 
 Then the wall seconds of each phase, one JSON line of kernels (``launches``:
 the static path's, phase 5b; ``launches_by_path``: each path's own count
-over one run from 0, the K=16 graphs' one of 10a; K1's ``ms``: the decode
+over one run from 0, the K=16 graphs' one of 10a; K3's only on the paths
+the benchmark runs, 5b, 7b, 8, 10a and the graphed 14d; K1's ``ms``: the decode
 region at S=128 with bf16 head outputs, ``postprocess_ms`` the decode alone
 in f32, ``floor_ms``: the empty kernel of phase 6; K2's ``op_dispatch_us``: the
 operator's host cost per call over the wrapper's, 11a; ``bound_ms``: the least time
@@ -569,11 +576,121 @@ def _phase_k1(card, dev) -> float:
     return k1_err
 
 
+# phase 3b's frames: the benchmark's 1280x720 at S=128; the first streams'
+# windows are tests/test_torch_crop_kernel.py's edge cases at this size
+# (inside, past the left, top, right and bottom edges, wholly outside,
+# larger than the frame), the rest drawn, from 2 px to twice the frame
+K3_FRAME_HW = (720, 1280)
+K3_EDGE_WINDOWS = ((400, 200, 300, 250), (-150, 300, 400, 300), (500, -120, 300, 400), (1100, 300, 400, 300),
+                   (300, 600, 300, 300), (2000, 1500, 200, 200), (-300, -200, 1900, 1100))
+
+
+def _k3_inputs(S: int, dev, seed: int):
+    """(uint8 frames (S, 720, 1280, 3), windows (S, 4), pad (S, 3)) on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, W = K3_FRAME_HW
+    frames = torch.randint(0, 256, (S, H, W, 3), generator=gen, device=dev, dtype=torch.uint8)
+    xy = torch.randint(-300, 1300, (S, 2), generator=gen, device=dev).float()
+    wh = torch.exp(torch.rand(S, 2, generator=gen, device=dev) * 7.0).floor() + 2.0  # 2-1098 px, log-uniform
+    windows = torch.cat([xy, wh], 1)
+    windows[:len(K3_EDGE_WINDOWS)] = torch.tensor(K3_EDGE_WINDOWS, dtype=torch.float32, device=dev)
+    pad = torch.rand(S, 3, generator=gen, device=dev) * 255.0
+    return frames, windows, pad
+
+
+def _k3_bound(frames, windows, out_size: int, itemsize: int) -> float:
+    """ms to move K3's bytes once over the memory rate: the crops written in
+    their dtype, the windows and pad colours read, and of each frame the
+    distinct in-frame rows times the distinct in-frame columns its taps
+    touch (each source byte read once, however many outputs read it)."""
+    import torch
+
+    from feartracker_tpu_torch.evaluate.profiling import HBM_BYTES_PER_S
+    from feartracker_tpu_torch.ops.crop import _src_grid
+
+    S, H, W, C = frames.shape
+
+    def distinct(origin, size, n):
+        s0 = torch.floor(_src_grid(origin, size, out_size)).long()
+        taps = torch.cat([s0, s0 + 1], 1)
+        hit = torch.zeros(S, n + 2, dtype=torch.bool, device=frames.device)
+        hit.scatter_(1, taps.clamp(-1, n) + 1, True)
+        return hit[:, 1:n + 1].sum(1)
+
+    read = (distinct(windows[:, 1], windows[:, 3], H) * distinct(windows[:, 0], windows[:, 2], W)).sum().item()
+    total = read * C * frames.element_size() + S * out_size * out_size * C * itemsize + S * (4 + 3) * 4
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def _phase_k3(card, dev) -> dict:
+    """Phase 3b: K3 against its plain twin on the card, bit for bit, then
+    its time beside its bound, the twin's and the "mm" and "gather" routes'
+    at the benchmark's shapes → the times."""
+    import torch
+
+    from feartracker_tpu_torch.evaluate.profiling import time_ms
+    from feartracker_tpu_torch.ops.crop import crop_resize, crop_resize_mm, normalize_imagenet
+    from feartracker_tpu_torch.ops.cuda.crop import crop_cuda, crop_plain
+
+    S = 128
+    frames, windows, pad = _k3_inputs(S, dev, seed=26)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    inputs = {
+        "uint8": frames,
+        "uint8 shared (stream stride 0)": frames[1].expand(S, *frames.shape[1:]),
+        "float32": torch.rand(frames.shape, generator=gen, device=dev) * 255.0,
+        "uint8 W-major strides": frames[:8].permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3),
+    }
+    n_checks = 0
+    for name, f in inputs.items():
+        w, p = windows[:f.shape[0]], pad[:f.shape[0]]
+        for out_size in (256, 128):
+            ref = crop_plain(f, w, out_size, p, torch.float32)
+            for dtype in (torch.float32, torch.bfloat16):
+                got = crop_cuda(f, w, out_size, p, dtype)
+                torch.cuda.synchronize()
+                want = ref.to(dtype)
+                if not torch.equal(got, want):
+                    bad = got.float() != want.float()
+                    raise AssertionError(f"K3 {name} -> {out_size}² {dtype}: {int(bad.sum())} of {bad.numel()} "
+                                         f"values differ from the twin, max|err| "
+                                         f"{(got.float() - want.float()).abs().max().item():.3e}, first at "
+                                         f"{bad.nonzero()[0].tolist()}")
+                n_checks += 1
+        del ref, got, want
+    del inputs
+    print(f"[3b] K3 against its plain twin on the card: {n_checks} checks (uint8, uint8 shared with stream "
+          f"stride 0, float32 and W-major uint8 frames of {K3_FRAME_HW[1]}x{K3_FRAME_HW[0]}, S=128 with "
+          f"the edge-case windows, -> 256² and 128², float32 and bfloat16): every value equal, the bfloat16 crop "
+          f"the float32 twin rounded once [{card}]", flush=True)
+
+    times = {}
+    for out_size in (256, 128):
+        bf16 = torch.bfloat16
+        t = {
+            "ms": time_ms(lambda: crop_cuda(frames, windows, out_size, pad, bf16), iters=50),
+            "bound_ms": _k3_bound(frames, windows, out_size, 2),
+            "plain_ms": time_ms(lambda: crop_plain(frames, windows, out_size, pad, bf16), iters=10),
+            "mm_ms": time_ms(lambda: normalize_imagenet(crop_resize_mm(frames, windows, out_size, pad)).to(bf16),
+                             iters=10),
+            "gather_ms": time_ms(lambda: normalize_imagenet(crop_resize(frames.float(), windows, out_size, pad))
+                                 .to(bf16), iters=5),
+        }
+        times[out_size] = t
+        print(f"[3b] K3 S={S} {K3_FRAME_HW[1]}x{K3_FRAME_HW[0]} uint8 -> {out_size}² bf16: kernel {t['ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms by bytes (kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of it); "
+              f"plain twin {t['plain_ms']:.4f} ms; the routes as the tracker ran them, crop + normalize + cast: "
+              f"\"mm\" {t['mm_ms']:.4f} ms, \"gather\" {t['gather_ms']:.4f} ms [{card}]", flush=True)
+    return times
+
+
 def _trace_breakdown(fn, out_dir: str) -> dict:
     """Device time of one call of ``fn`` by kernel family, from the kernel,
     copy and memset rows of a ``torch.profiler`` trace (op rows repeat their
-    kernels' time): busy, span and idle share, K2, K1, GEMMs, convolutions,
-    the rest."""
+    kernels' time): busy, span and idle share, K2, K1, K3, GEMMs,
+    convolutions, the rest."""
     import torch
 
     from feartracker_tpu_torch.evaluate.profiling import trace
@@ -585,10 +702,10 @@ def _trace_breakdown(fn, out_dir: str) -> dict:
         rows = [e for e in json.load(fh)["traceEvents"] if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not rows:
         return {}
-    fam = {"K2": 0.0, "K1": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
+    fam = {"K2": 0.0, "K1": 0.0, "K3": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
     for e in rows:
         name = e.get("name", "").lower()
-        key = ("K2" if "ir_block" in name else "K1" if "decode_kernel" in name
+        key = ("K2" if "ir_block" in name else "K1" if "decode_kernel" in name else "K3" if "crop_kernel" in name
                else "gemm" if ("gemm" in name or "xmma" in name or "cutlass" in name) else
                "conv" if ("conv" in name or "cudnn" in name) else "other")
         fam[key] += e.get("dur", 0) / 1e3
@@ -753,7 +870,7 @@ def _phase_dual(card, n_fused, counters):
     torch.cuda.synchronize()
     launches = _read(counters)
     refreshes = len(range(0, T, K))
-    want = {"K1": T, "K2": n_fused * (1 + T + refreshes)}
+    want = {"K1": T, "K2": n_fused * (1 + T + refreshes), "K3": 1 + T + refreshes}
     if launches != want:
         raise AssertionError(f"dual launch counts {launches}, expected {want}")
     for k, v in out.items():
@@ -779,7 +896,8 @@ def _phase_dual(card, n_fused, counters):
     if br:
         print(f"[7c] one traced dual track call: device busy {br['busy_ms']:.2f} of {br['span_ms']:.2f} ms (idle "
               f"{100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies; K2 {br['K2']:.2f} ms "
-              f"({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, GEMMs {br['gemm']:.2f}, convolutions "
+              f"({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, K3 {br['K3']:.3f}, GEMMs {br['gemm']:.2f}, "
+              f"convolutions "
               f"{br['conv']:.2f}, other {br['other']:.2f} ms [{card}]", flush=True)
     else:
         print("[7c] the trace holds no device rows: breakdown not measured", flush=True)
@@ -814,7 +932,7 @@ def _phase_pool(card, n_fused, counters, tracker):
     torch.cuda.synchronize()
     add_ms = (time.perf_counter() - t0) * 1e3 / cap
     launches = {"pool_add": _read(counters)}
-    if pool.num_active != cap or launches["pool_add"] != {"K1": 0, "K2": n_fused * cap}:
+    if pool.num_active != cap or launches["pool_add"] != {"K1": 0, "K2": n_fused * cap, "K3": cap}:
         raise AssertionError(f"pool: {pool.num_active} active, launches {launches['pool_add']} after {cap} adds")
 
     # warm the pinned host blocks, then three serial steps: their own launches
@@ -827,7 +945,7 @@ def _phase_pool(card, n_fused, counters, tracker):
     torch.cuda.synchronize()
     launches["pool_step"] = _read(counters)
     refreshes = sum((count + t) % tracker.update_interval == 0 for t in range(3))
-    want = {"K1": 3, "K2": n_fused * (3 + refreshes)}
+    want = {"K1": 3, "K2": n_fused * (3 + refreshes), "K3": 3 + refreshes}
     if launches["pool_step"] != want:
         raise AssertionError(f"pool: launches {launches['pool_step']} over 3 steps, expected {want}")
 
@@ -859,9 +977,16 @@ def _phase_pool(card, n_fused, counters, tracker):
     # the delay outlasts three times the host's dispatches, so a slower host
     # in the checked run still returns inside it
     delay_ms = 3 * sum(dispatch_ms) + 50.0
+    # three steps held behind a delay need a pinned staging block each, where
+    # the undelayed run reuses the first step's; the first time, the caching
+    # host allocator pins a new 47 MB block (cudaHostAlloc, 15-110 ms, no
+    # device sync) inside the third dispatch. A pool in service holds its
+    # blocks, so one run behind the delay makes them before the check
+    three_async(int(delay_ms * spin_cycles_per_ms()))
     checked_ms, first_done, margin_ms = three_async(int(delay_ms * spin_cycles_per_ms()))
-    # the third dispatch fills the card's launch queue (about 1000 pending
-    # launches) and waits for the delay to end; the first two must not
+    # with the blocks held no dispatch waits for the card (a full launch
+    # queue, ≈1000 launches, would hold back only the third); a sync would
+    # hold every dispatch to the delay's end and step 1's
     if first_done or not sum(checked_ms[:2]) < delay_ms:
         raise AssertionError(f"pool: a hidden sync: dispatches {checked_ms} ms behind a {delay_ms:.0f} ms delay, "
                              f"step 1 done when the third returned: {first_done}")
@@ -1413,7 +1538,7 @@ def _phase_graphs(card, n_fused, counters, eager_static, eager_dual, lap):
         trackers[K].track(state, chunk)
         torch.cuda.synchronize()
         eager_launches, graph_launches[K] = _read(counters), dict(replayed)
-        want = {"K1": T, "K2": n_fused * T}
+        want = {"K1": T, "K2": n_fused * T, "K3": T}
         if eager_launches != {"K1": 0, "K2": 0} or graph_launches[K] != want:
             raise AssertionError(f"static K={K}, one track call: replayed launches {graph_launches[K]}, expected "
                                  f"{want}; eager launches {eager_launches}, expected none")
@@ -2773,7 +2898,8 @@ def _phase_sharded(card, counters, track_ms: float):
                 state, again = tr.track(state, chunk)
                 torch.cuda.synchronize()
                 counted = {key: tr.replayed_launches[key] - before[key] for key in before}
-                assert _read(counters) == {"K1": 0, "K2": 0} and counted == {"K1": n * T, "K2": 13 * n * T}, (
+                assert _read(counters) == {"K1": 0, "K2": 0} and counted == {"K1": n * T, "K2": 13 * n * T,
+                                                                              "K3": n * T}, (
                     n, counted, _read(counters))
             launches[f"sharded_n{n}" + ("" if k == 1 else f"_scan_unroll_{k}")] = counted
             px = float((got["bbox"] - want["bbox"]).abs().max())
@@ -5227,6 +5353,7 @@ def main() -> int:
     from feartracker_tpu_torch.evaluate.profiling import ir_block_bound, time_ms
     from feartracker_tpu_torch.models.fbnet import FEAR_XS_TRUNK, TRUNKS, IRBlockSpec
     from feartracker_tpu_torch.ops.cuda import build as kbuild
+    from feartracker_tpu_torch.ops.cuda.crop import crop_cuda
     from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
     from feartracker_tpu_torch.ops.cuda.ir_block import (_fused_ir_block, bf16_smem_bytes, f32_smem_bytes,
                                                      fused_ir_block, ir_block_op_cuda, kernel_smem_bytes,
@@ -5273,6 +5400,8 @@ def main() -> int:
     k1_err = _phase_k1(card, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     lap("3")
+    k3_times = _phase_k3(card, dev)
+    lap("3b")
 
     # -- 4: K2 against plain_ir_block -------------------------------------------
     tol = {torch.float32: 1e-4, torch.bfloat16: 0.15}
@@ -5361,15 +5490,16 @@ def main() -> int:
     torch.cuda.synchronize()
     postprocess_cuda.launches = 0
     fused_ir_block.launches = 0
+    crop_cuda.launches = 0
     ir_block_op_cuda.calls = 0
     state = tracker.init(f0, boxes)
     k2_init = fused_ir_block.launches
     state, out = tracker.track(state, chunk)
     torch.cuda.synchronize()
-    launches = {"K1": postprocess_cuda.launches, "K2": fused_ir_block.launches}
-    if k2_init != n_fused or launches != {"K1": T, "K2": n_fused * (T + 1)}:
+    launches = {"K1": postprocess_cuda.launches, "K2": fused_ir_block.launches, "K3": crop_cuda.launches}
+    if k2_init != n_fused or launches != {"K1": T, "K2": n_fused * (T + 1), "K3": T + 1}:
         raise AssertionError(f"launch counts {launches} (init K2 {k2_init}); expected K1 {T}, "
-                             f"K2 {n_fused} at init + {n_fused}*{T}")
+                             f"K2 {n_fused} at init + {n_fused}*{T}, K3 1 at init + {T}")
     if ir_block_op_cuda.calls:
         raise AssertionError(f"the main path called K2's operator {ir_block_op_cuda.calls} times; it calls the wrapper")
     for k, v in out.items():
@@ -5392,7 +5522,8 @@ def main() -> int:
     if br:
         print(f"[5c] one traced track call, S={S} T={T} bf16: device busy {br['busy_ms']:.2f} of {br['span_ms']:.2f} "
               f"ms (idle {100 * br['idle']:.1f}% under the profiler), {br['kernels']} kernels/copies, "
-              f"{br['kernels'] / T:.1f} kernels per frame; K2 {br['K2']:.2f} ms ({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, GEMMs "
+              f"{br['kernels'] / T:.1f} kernels per frame; K2 {br['K2']:.2f} ms ({100 * br['K2'] / br['busy_ms']:.1f}%), K1 {br['K1']:.3f}, "
+              f"K3 {br['K3']:.3f}, GEMMs "
               f"{br['gemm']:.2f}, convolutions {br['conv']:.2f}, other {br['other']:.2f} ms [{card}]", flush=True)
     else:
         print("[5c] the trace holds no device rows: breakdown not measured", flush=True)
@@ -5455,9 +5586,10 @@ def main() -> int:
 
     # -- 7, 8: the dual-template path and the slot server -----------------
     counters = {"K1": postprocess_cuda, "K2": fused_ir_block}
-    dual_launches, dual_tracker = _phase_dual(card, n_fused, counters)
+    # the benchmark's paths also count K3, the crop
+    dual_launches, dual_tracker = _phase_dual(card, n_fused, {**counters, "K3": crop_cuda})
     lap("7")
-    pool_launches = _phase_pool(card, n_fused, counters, dual_tracker)
+    pool_launches = _phase_pool(card, n_fused, {**counters, "K3": crop_cuda}, dual_tracker)
     lap("8")
     seq_launches, s1_times, seq_ms, card9, host9 = _phase_sequential(card, n_fused, counters, gen)
     _phase_bf16(card, card9, host9)
@@ -5487,7 +5619,7 @@ def main() -> int:
 
     def count(k):
         # launches: the static main path's; each other path's own count beside it
-        return {"launches": launches[k], "launches_by_path": {name: p[k] for name, p in by_path.items()}}
+        return {"launches": launches[k], "launches_by_path": {name: p[k] for name, p in by_path.items() if k in p}}
 
     kernels = [
         {"name": "K1 fused decode region", "route": "cuda", "source": "feartracker_tpu_torch/csrc/decode.cu",
@@ -5504,6 +5636,11 @@ def main() -> int:
          "bound_ms": k2_bound[256], "library_ms": None, "tile": k2_tiles,
          "bound_by": "bytes" if k2_terms[256]["bytes"] == k2_bound[256] else "operations",
          "s1": s1_times["K2"], "op_dispatch_us": dispatch_us},
+        {"name": "K3 crop, pad, normalize and cast", "route": "cuda", "source": "feartracker_tpu_torch/csrc/crop.cu",
+         "replaces": None, "counterpart": "feartracker_tpu.native.crop_resize_normalize (the JAX package's host crop)",
+         **count("K3"), "max_abs_err": 0.0, "ms": k3_times[256]["ms"], "plain_ms": k3_times[256]["plain_ms"],
+         "bound_ms": k3_times[256]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "mm_ms": k3_times[256]["mm_ms"], "gather_ms": k3_times[256]["gather_ms"], "template": k3_times[128]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,7 +7,12 @@ outside the frame read the per-stream pad color; the resize uses cv2's
 INTER_LINEAR grid ``src = (dst + 0.5)·scale − 0.5`` clamped into the window.
 ``F.grid_sample`` has neither that clamp nor the pad-color mix, so the
 resampling is written out: as a gather (:func:`crop_resize`) or as two
-batched contractions (:func:`crop_resize_mm`, the default).
+batched contractions (:func:`crop_resize_mm`). ``ScanTracker``'s default
+route is neither: K3 (``ops/cuda/crop.py``, ``csrc/crop.cu``) crops, pads,
+normalizes and casts in one launch, and its plain twin is
+:func:`crop_resize` followed by :func:`normalize_imagenet` and the cast.
+``crop_resize_mm`` stays the route of ``crop_impl="mm"``, of
+``FEARTracker``'s ``native_preprocess`` crop and of training's affine crop.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ def crop_resize(
     """Bilinear-sample an ``out_size``² crop of each window by gather.
 
     Args:
-      frames: (S, H, W, C) float32 frames.
+      frames: (S, H, W, C) float32 or uint8 frames (only the gathered taps
+        are widened to float32).
       windows: (S, 4) float32 [x, y, w, h] integer-valued windows (may extend
         past the frame).
       pad_value: (S, C) fill color for out-of-frame samples.
@@ -55,7 +61,7 @@ def crop_resize(
 
     def sample(yi, xi):
         inside = ((yi >= 0) & (yi < H))[:, :, None] & ((xi >= 0) & (xi < W))[:, None, :]
-        vals = frames[sidx, yi.clamp(0, H - 1)[:, :, None], xi.clamp(0, W - 1)[:, None, :]]
+        vals = frames[sidx, yi.clamp(0, H - 1)[:, :, None], xi.clamp(0, W - 1)[:, None, :]].float()
         return torch.where(inside[..., None], vals, pad)
 
     top = sample(y0, x0) * (1.0 - fx) + sample(y0, x0 + 1) * fx

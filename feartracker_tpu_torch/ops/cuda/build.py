@@ -12,9 +12,10 @@ The library is built at first use (never at import), only from the sources
 in the checkout, and cached under ``feartracker_tpu_torch/_kernels_build/``
 by a hash of the sources and flags; ``build.log`` there keeps the compiler's
 output (ptxas registers, shared memory and spills per kernel). ``decode.cu``
-builds with ``-fmad=false`` (``SOURCE_FLAGS``): its plain twin is a chain of
-torch ops, each rounded on its own, and a fused multiply-add rounds once,
-which can move a frame box by a pixel at a .5 boundary. ``--split-compile=0``
+and ``crop.cu`` build with ``-fmad=false`` (``SOURCE_FLAGS``): each plain twin
+is a chain of torch ops, each rounded on its own, and a fused multiply-add
+rounds once, which can move a frame box by a pixel at a .5 boundary or a
+crop value by an ulp. ``--split-compile=0``
 lets nvcc optimise and assemble a source's kernels on every core at once
 (``ir_block.cu`` holds 16 kernel instances).
 """
@@ -39,7 +40,7 @@ NVCC_FLAGS = (
 )
 
 # flags of one source beside NVCC_FLAGS
-SOURCE_FLAGS = {"decode.cu": ("-fmad=false",)}
+SOURCE_FLAGS = {"decode.cu": ("-fmad=false",), "crop.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,7 @@ _F = ctypes.c_float
 # C signatures of the exported entry points (see csrc/*.cu)
 SIGNATURES = {
     "fear_decode": [_P, _P, _I] + [_L] * 7 + [_P] * 11 + [_I] * 4 + [_F] * 8 + [_P],
+    "fear_crop": [_P, _I] + [_L] * 4 + [_P] * 3 + [_I] * 5 + [_F] * 6 + [_P],
     "fear_ir_block": [_P] * 8 + [_I] * 14 + [_P] * 3,
     "fear_ir_block_bf16": [_P] * 6 + [_I] * 14 + [_P],
     "fear_ir_block_smem_bytes": [_I] * 7,

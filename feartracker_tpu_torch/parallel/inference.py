@@ -71,7 +71,7 @@ class ShardedScanTracker:
     @property
     def replayed_launches(self) -> Dict[str, int]:
         """Kernel launches made by every replica's graph replays."""
-        return {k: sum(r.replayed_launches[k] for r in self.replicas) for k in ("K1", "K2")}
+        return {k: sum(r.replayed_launches[k] for r in self.replicas) for k in ("K1", "K2", "K3")}
 
     def set_variables(self, model: FEARNet) -> None:
         """``ScanTracker.set_variables`` on every replica."""

@@ -13,8 +13,9 @@ and is not compared with one. The crop is counted by what a bilinear crop
 needs, four taps a value at a multiply-add each (:func:`crop_flops`), not
 by the products its implementation runs: ``crop_impl="mm"`` contracts with
 dense (out, H) and (out, W) matrices of two nonzeros a row, 0.3775 GFLOP a
-256×480 frame against the 1.6 MFLOP the crop needs, and ``"gather"`` runs
-none. What the step runs as implemented is printed apart as information
+256×480 frame against the 1.6 MFLOP the crop needs, ``"gather"`` runs no
+product and ``"kernel"`` (K3, the default) runs the taps. What the step
+runs as implemented is printed apart as information
 (``executed_flops_per_frame``, ``executed_crop_flops_per_frame``); it sets
 no floor. The count is scaled by S·T. It is a function of the tracker's
 configuration (model, dtype), not of the kernels or of ``crop_impl``: K2
@@ -145,9 +146,12 @@ def count_step(tracker, state, frames) -> Dict:
         del tracker._crop
     model = sum(counter.by_part.values())
     needed = crop_flops(tracker.config.instance_size, frames.shape[-1]) * state.template_feats.shape[0]
+    # K3's taps are no torch op, so the counter sees none of them (on the CPU
+    # its twin gathers): it runs what the crop needs
+    executed_crop = needed if tracker.crop_impl == "kernel" else counter.crop_executed
     return {"flops": model + needed, "by_part": {**counter.by_part, "crop": needed},
             "cuda_core": counter.by_unit["cuda_core"] + needed, "tensor_core": counter.by_unit["tensor_core"],
-            "executed": model + counter.crop_executed, "executed_crop": counter.crop_executed}
+            "executed": model + executed_crop, "executed_crop": executed_crop}
 
 
 def _nbytes(tensors) -> int:
@@ -255,14 +259,14 @@ def main(argv=None) -> None:
     card = device_line(device)
     print(card, flush=True)
     tracker, provenance = build_scan_tracker(dtype=dtype, device=device, scan_unroll=args.scan_unroll)
-    cost = frame_cost(dtype)
+    cost = frame_cost(dtype, tracker.crop_impl)
     print(json.dumps({
         "count": "one plain step at S=1 on the CPU, per frame", "weights": provenance, "dtype": args.dtype,
         "flops_per_frame": cost["flops"], "flops_by_part_per_frame": cost["by_part"],
         "cuda_core_flops_per_frame": cost["cuda_core"], "tensor_core_flops_per_frame": cost["tensor_core"],
         "executed_flops_per_frame": cost["executed"], "executed_crop_flops_per_frame": cost["executed_crop"],
-        "executed_note": "information only: the products the tracker runs as implemented (the mm crop's dense "
-                         "contractions); sets no floor",
+        "executed_note": "information only: the products the tracker runs as implemented (the crop's by "
+                         "its crop_impl); sets no floor",
         "weight_bytes": cost["weight_bytes"], "state_bytes_per_stream": cost["state_bytes"],
         "output_bytes_per_frame_stream": cost["output_bytes"],
         "unfused_activation_bytes_per_frame_MB": cost["activation_bytes"] / 1e6,

@@ -2,7 +2,8 @@
 ``feartracker_tpu/tracker/runtime.py``.
 
 For S independent streams and a chunk of T uint8 frames, each frame runs
-crop → normalize → trunk + neck (by default the folded trunk with the fused
+crop + normalize (by default one kernel, K3, that writes the trunk's dtype)
+→ trunk + neck (by default the folded trunk with the fused
 inverted-residual kernel; ``trunk_impl="xla"`` runs the model's own
 unfolded ``get_features``) → BoxTower head against the cached template →
 the decode region (fused decode, rescale, clamp and APCE in one kernel),
@@ -12,11 +13,13 @@ With ``dynamic_template`` a refresh frame also crops and encodes a candidate
 template at the new box (the 128² crop through the same trunk kernels) and
 blends it into the dynamic template.
 
-Which implementation runs is decided by the device alone: on CUDA the two
+Which implementation runs is decided by the device alone: on CUDA the three
 kernels (:mod:`feartracker_tpu_torch.ops.cuda`), on the CPU their plain
 twins. Precision follows the JAX runtime: the model runs in ``dtype``;
-crop, normalize, decode and geometry stay float32 (the decode kernel widens
-the head's bfloat16 outputs as it reads them). In float32 the card runs
+crop, normalize, decode and geometry compute in float32 (the crop kernel
+rounds its normalized float32 values to ``dtype`` once, as it writes them,
+where JAX casts the normalized crop; the decode kernel widens the head's
+bfloat16 outputs as it reads them). In float32 the card runs
 full float32, as JAX does on the CPU: torch's default lets cuDNN take TF32
 for float32 convolutions (the stem, the head), which moved the sequential
 tracker's boxes by 3 px over 59 frames on the H100 (``chip_smoke.py`` phase
@@ -47,6 +50,7 @@ from feartracker_tpu_torch.ops.crop import (
     extended_crop_window,
     normalize_imagenet,
 )
+from feartracker_tpu_torch.ops.cuda.crop import crop_cuda
 from feartracker_tpu_torch.ops.cuda.decode import decode_step_cuda, postprocess_cuda
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block, stream_tickets
 from feartracker_tpu_torch.ops.fused_trunk import fold_fear_net, get_features_folded
@@ -121,7 +125,14 @@ class ScanTracker:
       dtype: the model's compute dtype (float32 or bfloat16).
       device: where the tracker runs (default the card; ``"cpu"`` runs the
         kernels' plain twins); inputs are moved there.
-      crop_impl: "mm" (separable contractions, default) or "gather".
+      crop_impl: "kernel" (default): K3 (``ops/cuda/crop.py``), one launch
+        for all streams that reads each output's bilinear taps from the
+        frame, mixes in the pad colour, normalizes and writes the crop in
+        ``dtype``; on the CPU its plain twin (the gather crop, normalize,
+        cast). "mm": ``crop_resize_mm``, separable contractions with dense
+        per-stream operators over the whole frame cast to float32; "gather":
+        ``crop_resize`` on the frame cast to float32. "mm" and "gather" are
+        the JAX runtime's two routes, normalized and cast after the crop.
       dynamic_template: refresh a dynamic template each eligible frame: a
         candidate template is cropped at the new box, encoded, and blended
         into ``dyn_feats``, which the classification branch correlates
@@ -162,7 +173,7 @@ class ScanTracker:
         config: TrackerConfig = TrackerConfig(),
         dtype: torch.dtype = torch.float32,
         device="cuda",
-        crop_impl: str = "mm",
+        crop_impl: str = "kernel",
         dynamic_template: bool = False,
         update_threshold: float = 0.85,
         update_rate: float = 0.1,
@@ -176,8 +187,8 @@ class ScanTracker:
     ):
         if trunk_impl not in ("xla", "fused"):
             raise ValueError(f"trunk_impl must be 'xla' or 'fused', got {trunk_impl!r}")
-        if crop_impl not in ("mm", "gather"):
-            raise ValueError(f"crop_impl must be 'mm' or 'gather', got {crop_impl!r}")
+        if crop_impl not in ("kernel", "mm", "gather"):
+            raise ValueError(f"crop_impl must be 'kernel', 'mm' or 'gather', got {crop_impl!r}")
         if update_mode not in ("ema", "gated", "feature"):
             raise ValueError(f"update_mode must be 'ema', 'gated' or 'feature', got {update_mode!r}")
         if update_mode == "feature" and gate_params is None:
@@ -196,7 +207,7 @@ class ScanTracker:
         # kernel launches made by graph replays (the wrappers' own counters
         # count eager launches, and the kernels recorded at capture, which
         # run nothing)
-        self.replayed_launches = {"K1": 0, "K2": 0}
+        self.replayed_launches = {"K1": 0, "K2": 0, "K3": 0}
         self.crop_impl = crop_impl
         self.trunk_impl = trunk_impl
         self.config = config
@@ -254,9 +265,13 @@ class ScanTracker:
 
     def _crop(self, frames: torch.Tensor, windows: torch.Tensor, out_size: int,
               mean_color: torch.Tensor) -> torch.Tensor:
+        """The normalized crops the trunk takes, (S, out_size, out_size, 3):
+        K3's in ``dtype``, or the JAX routes' in float32."""
+        if self.crop_impl == "kernel":
+            return crop_cuda(frames, windows, out_size, mean_color, self.dtype)
         if self.crop_impl == "mm":
-            return crop_resize_mm(frames, windows, out_size, mean_color)
-        return crop_resize(frames.float(), windows, out_size, mean_color)
+            return normalize_imagenet(crop_resize_mm(frames, windows, out_size, mean_color))
+        return normalize_imagenet(crop_resize(frames.float(), windows, out_size, mean_color))
 
     def _features(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).contiguous()
@@ -267,8 +282,7 @@ class ScanTracker:
     def _template_features(self, frames, bboxes, mean_color) -> torch.Tensor:
         cfg = self.config
         windows = extended_crop_window(bboxes, cfg.template_bbox_offset)
-        crops = self._crop(frames, windows, cfg.template_size, mean_color)
-        return self._features(normalize_imagenet(crops))
+        return self._features(self._crop(frames, windows, cfg.template_size, mean_color))
 
     @staticmethod
     def _broadcast_shared(frames: torch.Tensor, num_streams: int) -> torch.Tensor:
@@ -352,7 +366,7 @@ class ScanTracker:
             else:
                 ctx = cfg.search_context
             windows = extended_crop_window(state.bbox, ctx)
-            crops = normalize_imagenet(self._crop(frames, windows, cfg.instance_size, state.mean_color))
+            crops = self._crop(frames, windows, cfg.instance_size, state.mean_color)
         with tracing.layer("fear.trunk"):
             search = self._features(crops)
         with tracing.layer("fear.head"):
@@ -516,7 +530,7 @@ class _Unrolled:
         self.phase = phase
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.tickets: Optional[torch.Tensor] = None
-        self.kernels = {"K1": 0, "K2": 0}
+        self.kernels = {"K1": 0, "K2": 0, "K3": 0}
         self.refreshes = sum(tracker.dynamic_template and (phase + k) % tracker.update_interval == 0
                              for k in range(self.K))
         dev = tracker.device
@@ -533,12 +547,13 @@ class _Unrolled:
             # keyed by the tensors' device ("cuda:0"), as the launches look it up
             self.tickets = stream_tickets(self.frames.device, stream.cuda_stream)
             self.graph = torch.cuda.CUDAGraph()
-            before = (postprocess_cuda.launches, fused_ir_block.launches)
+            before = (postprocess_cuda.launches, fused_ir_block.launches, crop_cuda.launches)
             with torch.cuda.graph(self.graph, stream=stream):
                 self.state_out, self.outputs = self._body()
             tracing.count("graph.captures")
             self.kernels = {"K1": postprocess_cuda.launches - before[0],
-                            "K2": fused_ir_block.launches - before[1]}
+                            "K2": fused_ir_block.launches - before[1],
+                            "K3": crop_cuda.launches - before[2]}
         torch.cuda.current_stream(dev).wait_stream(stream)
 
     def _body(self):

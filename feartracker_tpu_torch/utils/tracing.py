@@ -36,6 +36,7 @@ from typing import Dict, List
 import torch
 
 from feartracker_tpu_torch.ops.cuda.build import check_launch, load_library
+from feartracker_tpu_torch.ops.cuda.crop import crop_cuda
 from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
 
@@ -115,7 +116,8 @@ def counters() -> Dict[str, int]:
     from the process's start (eager launches, and kernels recorded at
     capture)."""
     return dict(_counts, **{"postprocess_cuda.launches": postprocess_cuda.launches,
-                            "fused_ir_block.launches": fused_ir_block.launches})
+                            "fused_ir_block.launches": fused_ir_block.launches,
+                            "crop_cuda.launches": crop_cuda.launches})
 
 
 def host_times() -> Dict[str, List[float]]:

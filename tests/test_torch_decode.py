@@ -312,7 +312,8 @@ def test_scan_tracker_step_equals_the_region_as_it_was(dtype):
         with torch.inference_mode():
             windows = tcrop.extended_crop_window(state.bbox, cfg.search_context)
             crops = tr._crop(f, windows, cfg.instance_size, state.mean_color)
-            out = tr.model.connector(state.template_feats, tr._features(tcrop.normalize_imagenet(crops)), None)
+            # the tracker's crop route returns the normalized crop (K3's twin on the CPU)
+            out = tr.model.connector(state.template_feats, tr._features(crops), None)
             cls = out[TARGET_CLASSIFICATION_KEY].float().contiguous()
             reg = out[TARGET_REGRESSION_LABEL_KEY].float().contiguous()
             prev = tcrop.crop_bbox_in_window(state.bbox, windows, cfg.instance_size)[:, 2:].contiguous()

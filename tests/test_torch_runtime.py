@@ -62,10 +62,13 @@ def tiny_setup():
     return jmodel, v, model, frames0, chunk, boxes
 
 
-@pytest.mark.parametrize("crop_impl", ["mm", "gather"])
-def test_tiny_tracker_matches_jax(tiny_setup, crop_impl):
+# the kernel route (K3's plain twin on the CPU) is held to JAX's gather
+# route, which crops, normalizes and casts in the same order
+@pytest.mark.parametrize("crop_impl, jax_crop_impl", [("mm", "mm"), ("gather", "gather"), ("kernel", "gather")],
+                         ids=["mm", "gather", "kernel"])
+def test_tiny_tracker_matches_jax(tiny_setup, crop_impl, jax_crop_impl):
     jmodel, v, model, frames0, chunk, boxes = tiny_setup
-    jtr = JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), crop_impl=crop_impl)
+    jtr = JScanTracker(jmodel, v, JTrackerConfig(**TINY_CFG), crop_impl=jax_crop_impl)
     _, jout = jtr.track(jtr.init(frames0, boxes), chunk)
     tr = ScanTracker(model, TrackerConfig(**TINY_CFG), device="cpu", crop_impl=crop_impl)
     _, out = tr.track(tr.init(frames0, boxes), chunk)

@@ -106,7 +106,7 @@ def test_counters_hold_the_launch_counters_and_reset():
         pass
     got = tracing.counters()
     assert got["graph.captures"] == 3 and len(tracing.host_times()["fear.a"]) == 1
-    assert {"postprocess_cuda.launches", "fused_ir_block.launches"} <= set(got)
+    assert {"postprocess_cuda.launches", "fused_ir_block.launches", "crop_cuda.launches"} <= set(got)
     tracing.reset()
     assert "graph.captures" not in tracing.counters() and tracing.host_times() == {}
     assert not tracing.capturing()
