@@ -24,6 +24,8 @@ extern "C" int fear_mark_launch(int layer, void* stream) {
     case 3: fear_mark<3><<<1, 1, 0, s>>>(); break;
     case 4: fear_mark<4><<<1, 1, 0, s>>>(); break;
     case 5: fear_mark<5><<<1, 1, 0, s>>>(); break;
+    case 6: fear_mark<6><<<1, 1, 0, s>>>(); break;
+    case 7: fear_mark<7><<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -9,6 +9,11 @@ unfolded ``get_features``) → BoxTower head against the cached template →
 the decode region (fused decode, rescale, clamp and APCE in one kernel),
 and carries the per-stream state. ``lax.scan`` becomes a Python loop over
 T; nothing in the loop waits for the device, so frames queue back to back.
+Given an OSTrack model (``models/ostrack.py``) the same tracker runs
+OSTrack's step instead: the square ``sample_target`` crop through the same
+crop kernel (pad colour 0), the joint ViT with candidate elimination against
+the cached template tokens, the centre head and the centre decode
+(``core/centre_decode.py``).
 With ``dynamic_template`` a refresh frame also crops and encodes a candidate
 template at the new box (the 128² crop through the same trunk kernels) and
 blends it into the dynamic template.
@@ -35,6 +40,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from feartracker_tpu_torch.convert.load import resolve_weights
+from feartracker_tpu_torch.core.centre_decode import (
+    centre_decode,
+    clip_box,
+    hann2d,
+    map_box_back,
+    sample_frames,
+    square_window,
+)
 from feartracker_tpu_torch.core.geometry import clamp_bbox
 from feartracker_tpu_torch.models.fear_net import FEARNet
 from feartracker_tpu_torch.models.gate import (
@@ -43,6 +56,13 @@ from feartracker_tpu_torch.models.gate import (
     gate_params_to,
     gate_rate,
     load_gate,
+)
+from feartracker_tpu_torch.models.ostrack import (
+    OSTrack,
+    centre_head,
+    fold_ostrack,
+    joint_forward,
+    template_tokens,
 )
 from feartracker_tpu_torch.ops.crop import (
     crop_resize,
@@ -107,10 +127,10 @@ def _copy_tensors(dst, src, path: str) -> None:
 class StreamState(NamedTuple):
     """Per-stream carried state (leading axis = streams)."""
 
-    template_feats: torch.Tensor  # (S, 8, 8, C) static template, model dtype
-    dyn_feats: torch.Tensor  # (S, 8, 8, C) dynamic (dual) template, model dtype
+    template_feats: torch.Tensor  # (S, 8, 8, C) static template, model dtype; OSTrack: (S, 64, C) tokens
+    dyn_feats: torch.Tensor  # (S, 8, 8, C) dynamic (dual) template, model dtype; OSTrack: the template
     bbox: torch.Tensor  # (S, 4) xywh, frame coords, float32
-    mean_color: torch.Tensor  # (S, 3) pad color from the init frame
+    mean_color: torch.Tensor  # (S, 3) pad color from the init frame; OSTrack: 0
     confidence: torch.Tensor  # (S,) last classification peak
 
 
@@ -121,7 +141,17 @@ class ScanTracker:
       model: a float32 ``FEARNet`` with its weights loaded. The tracker folds
         its trunk + neck in float32, then keeps its own copy of the model in
         ``dtype`` on ``device`` for the head; ``model`` itself is not changed.
-      config: decode constants.
+        Or a float32 ``OSTrack`` (``models/ostrack.py``): the tracker keeps
+        its folded weights in ``dtype`` (``fold_ostrack``) and runs OSTrack's
+        step; its sizes and geometry are the model's ``config``. The
+        template state is the template crop's tokens, (S, 64, C); each step
+        also outputs ``ce_kept``, the global indices of the search tokens
+        kept at each CE layer, (S, 180 + 126 + 89) int16, and
+        ``confidence`` is the unwindowed score at the chosen cell (OSTrack
+        reports none). The FEAR options below (``dynamic_template``, the
+        update modes, ``gate_params``, ``recover_context``, ``trunk_impl``)
+        raise ``ValueError`` with it.
+      config: FEAR's decode constants.
       dtype: the model's compute dtype (float32 or bfloat16).
       device: where the tracker runs (default the card; ``"cpu"`` runs the
         kernels' plain twins); inputs are moved there.
@@ -201,6 +231,14 @@ class ScanTracker:
             raise ValueError(f"recover_context must be >= 0, got {recover_context}")
         if scan_unroll < 1:
             raise ValueError(f"scan_unroll must be >= 1, got {scan_unroll}")
+        self.onestream = isinstance(model, OSTrack)
+        if self.onestream:
+            fear_only = {"dynamic_template": dynamic_template, "update_mode": update_mode != "ema",
+                         "gate_params": gate_params is not None, "recover_context": recover_context != 0,
+                         "trunk_impl": trunk_impl != "fused"}
+            bad = [k for k, v in fear_only.items() if v]
+            if bad:
+                raise ValueError(f"{', '.join(bad)}: FEAR's tracker options, which OSTrack's tracker has not")
         self.scan_unroll = int(scan_unroll)
         self._unrolled: Dict[tuple, _Unrolled] = {}
         self._capture_stream: Optional[torch.cuda.Stream] = None
@@ -228,6 +266,12 @@ class ScanTracker:
                 gate_params = load_gate(resolve_weights(gate_params))
             self._gate = gate_params_to(gate_params, self.device)
         src = copy.deepcopy(model).float().eval().to(self.device)
+        if self.onestream:
+            self.model = self.folded = self.specs = None
+            self.onestream_config = src.config
+            self.weights = fold_ostrack(src, dtype)
+            self.template_shape = (src.config.lens_z, src.config.embed_dim)
+            return
         self.specs = src.trunk_blocks
         # fold only for the fused trunk, as JAX does; "xla" reads self.model
         self.folded = fold_fear_net(src, dtype) if trunk_impl == "fused" else None
@@ -253,6 +297,8 @@ class ScanTracker:
         ``scan_unroll`` read the new weights at their next replay. Carried
         ``StreamState``\\ s are the caller's: their templates were encoded
         with the old weights. ``model`` itself is not changed."""
+        if self.onestream:
+            raise ValueError("set_variables: FEAR's warm start; an OSTrack tracker is built with its weights")
         src = copy.deepcopy(model).float().eval().to(self.device)
         if tuple(src.trunk_blocks) != tuple(self.specs):
             raise ValueError("set_variables: the model's trunk differs from the tracker's")
@@ -325,6 +371,8 @@ class ScanTracker:
         color (default: the float32 mean of the init frame)."""
         bboxes = self._to_device(bboxes).float()
         frames = self._broadcast_shared(self._to_device(frames), bboxes.shape[0])
+        if self.onestream:
+            return self._init_onestream(frames, bboxes, mean_color)
         H, W = frames.shape[1], frames.shape[2]
         bboxes = clamp_bbox(bboxes, (H, W))
         if mean_color is None:
@@ -353,6 +401,8 @@ class ScanTracker:
             return self._step(state, frames, step_index)
 
     def _step(self, state: StreamState, frames, step_index: Optional[int]):
+        if self.onestream:
+            return self._step_onestream(state, frames)
         # each layer a span, and inside a graph capture a mark, so that every
         # kernel of a replay follows its layer's mark (utils/tracing.py)
         cfg = self.config
@@ -407,6 +457,47 @@ class ScanTracker:
             if gate_obs is not None:
                 outputs["gate_obs"] = gate_obs
         return new_state, outputs
+
+    # -- OSTrack -------------------------------------------------------------
+
+    def _init_onestream(self, frames, bboxes, mean_color) -> StreamState:
+        """OSTrack's ``initialize``: the template crop (``sample_target`` at
+        ``template_factor``, padded with 0 unless ``mean_color`` says
+        otherwise; the box is not clipped, as OSTrack does not) → its tokens
+        with their positions, the template state."""
+        c = self.onestream_config
+        S = bboxes.shape[0]
+        pad = (torch.zeros((S, 3), dtype=torch.float32, device=self.device) if mean_color is None
+               else self._to_device(mean_color).float())
+        windows = square_window(bboxes, c.template_factor)
+        z = template_tokens(self.weights, c, self._crop(sample_frames(frames), windows, c.template_size, pad))
+        return StreamState(template_feats=z, dyn_feats=z, bbox=bboxes, mean_color=pad,
+                           confidence=torch.ones(S, dtype=torch.float32, device=self.device))
+
+    def _step_onestream(self, state: StreamState, frames):
+        """OSTrack's ``track`` for every stream: the search crop around the
+        carried box (``sample_target`` at ``search_factor``), the joint
+        forward against the template tokens (``fear.vit`` / ``fear.ce``
+        layers), the centre head, and the decode: the argmax of the
+        Hann-windowed score, ``map_box_back``, ``clip_box`` with the margin."""
+        c = self.onestream_config
+        with tracing.layer("fear.crop"):
+            frames = self._broadcast_shared(self._to_device(frames), state.bbox.shape[0])
+            H, W = frames.shape[1], frames.shape[2]
+            windows = square_window(state.bbox, c.search_factor)
+            crops = self._crop(sample_frames(frames), windows, c.search_size, state.mean_color)
+        feats, kept = joint_forward(self.weights, c, state.template_feats, crops, tracing.layer)
+        with tracing.layer("fear.head"):
+            score, size, offset = centre_head(self.weights, feats)
+        with tracing.layer("fear.decode"):
+            pred, confidence = centre_decode(score, size, offset, hann2d(c.feat_size, self.device))
+            bbox = clip_box(map_box_back(pred, state.bbox, windows[:, 2]), H, W, c.clip_margin).float()
+        with tracing.layer("fear.state"):
+            if tracing.enabled() and not tracing.capturing():
+                # a graph's are counted at its replays (_Unrolled.run)
+                tracing.count("ce.kept_tokens", bbox.shape[0] * sum(c.kept))
+            outputs = {"bbox": bbox, "confidence": confidence, "ce_kept": torch.cat(kept, dim=1).to(torch.int16)}
+        return state._replace(bbox=bbox, confidence=confidence), outputs
 
     def track(self, state: StreamState, frames, start_step: int = 0
               ) -> Tuple[StreamState, Dict[str, torch.Tensor]]:
@@ -518,8 +609,8 @@ class _Unrolled:
       kernels can be told apart by layer. The tracker keys its units by the
       tracing flag, so an unmarked unit never holds a mark, and keeps the
       units of one flag value at a time. A replay counts its unit's
-      dual-template refreshes (``refreshes``), which its Python ran once, at
-      capture.
+      dual-template refreshes (``refreshes``) and OSTrack's kept search
+      tokens (``ce.kept_tokens``), which its Python ran once, at capture.
 
     A failed capture or replay raises; nothing falls back to eager steps.
     """
@@ -533,6 +624,9 @@ class _Unrolled:
         self.kernels = {"K1": 0, "K2": 0, "K3": 0}
         self.refreshes = sum(tracker.dynamic_template and (phase + k) % tracker.update_interval == 0
                              for k in range(self.K))
+        # OSTrack's CE: search tokens kept by the unit's steps, over every stream
+        self.kept_tokens = (self.K * state.bbox.shape[0] * sum(tracker.onestream_config.kept)
+                            if tracker.onestream else 0)
         dev = tracker.device
         if dev.type != "cuda":
             self.state_in = StreamState(*(t.clone() for t in state))
@@ -583,6 +677,8 @@ class _Unrolled:
                 for k, n in self.kernels.items():
                     self.tracker.replayed_launches[k] += n
                 tracing.count("step.refreshes", self.refreshes)
+                if self.kept_tokens:
+                    tracing.count("ce.kept_tokens", self.kept_tokens)
         # a field that passed through unchanged is the caller's own tensor
         new_state = StreamState(*(src if out is buf else out.clone()
                                   for src, buf, out in zip(state, self.state_in, state_out)))

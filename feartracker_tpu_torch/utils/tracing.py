@@ -40,9 +40,11 @@ from feartracker_tpu_torch.ops.cuda.crop import crop_cuda
 from feartracker_tpu_torch.ops.cuda.decode import postprocess_cuda
 from feartracker_tpu_torch.ops.cuda.ir_block import fused_ir_block
 
-# the layers of a tracking step, in the order a step runs them; a mark's
-# kernel carries its layer's index here
-LAYERS = ("fear.crop", "fear.trunk", "fear.head", "fear.decode", "fear.refresh", "fear.state")
+# the layers of a tracking step, FEAR's in the order its step runs them, then
+# OSTrack's own (its step runs crop, vit, ce, vit, ce, vit, ce, vit, ce,
+# head, decode, state); a mark's kernel carries its layer's index here
+LAYERS = ("fear.crop", "fear.trunk", "fear.head", "fear.decode", "fear.refresh", "fear.state", "fear.vit",
+          "fear.ce")
 
 _NULL = contextlib.nullcontext()
 _enabled = False

@@ -219,3 +219,37 @@ def test_units_of_one_flag_value_at_a_time(model, clip):
         tracker.track(state, chunk, start_step=1)
         flags.append({key[3] for key in tracker._unrolled})
     assert flags == [{False}, {True}, {False}]
+
+
+def test_every_layer_has_its_mark(tmp_path):
+    """Each index of ``LAYERS`` has its case in ``csrc/mark.cu``'s launch
+    switch, OSTrack's ``fear.vit`` (6) and ``fear.ce`` (7) included, and a
+    replay's ``fear_mark<6>`` and ``fear_mark<7>`` kernels name their
+    segments in a trace by those layers."""
+    import os
+    import re
+
+    from portbench.program_trace import reduce_program_trace
+
+    src = open(os.path.join(os.path.dirname(tracing.__file__), "..", "csrc", "mark.cu")).read()
+    cases = {int(k) for k in re.findall(r"case (\d+): fear_mark<\1>", src)}
+    assert cases == set(range(len(tracing.LAYERS)))
+    assert tracing.LAYERS[6:] == ("fear.vit", "fear.ce")
+
+    def x(cat, name, ts, dur, corr):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 1, "tid": 1,
+                "args": {"correlation": corr}}
+
+    events = [x("user_annotation", "portbench.slice", 0, 500, None), x("cuda_runtime", "cudaGraphLaunch", 5, 2, 9)]
+    t = 10
+    for name, dur in [("void fear_mark<0>()", 1), ("crop", 4), ("void fear_mark<6>()", 1), ("gemm", 30),
+                      ("void fear_mark<7>()", 1), ("sort", 5), ("void fear_mark<6>()", 1), ("gemm", 20),
+                      ("void fear_mark<7>()", 1), ("scatter", 2), ("void fear_mark<2>()", 1), ("conv", 6)]:
+        events.append(x("kernel", name, t, dur, 9))
+        t += dur + 1
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    r = reduce_program_trace(str(path), tracing.LAYERS)
+    us = 1e-6
+    want = {"fear.crop": [4], "fear.vit": [30, 20], "fear.ce": [5, 2], "fear.head": [6]}
+    assert r["segments"] == {k: [pytest.approx(v * us) for v in vs] for k, vs in want.items()}
